@@ -44,3 +44,8 @@ jax.config.update("jax_default_matmul_precision", "highest")
 jax.config.update("jax_compilation_cache_dir", "/tmp/jax_cache_cpu_tests")
 jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
 assert len(jax.devices()) >= 8, "CPU device-count flag did not take effect"
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "gpu: runs a CUDA kernel; skips when no card is present")

@@ -1,0 +1,329 @@
+"""Video DiT as an `nn.Module` (port of `models/dit.py`).
+
+Same architecture as the JAX model: 3D patchify, register tokens, 3D RoPE,
+timestep MLP, N blocks of [AdaLN-modulated self-attention + cross-attention
++ MLP] with value-residual mixing, final AdaLN + RMSNorm + projection,
+unpatchify. Parameter names are the reference torch state-dict names
+(`blocks.{i}.qkv`, `mlp.0`, `adaLN_modulation.1`, …), so the output of
+`models/convert.py:state_dict_from_jax_params` loads with `strict=True`.
+
+Each block follows `block_forward` (`models/dit.py:232-395` of the JAX
+package) op for op, including where it dispatches to the fused ops
+(`DiTConfig.attention_impl`, `DiTConfig.fused_adaln`).
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from video_diffusion_speedrun_tpu_torch.core.config import (
+    DiTConfig,
+    resolve_device,
+)
+from video_diffusion_speedrun_tpu_torch.models.rope import (
+    apply_rotary,
+    rope_cos_sin,
+)
+from video_diffusion_speedrun_tpu_torch.ops.attention import (
+    dot_product_attention,
+)
+from video_diffusion_speedrun_tpu_torch.ops.embeddings import (
+    timestep_embedding,
+)
+from video_diffusion_speedrun_tpu_torch.ops.fused_adaln import (
+    adaln_rms_modulate,
+)
+from video_diffusion_speedrun_tpu_torch.ops.fused_attention import (
+    cross_flash_attention,
+    qkv_rope_flash_attention,
+)
+from video_diffusion_speedrun_tpu_torch.ops.fused_gelu import _phi_poly
+from video_diffusion_speedrun_tpu_torch.ops.normalization import rms_norm
+from video_diffusion_speedrun_tpu_torch.ops.patchify import (
+    patchify,
+    unpatchify,
+)
+
+
+def _use_fused_adaln(cfg: DiTConfig, x: torch.Tensor) -> bool:
+    return cfg.fused_adaln == "fused" or (
+        cfg.fused_adaln == "auto" and x.is_cuda)
+
+
+def _use_fused_attention(cfg: DiTConfig, x: torch.Tensor) -> bool:
+    return cfg.attention_impl == "fused" or (
+        cfg.attention_impl == "auto" and x.is_cuda)
+
+
+def _dense(lin: nn.Linear, x: torch.Tensor) -> torch.Tensor:
+    """x·W + b in x's dtype (the compute dtype), as the JAX `_dense`."""
+    bias = None if lin.bias is None else lin.bias.to(x.dtype)
+    return F.linear(x, lin.weight.to(x.dtype), bias)
+
+
+class RMSNorm(nn.Module):
+    """Holds the optional trainable RMSNorm scale (`norm*.weight`); the norm
+    itself runs inside `_norm_modulate`."""
+
+    def __init__(self, dim: int, trainable: bool):
+        super().__init__()
+        self.weight = nn.Parameter(torch.ones(dim)) if trainable else None
+
+
+def _norm_modulate(cfg: DiTConfig, x: torch.Tensor, norm: RMSNorm,
+                   shift: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """modulate(rms_norm(x, γ), shift, scale): the fused op, or the plain
+    composition (rms_norm rounds to x's dtype before the modulation)."""
+    if _use_fused_adaln(cfg, x):
+        return adaln_rms_modulate(x, shift, scale, norm.weight)
+    xn = rms_norm(x, norm.weight)
+    return xn * (1 + scale[:, None, :]) + shift[:, None, :]
+
+
+class MLP(nn.Sequential):
+    """`mlp.0` (fc1), GELU, `mlp.2` (fc2); the GELU is chosen per call."""
+
+    def __init__(self, dim: int, hidden: int):
+        super().__init__(nn.Linear(dim, hidden), nn.GELU(),
+                         nn.Linear(hidden, dim))
+
+
+class DiTBlock(nn.Module):
+    def __init__(self, cfg: DiTConfig):
+        super().__init__()
+        d = cfg.hidden_size
+        bias = cfg.train_bias_and_rms
+        self.cfg = cfg
+        self.norm1 = RMSNorm(d, cfg.train_bias_and_rms)
+        self.qkv = nn.Linear(d, 3 * d, bias=bias)
+        self.attn_proj = nn.Linear(d, d, bias=False)
+        self.norm3 = RMSNorm(d, cfg.train_bias_and_rms)
+        self.mlp = MLP(d, cfg.mlp_hidden)
+        self.adaLN_modulation = nn.Sequential(nn.SiLU(), nn.Linear(d, 9 * d))
+        if cfg.residual_v:
+            self.lambda_param = nn.Parameter(torch.full((1,), 0.5))
+        if cfg.cross_attn_input_size is not None:
+            self.norm2 = RMSNorm(d, cfg.train_bias_and_rms)
+            self.q_cross = nn.Linear(d, d, bias=bias)
+            self.context_kv = nn.Linear(cfg.cross_attn_input_size, 2 * d,
+                                        bias=bias)
+            self.cross_proj = nn.Linear(d, d, bias=False)
+
+    def forward(self, x: torch.Tensor, context: Optional[torch.Tensor],
+                t_emb: torch.Tensor, cos: Optional[torch.Tensor],
+                sin: Optional[torch.Tensor], v0: Optional[torch.Tensor],
+                context_kv: Optional[torch.Tensor] = None
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Returns (x, v): v is the (value-residual-mixed) self-attention
+        value; the model keeps block 0's as v0. v0 is None in block 0."""
+        cfg = self.cfg
+        nh, hd = cfg.num_heads, cfg.head_dim
+        b, l, d = x.shape
+
+        mod = _dense(self.adaLN_modulation[1], F.silu(t_emb))  # [B, 9D]
+        (shift_sa, scale_sa, gate_sa, shift_ca, scale_ca, gate_ca,
+         shift_mlp, scale_mlp, gate_mlp) = mod.chunk(9, dim=-1)
+
+        # --- self-attention ---
+        xn = _norm_modulate(cfg, x, self.norm1, shift_sa, scale_sa)
+        qkv = _dense(self.qkv, xn)  # [B, L, 3D], features (k, h, d)
+        v = qkv[..., 2 * d:]
+        if cfg.residual_v and v0 is not None:
+            lam = self.lambda_param.to(x.dtype)
+            v = lam * v + (1 - lam) * v0
+
+        if _use_fused_attention(cfg, x):
+            if cos is not None:
+                attn = qkv_rope_flash_attention(qkv, v, cos, sin, nh)
+            else:  # no-RoPE model: the same kernel with RoPE off
+                attn = cross_flash_attention(qkv[..., :d], qkv[..., d:2 * d],
+                                             v, nh)
+        else:
+            qh, kh, vh = (t.reshape(b, l, nh, hd).transpose(1, 2)
+                          for t in (qkv[..., :d], qkv[..., d:2 * d], v))
+            if cos is not None:
+                qh = apply_rotary(qh, cos, sin)
+                kh = apply_rotary(kh, cos, sin)
+            attn = dot_product_attention(qh, kh, vh)
+            attn = attn.transpose(1, 2).reshape(b, l, d)
+        x = x + _dense(self.attn_proj, attn) * gate_sa[:, None, :]
+
+        # --- cross-attention ---
+        if cfg.cross_attn_input_size is not None:
+            xn = _norm_modulate(cfg, x, self.norm2, shift_ca, scale_ca)
+            qc = _dense(self.q_cross, xn)
+            # [B, Lc, 2D], features (2, h, d): projected once per trajectory
+            # by the sampler, or here from the context
+            ckv = context_kv if context_kv is not None else _dense(
+                self.context_kv, context.to(x.dtype))
+            lc = ckv.shape[1]
+            if _use_fused_attention(cfg, x):
+                cross = cross_flash_attention(qc, ckv[..., :d], ckv[..., d:],
+                                              nh)
+            else:
+                qch = qc.reshape(b, l, nh, hd).transpose(1, 2)
+                ckvh = ckv.reshape(b, lc, 2, nh, hd).permute(2, 0, 3, 1, 4)
+                cross = dot_product_attention(qch, ckvh[0], ckvh[1])
+                cross = cross.transpose(1, 2).reshape(b, l, d)
+            x = x + _dense(self.cross_proj, cross) * gate_ca[:, None, :]
+
+        # --- MLP ---
+        xn = _norm_modulate(cfg, x, self.norm3, shift_mlp, scale_mlp)
+        fc1, fc2 = self.mlp[0], self.mlp[2]
+        if _use_fused_adaln(cfg, x):
+            # the JAX model's fc1 epilogue: bias in the compute dtype, then
+            # h·Φ_poly(h) in fp32
+            h = torch.matmul(xn, fc1.weight.to(x.dtype).t())
+            hf = (h + fc1.bias.to(x.dtype)).float()
+            h = (hf * _phi_poly(hf)).to(x.dtype)
+        else:
+            h = F.gelu(_dense(fc1, xn))  # exact erf GELU
+        x = x + _dense(fc2, h) * gate_mlp[:, None, :]
+        return x, v
+
+
+class PatchEmbed(nn.Module):
+    """Holds the Conv3d patch weight (`patch_embed.patch_proj`); the
+    projection runs as reshape + matmul in `ops/patchify.py`."""
+
+    def __init__(self, cfg: DiTConfig):
+        super().__init__()
+        k = (cfg.time_patch_size, cfg.patch_size, cfg.patch_size)
+        self.patch_proj = nn.Conv3d(cfg.in_channels, cfg.hidden_size, k,
+                                    stride=k)
+
+
+class DiT(nn.Module):
+    """The video DiT. Built on `device` (default: the card; a CUDA device
+    with no card present raises) with the init of the JAX `init_dit`,
+    drawn from a `torch.Generator` seeded with `seed`."""
+
+    def __init__(self, cfg: DiTConfig, *, device="cuda",
+                 init_std_factor: float = 1.0, seed: int = 0):
+        super().__init__()
+        device = resolve_device(device)
+        self.cfg = cfg
+        d = cfg.hidden_size
+        with torch.device("meta"):
+            self.patch_embed = PatchEmbed(cfg)
+            self.register_tokens = nn.Parameter(
+                torch.empty(1, cfg.num_registers, d))
+            self.time_embed = nn.Sequential(
+                nn.Linear(d, 4 * d), nn.SiLU(), nn.Linear(4 * d, d))
+            self.blocks = nn.ModuleList(
+                DiTBlock(cfg) for _ in range(cfg.depth))
+            self.final_modulation = nn.Sequential(nn.SiLU(),
+                                                  nn.Linear(d, 2 * d))
+            self.final_norm = RMSNorm(d, cfg.train_bias_and_rms)
+            self.final_proj = nn.Linear(d, cfg.out_patch_dim)
+            if not cfg.use_rope:
+                self.positional_embedding = nn.Parameter(
+                    torch.empty(1, cfg.max_tokens_no_rope, d))
+        self.to_empty(device=device)
+        gen = torch.Generator(device=device).manual_seed(seed)
+        self._init_weights(gen, init_std_factor)
+        self.to(cfg.param_dtype)
+
+    @torch.no_grad()
+    def _init_weights(self, gen: torch.Generator, std_factor: float) -> None:
+        """`init_dit`: U(±1/√fan_in) weights and biases, 2-D weights scaled
+        by `std_factor` except the patch projection; zero AdaLN and final
+        layers; N(0, 1) registers; λ = 0.5; RMSNorm scales 1."""
+
+        def uniform(lin: nn.Module, factor: float) -> None:
+            fan_in = lin.weight[0].numel()
+            bound = 1.0 / math.sqrt(fan_in)
+            lin.weight.uniform_(-bound, bound, generator=gen)
+            lin.weight.mul_(factor)
+            if lin.bias is not None:
+                lin.bias.uniform_(-bound, bound, generator=gen)
+
+        def zero(lin: nn.Linear) -> None:
+            lin.weight.zero_()
+            lin.bias.zero_()
+
+        uniform(self.patch_embed.patch_proj, 1.0)
+        self.register_tokens.normal_(generator=gen)
+        uniform(self.time_embed[0], std_factor)
+        uniform(self.time_embed[2], std_factor)
+        zero(self.final_modulation[1])
+        zero(self.final_proj)
+        if not self.cfg.use_rope:
+            self.positional_embedding.zero_()
+        for blk in self.blocks:
+            for lin in (blk.qkv, blk.attn_proj, blk.mlp[0], blk.mlp[2]):
+                uniform(lin, std_factor)
+            zero(blk.adaLN_modulation[1])
+            if self.cfg.residual_v:
+                blk.lambda_param.fill_(0.5)
+            if self.cfg.cross_attn_input_size is not None:
+                for lin in (blk.q_cross, blk.context_kv, blk.cross_proj):
+                    uniform(lin, std_factor)
+        for mod in self.modules():
+            if isinstance(mod, RMSNorm) and mod.weight is not None:
+                mod.weight.fill_(1.0)
+
+    def precompute_context_kv(self, context: torch.Tensor) -> torch.Tensor:
+        """Every layer's cross-attention K/V [depth, B, Lc, 2D], projected
+        once when the same context serves many forwards (sampling)."""
+        ctx = context.to(self.cfg.compute_dtype)
+        return torch.stack([_dense(blk.context_kv, ctx)
+                            for blk in self.blocks])
+
+    def forward(self, x: torch.Tensor, context: Optional[torch.Tensor],
+                timesteps: torch.Tensor,
+                rope_offsets: Optional[torch.Tensor] = None,
+                context_kv: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """x [B, C, T, H, W], context [B, Lc, ctx_dim] (or None with
+        `context_kv` [depth, B, Lc, 2D]), timesteps [B] → [B, C, T, H, W].
+        `rope_offsets` [3] ints; zeros by default."""
+        cfg = self.cfg
+        cdt = cfg.compute_dtype
+        b = x.shape[0]
+        gt = x.shape[2] // cfg.time_patch_size
+        gh = x.shape[3] // cfg.patch_size
+        gw = x.shape[4] // cfg.patch_size
+        r = cfg.num_registers
+
+        proj = self.patch_embed.patch_proj
+        tokens = patchify(x, proj.weight.reshape(cfg.hidden_size, -1).t(),
+                          proj.bias, cfg.time_patch_size, cfg.patch_size,
+                          compute_dtype=cdt)
+        regs = self.register_tokens.to(cdt).expand(b, r, cfg.hidden_size)
+        tokens = torch.cat([regs, tokens], dim=1)  # [B, R+L, D]
+
+        if cfg.use_rope:
+            if rope_offsets is None:
+                rope_offsets = torch.zeros(3, dtype=torch.int64)
+            cos, sin = rope_cos_sin(
+                cfg.head_dim, gt, gh, gw, rope_offsets.to(x.device),
+                base=cfg.rope_base, num_registers=r, order=cfg.rope_order)
+        else:
+            cos = sin = None
+            pos = self.positional_embedding[:, : tokens.shape[1]].to(cdt)
+            tokens = tokens + pos
+
+        t_emb = timestep_embedding(timesteps, cfg.hidden_size).to(cdt)
+        t_emb = _dense(self.time_embed[2],
+                       F.silu(_dense(self.time_embed[0], t_emb)))
+
+        v0 = None
+        for i, blk in enumerate(self.blocks):
+            tokens, v = blk(tokens, context, t_emb, cos, sin, v0,
+                            None if context_kv is None else context_kv[i])
+            if i == 0:
+                v0 = v
+
+        tokens = tokens[:, r:, :]
+        fmod = _dense(self.final_modulation[1], F.silu(t_emb))
+        final_shift, final_scale = fmod.chunk(2, dim=-1)  # shift first
+        tokens = _norm_modulate(cfg, tokens, self.final_norm, final_shift,
+                                final_scale)
+        tokens = _dense(self.final_proj, tokens)
+        return unpatchify(tokens, gt, gh, gw, cfg.time_patch_size,
+                          cfg.patch_size, cfg.out_channels)

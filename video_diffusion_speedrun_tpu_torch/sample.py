@@ -1,0 +1,88 @@
+"""Sampling entry point of the port: Euler+CFG sampling of the demo DiT with
+random weights (the `--random_weights` smoke path of the JAX `sample.py`).
+
+    python -m video_diffusion_speedrun_tpu_torch.sample \\
+        --height 256 --width 256 --num_latent_frames 8 --inference_steps 8
+
+Runs on the card by default (`--device cuda`, which raises when no card is
+present); `--device cpu` runs the plain twins of the fused ops. Prints the
+shape and std of the sampled latents. Prompt encoding (T5) and the Cosmos
+decode come with later slices, so the context is seeded random noise.
+"""
+
+from __future__ import annotations
+
+import argparse
+import time
+from typing import List, Optional
+
+import torch
+
+from video_diffusion_speedrun_tpu_torch.core.config import (
+    DiTConfig,
+    SamplingConfig,
+    resolve_device,
+)
+from video_diffusion_speedrun_tpu_torch.models.dit import DiT
+from video_diffusion_speedrun_tpu_torch.sampling.euler import generate_latents
+
+
+def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
+    p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    p.add_argument("--inference_steps", type=int, default=50)
+    p.add_argument("--cfg_scale", type=float, default=6.0)
+    p.add_argument("--height", type=int, default=512)
+    p.add_argument("--width", type=int, default=512)
+    p.add_argument("--num_latent_frames", type=int, default=16)
+    p.add_argument("--seed", type=int, default=42)
+    p.add_argument("--model_width", type=int, default=2048)
+    p.add_argument("--model_depth", type=int, default=24)
+    p.add_argument("--model_head_dim", type=int, default=128)
+    p.add_argument("--rope_order", choices=["matched", "reference"],
+                   default="matched")
+    p.add_argument("--context_dim", type=int, default=4096)
+    p.add_argument("--device", default="cuda")
+    return p.parse_args(argv)
+
+
+def demo_config(model_width: int, model_depth: int, model_head_dim: int,
+                context_dim: int, rope_order: str = "matched",
+                **overrides) -> DiTConfig:
+    """The demo-model architecture of the JAX `sample.py`."""
+    return DiTConfig(
+        in_channels=16, patch_size=2, time_patch_size=2,
+        hidden_size=model_width, depth=model_depth,
+        num_heads=model_width // model_head_dim, mlp_ratio=4.0,
+        cross_attn_input_size=context_dim, residual_v=True,
+        train_bias_and_rms=False, rope_order=rope_order, **overrides)
+
+
+def main(argv: Optional[List[str]] = None) -> torch.Tensor:
+    args = parse_args(argv)
+    device = resolve_device(args.device)
+    model_cfg = demo_config(args.model_width, args.model_depth,
+                            args.model_head_dim, args.context_dim,
+                            args.rope_order)
+    sampling = SamplingConfig(
+        inference_steps=args.inference_steps, cfg_scale=args.cfg_scale,
+        height=args.height, width=args.width,
+        num_latent_frames=args.num_latent_frames, seed=args.seed)
+
+    print("using RANDOM weights (smoke mode)")
+    model = DiT(model_cfg, device=device, init_std_factor=0.1, seed=0)
+    gen = torch.Generator(device=device).manual_seed(1)
+    context = torch.randn(1, 512, args.context_dim, generator=gen,
+                          device=device).to(torch.bfloat16) * 0.05
+
+    print(f"sampling {args.inference_steps} steps, cfg {args.cfg_scale} ...")
+    t0 = time.perf_counter()
+    latents = generate_latents(model, context, sampling)
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    print(f"latents {tuple(latents.shape)}, std {float(latents.std()):.3f} "
+          f"({time.perf_counter() - t0:.2f} s on {device})")
+    return latents
+
+
+if __name__ == "__main__":
+    main()

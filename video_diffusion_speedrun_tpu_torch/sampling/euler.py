@@ -1,0 +1,87 @@
+"""Euler + CFG rectified-flow sampler (port of `sampling/euler.py`).
+
+Timesteps i = N…1 with the α shift on both t and t_next; guidance
+`uncond + s·(cond − uncond)` in fp32 with a zero-context uncond branch;
+cond and uncond run as one forward at batch 2B (cond first); the
+accumulator is fp32 and each step's model input is `acc` cast to the
+latents' dtype. The context K/V is projected once per trajectory.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+
+from video_diffusion_speedrun_tpu_torch.core.config import SamplingConfig
+from video_diffusion_speedrun_tpu_torch.models.dit import DiT
+from video_diffusion_speedrun_tpu_torch.train.loss import time_shift
+
+
+def initial_latents(generator: torch.Generator, cfg: SamplingConfig,
+                    channels: int = 16,
+                    dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+    """[1, C, frames, 2·(H//16), 2·(W//16)] gaussian noise from `generator`,
+    on the generator's device."""
+    shape = (1, channels, cfg.num_latent_frames, 2 * (cfg.height // 16),
+             2 * (cfg.width // 16))
+    return torch.randn(shape, generator=generator, device=generator.device,
+                       dtype=torch.float32).to(dtype)
+
+
+def schedule(num_steps: int, alpha: float) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(t_i, dt_i) fp32 for i = N…1, α-shifted."""
+    i = torch.arange(num_steps, 0, -1, dtype=torch.float32)
+    t = time_shift(i / num_steps, alpha)
+    t_next = time_shift((i - 1) / num_steps, alpha)
+    return t, t - t_next
+
+
+@torch.no_grad()
+def euler_cfg_sample(model: DiT, latents: torch.Tensor,
+                     context: torch.Tensor, *, num_steps: int = 50,
+                     cfg_scale: float = 6.0,
+                     alpha: float = 8.0) -> torch.Tensor:
+    """Run the Euler trajectory; returns the fp32 accumulator.
+
+    `latents` [B, C, T, h, w], `context` [B, Lc, ctx_dim] (the conditional
+    embedding; the uncond branch is zeros), both on the model's device."""
+    ts, dts = schedule(num_steps, alpha)
+    acc = latents.float()
+    do_cfg = cfg_scale > 1.0
+    ckv = None
+    if model.cfg.cross_attn_input_size is not None:
+        ctx = torch.cat([context, torch.zeros_like(context)]) if do_cfg \
+            else context
+        ckv = model.precompute_context_kv(ctx)
+    b = acc.shape[0]
+    for t, dt in zip(ts.tolist(), dts.tolist()):
+        lat = acc.to(latents.dtype)
+        tvec = torch.full((b,), t, dtype=torch.float32, device=acc.device)
+        if do_cfg:
+            out2 = model(torch.cat([lat, lat]), None, torch.cat([tvec, tvec]),
+                         context_kv=ckv)
+            cond, uncond = out2.float().chunk(2)
+            out = uncond + cfg_scale * (cond - uncond)
+        else:
+            out = model(lat, None, tvec, context_kv=ckv).float()
+        acc = acc + dt * out
+    return acc
+
+
+def generate_latents(model: DiT, context: torch.Tensor,
+                     sampling: SamplingConfig,
+                     generator: Optional[torch.Generator] = None
+                     ) -> torch.Tensor:
+    """Seeded initial noise → sampled fp32 latents. The noise comes from
+    `generator`, by default one on the model's device seeded with
+    `sampling.seed`."""
+    if generator is None:
+        device = next(model.parameters()).device
+        generator = torch.Generator(device=device).manual_seed(sampling.seed)
+    latents = initial_latents(generator, sampling,
+                              channels=model.cfg.in_channels)
+    return euler_cfg_sample(model, latents, context,
+                            num_steps=sampling.inference_steps,
+                            cfg_scale=sampling.cfg_scale,
+                            alpha=sampling.time_shift_alpha)
