@@ -8,17 +8,30 @@ Run from the root of a checkout. Phases, each of which raises on failure:
 1. build   — compile the CUDA kernels from `video_diffusion_speedrun_tpu_torch/
              csrc/` (one nvcc per source, in parallel) and print ptxas's
              register/shared-memory summary;
-2. kernels — hold each kernel against its plain twin on the card, at the
+2. kernels — hold each kernel against its plain twin on the card and time
+             kernel, twin and a library call as a yardstick, with each
+             kernel's bound from the card's peaks. Forward kernels at the
              sampling shapes (self-attention B=2, L=1040, H=16, D=128;
-             cross-attention Lk=512; AdaLN D=2048) and at a ragged shape
-             (L=333, Lk=77); time kernel, twin, and a library call as a
-             yardstick; compute each kernel's bound from the card's peaks;
+             cross Lk=512; AdaLN D=2048); backward kernels at the training
+             shapes (B=64, H=4, D=128, L=528, cross Lk=512; AdaLN
+             [64, 528, 512] with and without γ, strided x); attention at a
+             ragged shape too (L=333, Lk=77); AdamW on leaves of the
+             canonical DiT with fp32 and bf16 moments, timed over all 299;
 3. serve   — sample 2 requests (two seeds, 8 Euler steps, CFG 6.0) with the
              demo DiT (width 2048, depth 24, head 128) at 256×256×8 frames
              through `generate_latents`, the launch counters set to 0 just
              before and read just after; profile one Euler step;
 4. parity  — the same model at depth 2 and full width, 2 Euler steps on the
-             card against the CPU run of the fused ops' twins in fp32.
+             card against the CPU run of the fused ops' twins in fp32;
+5. train   — the canonical 248M DiT (width 512, depth 24, 4 heads of 128,
+             batch 64, synthetic [16, 5, 32, 32] latents → L = 528, device
+             context 512×4096, remat, muP AdamW at lr 2^-6, linear
+             schedule) through the port's `Trainer` and `train_step`: 8
+             steps with the launch counters set to 0 before and read after,
+             one evaluation, one profiled step;
+6. train parity — depth 2, full width: 3 optimizer steps on the card (bf16
+             compute, kernels) against the CPU (fp32, twins) on the same
+             weights and injected batches.
 
 The next-to-last lines are the kernels JSON and the card's name and power
 limit; the last line is {"ok": true, "device": {...}}. With no card, or
@@ -60,6 +73,34 @@ ADALN_RTOL = 2.0 ** -7
 # card (bf16 weights and activations, kernels) against CPU (fp32 twins):
 # relative L2 of the 2-step latent update; bf16 rounding through 2 blocks
 PARITY_REL_L2 = 5e-2
+# attention backward: both sides round p and ds to bf16 at the same points,
+# but δ and every product sum in other orders, which can flip a bf16
+# rounding of ds and the final rounding of dq/dk/dv: within 2% of each
+# gradient's largest magnitude
+ATTN_BWD_REL = 2e-2
+# AdaLN backward: fp32 inside on both sides; dx within one bf16 ulp plus 1%
+# of its scale (cancellation in dn − n·mean(n·dn)); dshift/dscale are fp32
+# partial sums in another order, rounded to bf16: one ulp plus 0.1% of scale
+ADALN_BWD_RTOL = 2.0 ** -7
+# AdamW: the kernel rounds each operation as the JAX leaf math; the twin on
+# CUDA divides by bc1/bc2 through a reciprocal: a few ulps of the update,
+# whose size is the leaf's lr, plus an ulp of the weight
+ADAMW_RTOL, ADAMW_LR_ATOL = 2e-6, 1e-6
+
+# the canonical training DiT (train.py:179-188 of the JAX package, the
+# run_debug.sh speedrun configuration)
+T_WIDTH, T_DEPTH, T_HEAD_DIM, T_BATCH = 512, 24, 128, 64
+T_LATENT = (16, 5, 32, 32)  # Cosmos [C, T, H, W]; T floor-crops to 4
+T_L = (T_LATENT[1] // 2) * (T_LATENT[2] // 2) * (T_LATENT[3] // 2) + 16  # 528
+T_LR = 2.0 ** -6
+T_STEPS = 8
+# card (bf16 compute, kernels) against CPU (fp32 twins), depth 2: the loss
+# of each of 3 steps within 5% (bf16 activations, and Adam's first steps
+# move each weight by about ±lr, so components with a near-zero gradient
+# may move the other way); step 1's gradients within 10% relative L2 (bf16
+# activations and the bf16 p/ds of the attention backward)
+TRAIN_LOSS_REL = 5e-2
+TRAIN_GRAD_REL_L2 = 1e-1
 
 
 def log(msg: str) -> None:
@@ -236,7 +277,240 @@ def phase_kernels(dev):
         log(f"[kernels] {name} L={l}: kernel {ms:.4f} ms, twin "
             f"{plain_ms:.4f} ms, no single library call, bound {bms:.4f} ms "
             f"({by}), {2 * n * 2 / ms / 1e6:.1f} GB/s")
+    rows.update(attention_bwd_rows(dev))
+    rows.update(adaln_bwd_row(dev))
+    rows.update(adamw_row(dev))
     return rows
+
+
+def check_close(name: str, what: str, got, want, rtol: float, atol: float,
+                note: str) -> float:
+    """Raise unless |got − want| ≤ atol + rtol·|want| everywhere; log and
+    return the max abs error."""
+    got, want = got.float(), want.float()
+    err = (got - want).abs()
+    ok = bool((err <= atol + rtol * want.abs()).all())
+    atol_s = f"{float(torch.as_tensor(atol).max()):.3e}"  # may be per element
+    log(f"[kernels] {name} {what}: max_abs_err {err.max().item():.3e} (tol "
+        f"{atol_s} + {rtol:.1e}·|ref|: {note}) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"{name} disagrees with its twin ({what})")
+    return err.max().item()
+
+
+def attention_bwd_rows(dev):
+    """Rows 4–5: the backward kernel against its twin at the training
+    shapes and a ragged one; times at the training shapes."""
+    import torch.nn.functional as F
+
+    from video_diffusion_speedrun_tpu_torch.models.rope import rope_cos_sin
+    from video_diffusion_speedrun_tpu_torch.ops import fused_attention as fa
+
+    gen = torch.Generator(device=dev).manual_seed(5)
+    h, d = T_WIDTH // T_HEAD_DIM, T_HEAD_DIM
+    hd, scale = h * d, d ** -0.5
+    rows = {}
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen, device=dev).bfloat16()
+
+    for rope, replaces in ((True, "fused_attention.py:873"),
+                           (False, "fused_attention.py:1042")):
+        name = f"short_attention_bwd<{'rope' if rope else 'norope'}>"
+        for b, lq, lk in ((T_BATCH, T_L, T_L if rope else CTX_LEN),
+                          (2, 333, 333 if rope else 77)):
+            qkv = randn(b, lq, 3 * hd)
+            q = qkv[..., :hd]
+            if rope:
+                k, v = qkv[..., hd:2 * hd], randn(b, lq, hd)
+                grid = (2, 16, 16) if lq == T_L else (1, 1, lq - 16)
+                cos, sin = rope_cos_sin(d, *grid, torch.tensor(
+                    [3, 5, 7], device=dev), num_registers=16)
+            else:
+                ckv = randn(b, lk, 2 * hd)
+                k, v = ckv[..., :hd], ckv[..., hd:]
+                cos = sin = None
+            o, lse = fa.short_attention_cuda(q, k, v, cos, sin, h, scale)
+            do = randn(b, lq, hd)
+            got = fa.short_attention_bwd_cuda(q, k, v, cos, sin, o, lse, do,
+                                              h, scale)
+            want = fa.short_attention_bwd_plain(q, k, v, cos, sin, o, lse,
+                                                do, h, scale)
+            torch.cuda.synchronize()
+            err = max(check_close(
+                name, f"B={b} Lq={lq} Lk={lk} {gname}", x, y, 0.0,
+                ATTN_BWD_REL * y.float().abs().max().item(),
+                "2% of the largest |grad|: bf16 p/ds rounding flips under "
+                "another summation order")
+                for gname, x, y in zip(("dq", "dk", "dv"), got, want))
+            if lq != T_L:
+                continue
+            ms = cuda_ms(lambda: fa.short_attention_bwd_cuda(
+                q, k, v, cos, sin, o, lse, do, h, scale), iters=20)
+            plain_ms = cuda_ms(lambda: fa.short_attention_bwd_plain(
+                q, k, v, cos, sin, o, lse, do, h, scale), iters=3, warmup=1)
+            # yardstick only: SDPA's backward on pre-rotated [B, H, L, D]
+            qh, kh, vh = (t.reshape(b, -1, h, d).transpose(1, 2).contiguous()
+                          for t in (q, k, v))
+            if rope:
+                qh = fa._rope_rotate(qh.float(), cos, sin).bfloat16()
+                kh = fa._rope_rotate(kh.float(), cos, sin).bfloat16()
+            qh, kh, vh = (t.requires_grad_() for t in (qh, kh, vh))
+            oh = F.scaled_dot_product_attention(qh, kh, vh)
+            doh = do.reshape(b, lq, h, d).transpose(1, 2).contiguous()
+            lib_ms = cuda_ms(lambda: torch.autograd.grad(
+                oh, (qh, kh, vh), doh, retain_graph=True), iters=20)
+            del oh
+            # reads q, k, v, o, do (+ lse, cos/sin), writes dq, dk, dv
+            nbytes = (2 * b * hd * (3 * lq + 2 * lk) + 4 * b * h * lq
+                      + 2 * b * hd * (lq + 2 * lk))
+            if rope:
+                nbytes += 2 * 4 * lq * d // 2
+            tc = 10 * b * h * lq * lk * d  # useful flops, as JAX counts them
+            # exp2, p·(dp − δ) (~4 a logit) and the rotations
+            fp32 = 4 * b * h * lq * lk + (6 * b * (lq + lk) * hd if rope else 0)
+            bms, by = bound(nbytes, tc, fp32)
+            rows[name] = dict(
+                name=name, route="cuda",
+                source="video_diffusion_speedrun_tpu_torch/csrc/"
+                       "short_attention_bwd.cu",
+                replaces="video_diffusion_speedrun_tpu/ops/" + replaces,
+                max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms,
+                bound_by=by, library_ms=lib_ms)
+            log(f"[kernels] {name} B={b} Lq={lq} Lk={lk}: kernel {ms:.4f} ms, "
+                f"twin {plain_ms:.4f} ms, SDPA backward {lib_ms:.4f} ms, "
+                f"bound {bms:.4f} ms ({by}), {tc / ms / 1e9:.1f} useful "
+                f"TFLOP/s")
+    return rows
+
+
+def adaln_bwd_row(dev):
+    """Row 12: the Triton backward against its twin at [64, 528, 512],
+    with and without γ, x strided as the final layer passes it."""
+    from video_diffusion_speedrun_tpu_torch.ops import fused_adaln as fad
+
+    name = "adaln_rms_modulate_bwd"
+    gen = torch.Generator(device=dev).manual_seed(6)
+    b, l, d = T_BATCH, T_L, T_WIDTH
+    x = torch.randn(b, l + 16, d, generator=gen, device=dev).bfloat16()[:, 16:]
+    mod = torch.randn(b, 9 * d, generator=gen, device=dev).bfloat16()
+    shift, scale = mod[:, :d], mod[:, d:2 * d]
+    g = torch.randn(b, l, d, generator=gen, device=dev).bfloat16()
+    err = 0.0
+    for gamma in (None, torch.randn(d, generator=gen, device=dev)):
+        got = fad.adaln_rms_modulate_bwd(x, shift, scale, gamma, g)
+        want = fad.adaln_rms_modulate_bwd_plain(x, shift, scale, gamma, g)
+        torch.cuda.synchronize()
+        tols = {"dx": (ADALN_BWD_RTOL, 1e-2, "one bf16 ulp + 1% of scale: "
+                                             "row-sum order"),
+                "dshift": (ADALN_BWD_RTOL, 1e-3, "one bf16 ulp + 0.1% of "
+                                                 "scale: column-sum order"),
+                "dgamma": (1e-4, 1e-6, "fp32 column sums over B·L rows in "
+                                       "another order")}
+        tols["dscale"] = tols["dshift"]
+        for gname, a, w in zip(("dx", "dshift", "dscale", "dgamma"), got,
+                               want):
+            if w is None:
+                continue
+            rtol, rel_atol, note = tols[gname]
+            err = max(err, check_close(
+                name, f"gamma={gamma is not None} {gname}", a, w, rtol,
+                rel_atol * w.float().abs().max().item(), note))
+    ms = cuda_ms(lambda: fad.adaln_rms_modulate_bwd(x, shift, scale, None, g))
+    plain_ms = cuda_ms(lambda: fad.adaln_rms_modulate_bwd_plain(
+        x, shift, scale, None, g), iters=10)
+    n = b * l * d
+    # reads x and g, writes dx (bf16), plus shift/scale in and out
+    bms, by = bound(3 * n * 2 + 4 * b * d * 2, 0, 12 * n)
+    log(f"[kernels] {name} [{b}, {l}, {d}]: kernel {ms:.4f} ms, twin "
+        f"{plain_ms:.4f} ms, no single library call, bound {bms:.4f} ms "
+        f"({by}), {3 * n * 2 / ms / 1e6:.1f} GB/s")
+    return {name: dict(
+        name=name, route="triton",
+        source="video_diffusion_speedrun_tpu_torch/ops/fused_adaln.py",
+        replaces="video_diffusion_speedrun_tpu/ops/fused_adaln.py:156",
+        max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
+        library_ms=None)}
+
+
+def adamw_row(dev):
+    """Row 17: the multi-tensor kernel against its twin on a handful of
+    canonical leaves (fp32 and bf16 moments, 3 steps), then timed over
+    all 299 leaves of the canonical DiT."""
+    from video_diffusion_speedrun_tpu_torch.models.dit import DiT
+    from video_diffusion_speedrun_tpu_torch.ops import fused_adamw as fw
+
+    name = "adamw_multi_tensor"
+    gen = torch.Generator(device=dev).manual_seed(7)
+    b1, b2, eps = 0.95, 0.99, 1e-8
+    shapes = [(1536, 512), (2048, 512), (512, 2048), (1024, 4096),
+              (4608, 512), (512,), (1,)]
+    err = 0.0
+    for mdt in (torch.float32, torch.bfloat16):
+        ps = [torch.randn(s, generator=gen, device=dev) * 0.02 for s in shapes]
+        twin = [p.clone() for p in ps]
+        ms_, vs = ([torch.zeros_like(p, dtype=mdt) for p in ps]
+                   for _ in "mv")
+        mt, vt = [m.clone() for m in ms_], [v.clone() for v in vs]
+        lrs = [T_LR * 32 / s[-1] for s in shapes]
+        wds = [0.1 * s[-1] / 1024 for s in shapes]
+        kern = fw.MultiTensorAdamW(ps, ms_, vs, lrs, wds, b1, b2, eps)
+        for step in range(3):
+            grads = [torch.randn(s, generator=gen, device=dev) for s in shapes]
+            sc = fw.step_scalars(step, 1.0 - step / 8, b1, b2)
+            kern(grads, *sc)
+            for i, g in enumerate(grads):
+                fw.adamw_leaf_update_plain(twin[i], mt[i], vt[i], g, lrs[i],
+                                           wds[i], *sc, b1, b2, eps)
+        torch.cuda.synchronize()
+        lr_atol = torch.cat([torch.full((p.numel(),), ADAMW_LR_ATOL * lr,
+                                        device=dev) for p, lr in zip(ps, lrs)])
+        flat = [torch.cat([t.flatten() for t in ts])
+                for ts in (ps, twin, ms_ + vs, mt + vt)]
+        what = f"moments={str(mdt)[6:]} {len(shapes)} leaves 3 steps"
+        err = max(err, check_close(
+            name, what + " p", flat[0], flat[1], ADAMW_RTOL, lr_atol,
+            "1e-6·lr: the twin divides by bc1/bc2 through a reciprocal"))
+        err = max(err, check_close(name, what + " m, v", flat[2], flat[3],
+                                   0.0, 0.0, "no division: bit-equal"))
+
+    model = DiT(train_config(T_DEPTH), device=dev, seed=0)
+    params = [p.detach() for p in model.parameters()]
+    grads = [torch.randn(p.shape, generator=gen, device=dev) * 1e-3
+             for p in params]
+    m = [torch.zeros_like(p) for p in params]
+    v = [torch.zeros_like(p) for p in params]
+    n = sum(p.numel() for p in params)
+    kern = fw.MultiTensorAdamW(params, m, v, [1e-3] * len(params),
+                               [0.0] * len(params), b1, b2, eps)
+    sc = fw.step_scalars(0, 1.0, b1, b2)
+    ms = cuda_ms(lambda: kern(grads, *sc), iters=10, warmup=2)
+
+    def twin_step():
+        for p, mm, vv, g in zip(params, m, v, grads):
+            fw.adamw_leaf_update_plain(p, mm, vv, g, 1e-3, 0.0, *sc, b1, b2,
+                                       eps)
+
+    plain_ms = cuda_ms(twin_step, iters=3, warmup=1)
+    # yardstick only: PyTorch's fused AdamW over the same leaves, one lr
+    for p, g in zip(params, grads):
+        p.grad = g
+    lib = torch.optim.AdamW(params, lr=1e-3, betas=(b1, b2), eps=eps,
+                            weight_decay=0.0, fused=True)
+    lib_ms = cuda_ms(lib.step, iters=10, warmup=2)
+    bms, by = bound(28 * n, 0, 15 * n)  # reads p, g, m, v; writes p, m, v
+    log(f"[kernels] {name}: {len(params)} leaves, {n / 1e6:.1f} M params, "
+        f"fp32 moments: kernel {ms:.4f} ms, twin {plain_ms:.4f} ms, "
+        f"torch AdamW(fused) {lib_ms:.4f} ms, bound {bms:.4f} ms ({by}), "
+        f"{28 * n / ms / 1e6:.1f} GB/s")
+    del model, lib, params, grads, m, v
+    torch.cuda.empty_cache()
+    return {name: dict(
+        name=name, route="cuda",
+        source="video_diffusion_speedrun_tpu_torch/csrc/adamw_multi_tensor.cu",
+        replaces="video_diffusion_speedrun_tpu/ops/fused_adamw.py:66",
+        max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
+        library_ms=lib_ms)}
 
 
 def randomize_zero_layers(model, gen) -> None:
@@ -257,12 +531,27 @@ def randomize_zero_layers(model, gen) -> None:
 
 
 def counters():
+    """Kernel name → the wrapper whose `.launches` counts its launches."""
+    from video_diffusion_speedrun_tpu_torch.ops import fused_adamw as fw
     from video_diffusion_speedrun_tpu_torch.ops import fused_adaln as fad
     from video_diffusion_speedrun_tpu_torch.ops import fused_attention as fa
 
     return {"short_attention_fwd<rope>": fa.qkv_rope_flash_forward,
             "short_attention_fwd<norope>": fa.cross_flash_forward,
-            "adaln_rms_modulate_fwd": fad.adaln_rms_modulate}
+            "adaln_rms_modulate_fwd": fad.adaln_rms_modulate,
+            "short_attention_bwd<rope>": fa.qkv_rope_flash_backward,
+            "short_attention_bwd<norope>": fa.cross_flash_backward,
+            "adaln_rms_modulate_bwd": fad.adaln_rms_modulate_bwd,
+            "adamw_multi_tensor": fw.MultiTensorAdamW}
+
+
+def reset_counters() -> None:
+    for fn in counters().values():
+        fn.launches = 0
+
+
+def read_counters():
+    return {name: fn.launches for name, fn in counters().items()}
 
 
 def phase_serve(dev):
@@ -287,8 +576,7 @@ def phase_serve(dev):
                           device=dev).bfloat16() * 0.05
 
     torch.cuda.reset_peak_memory_stats(dev)
-    for fn in counters().values():
-        fn.launches = 0
+    reset_counters()
     outs, step_ms = [], []
     for seed in SEEDS:
         sampling = SamplingConfig(inference_steps=STEPS, cfg_scale=6.0,
@@ -300,12 +588,15 @@ def phase_serve(dev):
         torch.cuda.synchronize()
         step_ms.append(1e3 * (time.perf_counter() - t0) / STEPS)
         outs.append(lat)
-    launches = {name: fn.launches for name, fn in counters().items()}
+    launches = read_counters()
     peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
 
-    want = {"short_attention_fwd<rope>": len(SEEDS) * STEPS * DEPTH,
-            "short_attention_fwd<norope>": len(SEEDS) * STEPS * DEPTH,
-            "adaln_rms_modulate_fwd": len(SEEDS) * STEPS * ADALN_PER_FORWARD}
+    # sampling runs no backward and no optimizer
+    want = dict.fromkeys(launches, 0)
+    want.update({"short_attention_fwd<rope>": len(SEEDS) * STEPS * DEPTH,
+                 "short_attention_fwd<norope>": len(SEEDS) * STEPS * DEPTH,
+                 "adaln_rms_modulate_fwd":
+                     len(SEEDS) * STEPS * ADALN_PER_FORWARD})
     for i, (seed, lat, ms) in enumerate(zip(SEEDS, outs, step_ms)):
         log(f"[serve] request {i} seed {seed}: latents {tuple(lat.shape)} "
             f"std {lat.std().item():.4f}, {ms:.2f} ms per Euler step "
@@ -333,27 +624,45 @@ def phase_serve(dev):
     profile_step(model, context, outs[1])
     del model
     torch.cuda.empty_cache()
-    return launches
 
 
 def profile_step(model, context, lat):
     """Device time by kernel over one Euler step (one batch-2 forward)."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
     ckv = model.precompute_context_kv(torch.cat([context,
                                                  torch.zeros_like(context)]))
     x2 = torch.cat([lat, lat]).bfloat16()
     t2 = torch.full((2,), 0.5, device=lat.device)
     with torch.no_grad():
         model(x2, None, t2, context_kv=ckv)
+        profile_device(lambda: model(x2, None, t2, context_kv=ckv),
+                       "one forward", "profile")
+
+
+# profile rows grouped by kernel name: (kind, substrings), first match wins
+KERNEL_KINDS = (
+    ("attention kernels (csrc/short_attention_*.cu)",
+     ("short_attention", "bwd_dkdv", "bwd_dq", "prep_q", "prep_k",
+      "rope_rotate")),
+    ("AdaLN kernels (Triton)", ("adaln_rms_modulate",)),
+    ("AdamW kernel (csrc/adamw_multi_tensor.cu)", ("adamw_multi_tensor",)),
+    ("GEMMs (cuBLAS)", ("nvjet", "gemm", "cutlass", "xmma")),
+    ("PyTorch elementwise, reductions and copies", ("at::native",)),
+)
+
+
+def profile_device(fn, what: str, tag: str, rows: int = 14) -> None:
+    """Run `fn` once under torch.profiler and print the device busy time
+    and the kernels with the most device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            model(x2, None, t2, context_kv=ckv)
-            torch.cuda.synchronize()
-            wall_ms = 1e3 * (time.perf_counter() - t0)
+        wall_ms = 1e3 * (time.perf_counter() - t0)
     # kernel rows only: an operator's row repeats its kernels' time
     events = [e for e in prof.key_averages()
               if e.device_type == DeviceType.CUDA
@@ -361,14 +670,22 @@ def profile_step(model, context, lat):
     events.sort(key=lambda e: e.self_device_time_total, reverse=True)
     total_ms = sum(e.self_device_time_total for e in events) / 1e3
     if not events:
-        log("[profile] the profiler saw no device time: not measured")
+        log(f"[{tag}] the profiler saw no device time: not measured")
         return
-    log(f"[profile] one forward: {wall_ms:.2f} ms wall (profiled), device "
+    log(f"[{tag}] {what}: {wall_ms:.2f} ms wall (profiled), device "
         f"busy {total_ms:.2f} ms ({100 * total_ms / wall_ms:.1f}% of wall)")
-    for e in events[:14]:
+    for e in events[:rows]:
         ms = e.self_device_time_total / 1e3
-        log(f"[profile]   {ms:8.3f} ms {100 * ms / total_ms:5.1f}% "
+        log(f"[{tag}]   {ms:8.3f} ms {100 * ms / total_ms:5.1f}% "
             f"x{e.count:<4d} {e.key[:90]}")
+    by_kind = {}
+    for e in events:
+        kind = next((k for k, keys in KERNEL_KINDS if any(
+            s in e.key for s in keys)), "other")
+        by_kind[kind] = by_kind.get(kind, 0.0) + e.self_device_time_total / 1e3
+    for kind, ms in sorted(by_kind.items(), key=lambda kv: -kv[1]):
+        log(f"[{tag}] by kind: {ms:8.3f} ms {100 * ms / total_ms:5.1f}% "
+            f"{kind}")
 
 
 def phase_parity(dev):
@@ -410,6 +727,168 @@ def phase_parity(dev):
         raise AssertionError("card and CPU disagree")
 
 
+def train_config(depth: int, **overrides):
+    """The canonical training DiT, built as the training CLI builds it."""
+    from video_diffusion_speedrun_tpu_torch.train.__main__ import (
+        build_config,
+        parse_args,
+    )
+
+    cfg = build_config(parse_args(train_argv(depth)))
+    return cfg.model.replace(**overrides)
+
+
+def train_argv(depth: int):
+    """The JAX package's canonical speedrun flags (train.py docstring)."""
+    return ["--batch_size", str(T_BATCH), "--learning_rate", str(T_LR),
+            "--max_steps", "5004", "--evaluate_every", "500",
+            "--model_width", str(T_WIDTH), "--model_depth", str(depth),
+            "--model_head_dim", str(T_HEAD_DIM),
+            "--lr_scheduler_type", "linear"]
+
+
+def phase_train(dev):
+    """The canonical DiT through the port's Trainer: T_STEPS timed steps of
+    `train_step` with the launch counters read around them, one
+    evaluation, one profiled step."""
+    from video_diffusion_speedrun_tpu_torch.train.__main__ import (
+        build_config,
+        parse_args,
+    )
+    from video_diffusion_speedrun_tpu_torch.train.loop import Trainer
+    from video_diffusion_speedrun_tpu_torch.train.step import train_step
+    from video_diffusion_speedrun_tpu_torch.utils.flops import (
+        dit_train_flops,
+        peak_flops_for,
+    )
+
+    cfg = build_config(parse_args(train_argv(T_DEPTH)))
+    t0 = time.perf_counter()
+    trainer = Trainer(cfg, device=dev)
+    n_leaves = len(trainer.opt.params)
+    torch.cuda.synchronize()
+    log(f"[train] canonical DiT: {trainer.n_params / 1e6:.2f} M params in "
+        f"{n_leaves} leaves, built in {time.perf_counter() - t0:.1f} s; "
+        f"batch {T_BATCH}, latent {T_LATENT} → L={T_L}, remat "
+        f"{cfg.model.remat}, lr {T_LR}, {cfg.optimizer.scheduler} schedule")
+    gen = torch.Generator(device=dev).manual_seed(cfg.seed + 1)
+    loader = trainer.batches("train")
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_counters()
+    losses, step_ms = [], []
+    for step in range(T_STEPS):
+        batch = next(loader)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        m = train_step(trainer.model, trainer.opt, batch, gen, cfg)
+        torch.cuda.synchronize()
+        step_ms.append(1e3 * (time.perf_counter() - t0))
+        losses.append(float(m["loss"]))
+        log(f"[train] step {step}: loss {losses[-1]:.5f}, lr scale "
+            f"{m['lr_scale']:.4f}, {step_ms[-1]:.2f} ms")
+    launches = read_counters()
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    per_step = {"short_attention_fwd<rope>": 2 * T_DEPTH,  # fwd + remat
+                "short_attention_fwd<norope>": 2 * T_DEPTH,
+                "adaln_rms_modulate_fwd": 2 * 3 * T_DEPTH + 1,  # final: once
+                "short_attention_bwd<rope>": T_DEPTH,
+                "short_attention_bwd<norope>": T_DEPTH,
+                "adaln_rms_modulate_bwd": 3 * T_DEPTH + 1,
+                "adamw_multi_tensor": 1}
+    want = {k: T_STEPS * v for k, v in per_step.items()}
+    steady = float(np.median(step_ms[2:]))
+    flops = dit_train_flops(cfg.model, T_BATCH, *T_LATENT[1:])
+    peak = peak_flops_for(torch.cuda.get_device_name(0))
+    log(f"[train] steady state {steady:.2f} ms per step (median of steps "
+        f"2–{T_STEPS - 1}), {flops / 1e12:.2f} useful TFLOP per step → MFU "
+        f"{flops / (steady / 1e3) / peak:.4f} at {peak / 1e12:.0f} TFLOP/s; "
+        f"peak memory {peak_gb:.2f} GB")
+    log(f"[train] launches {launches}, expected {want}")
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"non-finite training loss {losses}")
+    if launches != want:
+        raise AssertionError(f"launch counts {launches} != {want}")
+    ev = trainer.evaluate()
+    log(f"[train] evaluate: test loss {ev['test/total_loss']:.5f}")
+    if not np.isfinite(ev["test/total_loss"]):
+        raise AssertionError("non-finite evaluation loss")
+    batch = next(loader)
+    profile_device(lambda: train_step(trainer.model, trainer.opt, batch, gen,
+                                      cfg), "one train step", "train-profile",
+                   rows=16)
+    del trainer, loader
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_train_parity(dev):
+    """Depth 2, full width: 3 steps on the card (bf16 compute, kernels)
+    against the CPU (fp32, twins), same weights and injected batches."""
+    from video_diffusion_speedrun_tpu_torch.core.config import (
+        OptimizerConfig,
+        TrainConfig,
+    )
+    from video_diffusion_speedrun_tpu_torch.models.dit import DiT
+    from video_diffusion_speedrun_tpu_torch.train.loss import (
+        rectified_flow_loss,
+    )
+    from video_diffusion_speedrun_tpu_torch.train.optim import MupAdamW
+    from video_diffusion_speedrun_tpu_torch.train.step import train_step
+
+    b, steps = 4, 3
+    cpu_mcfg = train_config(2, compute_dtype=torch.float32,
+                            attention_impl="fused", fused_adaln="fused")
+    cpu_model = DiT(cpu_mcfg, device="cpu", init_std_factor=0.1, seed=0)
+    randomize_zero_layers(cpu_model, torch.Generator().manual_seed(1))
+    card_model = DiT(train_config(2), device=dev)
+    card_model.load_state_dict(cpu_model.state_dict())
+
+    rng = np.random.default_rng(0)
+    c, t, hh, ww = T_LATENT
+    data = [dict(
+        latent=rng.standard_normal((b, c, t, hh, ww), np.float32),
+        context=rng.standard_normal((b, CTX_LEN, CTX_DIM), np.float32) * 0.05,
+        timesteps=rng.uniform(0.02, 0.98, b).astype(np.float32),
+        noise=rng.standard_normal((b, c, t // 2 * 2, hh, ww), np.float32),
+        rope_offsets=rng.integers(0, 100, 3)) for _ in range(steps)]
+
+    def run(model, device):
+        opt_cfg = OptimizerConfig(learning_rate=T_LR, scheduler="linear",
+                                  warmup_steps=0)
+        cfg = TrainConfig(model=model.cfg, batch_size=b, max_steps=steps,
+                          caption_dropout=0.0, optimizer=opt_cfg)
+        batches = [{k: torch.from_numpy(np.asarray(v)).to(device)
+                    for k, v in bt.items()} for bt in data]
+        first = batches[0]
+        loss, _ = rectified_flow_loss(
+            model, first["latent"], first["context"], None,
+            caption_dropout=0.0, timesteps=first["timesteps"],
+            noise=first["noise"], rope_offsets=first["rope_offsets"])
+        loss.backward()
+        grads = torch.cat([p.grad.float().flatten().cpu()
+                           for p in model.parameters() if p.grad is not None])
+        model.zero_grad(set_to_none=True)
+        opt = MupAdamW(model.named_parameters(), T_LR, steps, opt_cfg)
+        losses = [float(train_step(model, opt, bt, None, cfg)["loss"])
+                  for bt in batches]
+        return losses, grads
+
+    t0 = time.perf_counter()
+    cpu_losses, cpu_grads = run(cpu_model, "cpu")
+    cpu_s = time.perf_counter() - t0
+    card_losses, card_grads = run(card_model, dev)
+    loss_rel = [abs(a / w - 1) for a, w in zip(card_losses, cpu_losses)]
+    grad_rel = ((card_grads - cpu_grads).norm() / cpu_grads.norm()).item()
+    log(f"[train-parity] depth 2, width {T_WIDTH}, batch {b}, 3 steps: "
+        f"losses card {card_losses} vs CPU {cpu_losses} (CPU run "
+        f"{cpu_s:.1f} s); relative loss difference "
+        f"{max(loss_rel):.3e} (tol {TRAIN_LOSS_REL}); step-1 gradient "
+        f"relative L2 {grad_rel:.3e} (tol {TRAIN_GRAD_REL_L2})")
+    if max(loss_rel) > TRAIN_LOSS_REL or grad_rel > TRAIN_GRAD_REL_L2 \
+            or not all(np.isfinite(card_losses)):
+        raise AssertionError("card and CPU training disagree")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -426,8 +905,10 @@ def main() -> int:
 
     phase_build()
     rows = phase_kernels(dev)
-    launches = phase_serve(dev)
+    phase_serve(dev)
     phase_parity(dev)
+    launches = phase_train(dev)
+    phase_train_parity(dev)
 
     kernels = [dict(rows[name], launches=launches[name]) for name in rows]
     log(f"[done] all phases passed in {time.perf_counter() - t_start:.1f} s")

@@ -10,6 +10,7 @@ installed; on such a machine run it without the JAX-importing conftest:
 import pytest
 import torch
 
+from video_diffusion_speedrun_tpu_torch.ops import fused_adamw as tfw
 from video_diffusion_speedrun_tpu_torch.ops import fused_adaln as tad
 from video_diffusion_speedrun_tpu_torch.ops import fused_attention as tfa
 
@@ -74,9 +75,10 @@ def test_attention_kernel_refuses_what_it_does_not_take(dev):
     with pytest.raises(TypeError):  # fp32
         tfa.short_attention_cuda(q.float(), q.float(), q.float(), None, None,
                                  1, 1.0)
-    qg = q.reshape(1, 16, 64).clone().requires_grad_()
-    with pytest.raises(RuntimeError):  # no backward kernel yet
-        tfa.cross_flash_attention(qg, qg, qg, 1)
+    long_kv = torch.zeros(1, tfa.SHORT_MAX_KV + 16, 64, device=dev,
+                          dtype=torch.bfloat16)
+    with pytest.raises(NotImplementedError):  # the long path is not ported
+        tfa.short_attention_cuda(q, long_kv, long_kv, None, None, 1, 1.0)
 
 
 @pytest.mark.parametrize("l,with_gamma", [(1040, False), (333, True)])
@@ -99,3 +101,146 @@ def test_adaln_kernel_matches_twin(dev, l, with_gamma):
     assert y.dtype == torch.bfloat16 and y.shape == x.shape
     torch.testing.assert_close(y.float(), want.float(), rtol=2 ** -7,
                                atol=1e-2)
+
+
+def _rel_err(got: torch.Tensor, want: torch.Tensor) -> float:
+    """max |got − want| over max |want|."""
+    return ((got.float() - want.float()).abs().max()
+            / want.float().abs().max()).item()
+
+
+@pytest.mark.parametrize("b,l,lk,h,d", [(4, 528, 512, 4, 128),
+                                        (2, 333, 77, 4, 128),
+                                        (2, 333, 77, 2, 64)])
+def test_attention_bwd_kernel_matches_twin(dev, b, l, lk, h, d):
+    """dq, dk, dv of the bf16 kernel against the twin on the same inputs,
+    self-attention (RoPE, q/k strided out of qkv, dq/dk written into the
+    column slices of d(qkv)) and cross-attention. Both round p and ds to
+    bf16 at the same points; δ and the products sum in other orders, which
+    can flip a bf16 rounding of ds and the final bf16 rounding of the
+    result: within 2% of the tensor's largest magnitude."""
+    hd = h * d
+    gen = torch.Generator(device=dev).manual_seed(1)
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen, device=dev).bfloat16()
+
+    qkv, v, ckv = randn(b, l, 3 * hd), randn(b, l, hd), randn(b, lk, 2 * hd)
+    ang = torch.arange(l * (d // 2), dtype=torch.float32, device=dev)
+    ang = ang.reshape(l, d // 2) * 0.01
+    cos, sin = ang.cos(), ang.sin()
+    scale = d ** -0.5
+    for q, k, vv, c, s in ((qkv[..., :hd], qkv[..., hd:2 * hd], v, cos, sin),
+                           (qkv[..., :hd], ckv[..., :hd], ckv[..., hd:], None,
+                            None)):
+        o, lse = tfa.short_attention_cuda(q, k, vv, c, s, h, scale)
+        do = randn(b, l, hd)
+        got = tfa.short_attention_bwd_cuda(q, k, vv, c, s, o, lse, do, h,
+                                           scale)
+        want = tfa.short_attention_bwd_plain(q, k, vv, c, s, o, lse, do, h,
+                                             scale)
+        torch.cuda.synchronize()
+        for name, x, y in zip(("dq", "dk", "dv"), got, want):
+            assert x.shape == y.shape and x.dtype == torch.bfloat16, name
+            assert _rel_err(x, y) < 2e-2, name
+    # the self-attention entry: d(qkv) with zero v columns, and dv
+    before = tfa.qkv_rope_flash_backward.launches
+    o, lse = tfa.qkv_rope_flash_forward(qkv, v, cos, sin, h)
+    do = randn(b, l, hd)
+    dqkv, dv = tfa.qkv_rope_flash_backward(qkv, v, cos, sin, o, lse, do, h,
+                                           scale)
+    dq, dk, dv_want = tfa.short_attention_bwd_plain(
+        qkv[..., :hd], qkv[..., hd:2 * hd], v, cos, sin, o, lse, do, h, scale)
+    torch.cuda.synchronize()
+    assert tfa.qkv_rope_flash_backward.launches == before + 1
+    assert not dqkv[..., 2 * hd:].any()
+    assert _rel_err(dqkv[..., :hd], dq) < 2e-2
+    assert _rel_err(dqkv[..., hd:2 * hd], dk) < 2e-2
+    assert _rel_err(dv, dv_want) < 2e-2
+
+
+def test_attention_autograd_launches_both_kernels(dev):
+    h, d, l = 4, 128, 100
+    gen = torch.Generator(device=dev).manual_seed(2)
+    qkv = torch.randn(2, l, 3 * h * d, generator=gen, device=dev).bfloat16()
+    qkv.requires_grad_()
+    cos = torch.ones(l, d // 2, device=dev)
+    fwd, bwd = (tfa.qkv_rope_flash_forward.launches,
+                tfa.qkv_rope_flash_backward.launches)
+    out = tfa.qkv_rope_flash_attention(qkv, qkv[..., 2 * h * d:], cos,
+                                       torch.zeros_like(cos), h)
+    out.float().square().sum().backward()
+    torch.cuda.synchronize()
+    assert tfa.qkv_rope_flash_forward.launches == fwd + 1
+    assert tfa.qkv_rope_flash_backward.launches == bwd + 1
+    assert torch.isfinite(qkv.grad.float()).all()
+    assert qkv.grad[..., 2 * h * d:].abs().sum() > 0  # dv through the view
+
+
+@pytest.mark.parametrize("l,with_gamma,strided", [(528, False, True),
+                                                  (333, True, False)])
+def test_adaln_bwd_kernel_matches_twin(dev, l, with_gamma, strided):
+    """dx, dshift, dscale, dγ of the Triton backward against the twin, fp32
+    inside on both sides: dx within one bf16 ulp (2^-7 relative) plus 1% of
+    its scale for cancellation in dn − n·mean(n·dn); the column sums differ
+    in summation order (bf16 outputs: one ulp; dγ fp32: 1e-4)."""
+    gen = torch.Generator(device=dev).manual_seed(3)
+    b, d = 8, 512
+    x = torch.randn(b, l + 16, d, generator=gen, device=dev).bfloat16()
+    x = x[:, 16:] if strided else x[:, :l].contiguous()
+    mod = torch.randn(b, 9 * d, generator=gen, device=dev).bfloat16()
+    shift, scale = mod[:, :d], mod[:, d:2 * d]
+    gamma = torch.randn(d, generator=gen, device=dev) if with_gamma else None
+    g = torch.randn(b, l, d, generator=gen, device=dev).bfloat16()
+    before = tad.adaln_rms_modulate_bwd.launches
+    got = tad.adaln_rms_modulate_bwd(x, shift, scale, gamma, g)
+    want = tad.adaln_rms_modulate_bwd_plain(x, shift, scale, gamma, g)
+    torch.cuda.synchronize()
+    assert tad.adaln_rms_modulate_bwd.launches == before + 1
+    dx, dx_want = got[0].float(), want[0].float()
+    assert torch.all((dx - dx_want).abs() <= 2 ** -7 * dx_want.abs()
+                     + 1e-2 * dx_want.abs().max())
+    for x_, y_ in zip(got[1:3], want[1:3]):
+        assert x_.dtype == torch.bfloat16
+        torch.testing.assert_close(x_.float(), y_.float(), rtol=2 ** -7,
+                                   atol=1e-3 * y_.float().abs().max().item())
+    if with_gamma:
+        torch.testing.assert_close(got[3], want[3], rtol=1e-4, atol=1e-3)
+    else:
+        assert got[3] is None
+
+
+@pytest.mark.parametrize("moments", [torch.float32, torch.bfloat16])
+def test_adamw_kernel_matches_twin(dev, moments):
+    """One launch over leaves of the canonical shapes (and a 1-element
+    leaf, a ragged one) against the twin leaf by leaf, three steps. The
+    kernel rounds every operation on its own (no FMA contraction), as the
+    JAX leaf math does; the twin on CUDA differs only where PyTorch divides
+    by a scalar through its reciprocal (m/bc1, v/bc2): a few ulps of the
+    update, whose size is the leaf's lr (within 1e-6·lr), plus an ulp of
+    the weight. The moments take no division and agree to the bit."""
+    gen = torch.Generator(device=dev).manual_seed(4)
+    shapes = [(1536, 512), (512,), (1,), (4608, 512), (16, 3), (2048, 512)]
+    params = [torch.randn(s, generator=gen, device=dev) * 0.02 for s in shapes]
+    twin = [p.clone() for p in params]
+    mk = [torch.zeros_like(p, dtype=moments) for p in params]
+    vk = [torch.zeros_like(p, dtype=moments) for p in params]
+    mt, vt = [m.clone() for m in mk], [v.clone() for v in vk]
+    lrs = [2 ** -6 * 32 / s[-1] for s in shapes]
+    wds = [0.1 * s[-1] / 1024 for s in shapes]
+    kernel = tfw.MultiTensorAdamW(params, mk, vk, lrs, wds, 0.95, 0.99, 1e-8)
+    for step in range(3):
+        grads = [torch.randn(s, generator=gen, device=dev) for s in shapes]
+        lr_t, bc1, bc2 = tfw.step_scalars(step, 0.5 + step / 8, 0.95, 0.99)
+        before = tfw.MultiTensorAdamW.launches
+        kernel(grads, lr_t, bc1, bc2)
+        assert tfw.MultiTensorAdamW.launches == before + 1
+        for i, g in enumerate(grads):
+            tfw.adamw_leaf_update_plain(twin[i], mt[i], vt[i], g, lrs[i],
+                                        wds[i], lr_t, bc1, bc2, 0.95, 0.99,
+                                        1e-8)
+    torch.cuda.synchronize()
+    for a, b, lr in zip(params, twin, lrs):
+        torch.testing.assert_close(a, b, rtol=2e-6, atol=1e-6 * lr)
+    for a, b in zip(mk + vk, mt + vt):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)

@@ -1,7 +1,8 @@
 """Configuration dataclasses (port of `video_diffusion_speedrun_tpu/core/config.py`).
 
-Only the model and sampler configs are ported here; the training, mesh and
-data configs come with the slices that use them. Dtypes are torch dtypes.
+The model, sampler, optimizer and training configs, and the synthetic
+fields of the data config; the mesh config comes with the multi-GPU slice.
+Dtypes are torch dtypes. Options of later slices raise where they are set.
 
 Kernel dispatch (`attention_impl`, `fused_adaln`):
   "fused" — the port's fused op: on a CUDA tensor it launches the hand-written
@@ -13,7 +14,7 @@ Kernel dispatch (`attention_impl`, `fused_adaln`):
 from __future__ import annotations
 
 import dataclasses
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Optional
 
 import torch
@@ -51,6 +52,10 @@ class DiTConfig:
     compute_dtype: torch.dtype = torch.bfloat16
     attention_impl: str = "auto"  # auto | fused | plain
     fused_adaln: str = "auto"  # auto | fused | off
+    # recompute each block in the backward (torch.utils.checkpoint), the
+    # JAX `jax.checkpoint` with policy "nothing"; sampling (no grad) skips it
+    remat: bool = True
+    remat_policy: str = "nothing"
 
     def __post_init__(self):
         if self.hidden_size % self.num_heads != 0:
@@ -63,6 +68,12 @@ class DiTConfig:
             raise ValueError(f"unknown attention_impl: {self.attention_impl}")
         if self.fused_adaln not in ("auto", "fused", "off"):
             raise ValueError(f"unknown fused_adaln: {self.fused_adaln}")
+        if self.remat_policy != "nothing":
+            if self.remat_policy in ("dots", "attn", "dots_attn"):
+                raise NotImplementedError(
+                    f"remat_policy {self.remat_policy!r} comes with the "
+                    "long-path slice; the port has 'nothing'")
+            raise ValueError(f"unknown remat_policy: {self.remat_policy}")
 
     @property
     def head_dim(self) -> int:
@@ -103,6 +114,79 @@ class SamplingConfig:
     num_latent_frames: int = 16
     seed: int = 42
     time_shift_alpha: float = 8.0
+
+
+@dataclass(frozen=True)
+class DataConfig:
+    """The synthetic-data fields of the JAX `DataConfig`."""
+
+    test_rows: int = 40
+    shuffle_seed: int = 0
+    synthetic_rows: int = 4096
+    # [C, T, H, W]: Cosmos CV4x8x8 latents of 17-frame 256px clips
+    synthetic_shape: tuple = (16, 5, 32, 32)
+    caption_tokens: int = 512
+    context_dim: int = 4096
+
+
+@dataclass(frozen=True)
+class OptimizerConfig:
+    """muP AdamW config (fields as in the JAX `OptimizerConfig`)."""
+
+    learning_rate: float = 1e-4
+    weight_decay: float = 1e-1
+    beta1: float = 0.95
+    beta2: float = 0.99
+    eps: float = 1e-8
+    no_decay_lr_mult: float = 0.01
+    # Adam moment storage: None = the parameter dtype (fp32), or
+    # torch.bfloat16; the moment math is fp32 either way
+    moments_dtype: Optional[torch.dtype] = None
+    in_backward: bool = False
+    nu_factored: bool = False
+    constant_param_classes: tuple = ("patch_proj", "context_kv",
+                                     "positional_embedding")
+    time_modulation_lr_mult: float = 0.1
+    mup_base_width: int = 32
+    mup_wd_width: int = 1024
+    scheduler: str = "cosine"  # cosine | linear | constant
+    warmup_steps: int = 20
+
+    def __post_init__(self):
+        if self.in_backward or self.nu_factored:
+            raise NotImplementedError(
+                "optimizer-in-backward and the factored second moment come "
+                "with a later slice (ROADMAP A10)")
+        if self.moments_dtype not in (None, torch.float32, torch.bfloat16):
+            raise ValueError(f"moments_dtype must be None, fp32 or bf16, got "
+                             f"{self.moments_dtype}")
+
+
+@dataclass(frozen=True)
+class TrainConfig:
+    """Training config: the single-device fields of the JAX `TrainConfig`."""
+
+    model: DiTConfig = field(default_factory=DiTConfig)
+    data: DataConfig = field(default_factory=DataConfig)
+    optimizer: OptimizerConfig = field(default_factory=OptimizerConfig)
+
+    num_epochs: int = 2
+    batch_size: int = 64
+    grad_accum: int = 1
+    max_steps: int = 10_000
+    evaluate_every: int = 20
+    eval_batches: int = 9
+    seed: int = 0
+    init_std_factor: float = 0.1
+    time_shift_alpha: float = 8.0
+    caption_dropout: float = 0.01
+    log_every: int = 10
+    log_grad_norm: bool = False
+
+    def __post_init__(self):
+        if self.batch_size % self.grad_accum:
+            raise ValueError(f"batch_size {self.batch_size} is not a multiple "
+                             f"of grad_accum {self.grad_accum}")
 
 
 def resolve_device(device) -> torch.device:

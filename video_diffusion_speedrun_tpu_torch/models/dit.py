@@ -9,7 +9,11 @@ unpatchify. Parameter names are the reference torch state-dict names
 
 Each block follows `block_forward` (`models/dit.py:232-395` of the JAX
 package) op for op, including where it dispatches to the fused ops
-(`DiTConfig.attention_impl`, `DiTConfig.fused_adaln`).
+(`DiTConfig.attention_impl`, `DiTConfig.fused_adaln`). With `cfg.remat`
+and grad enabled, each block runs under `torch.utils.checkpoint`: its
+backward recomputes the whole block, kernels included, as `jax.checkpoint`
+with policy "nothing" does (`dit.py:481-501`). The MLP's GELU h·Φ_poly(h)
+is plain torch differentiated by autograd, as JAX autodiffs it.
 """
 
 from __future__ import annotations
@@ -20,6 +24,7 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from video_diffusion_speedrun_tpu_torch.core.config import (
     DiTConfig,
@@ -312,10 +317,15 @@ class DiT(nn.Module):
         t_emb = _dense(self.time_embed[2],
                        F.silu(_dense(self.time_embed[0], t_emb)))
 
+        remat = cfg.remat and torch.is_grad_enabled()
         v0 = None
         for i, blk in enumerate(self.blocks):
-            tokens, v = blk(tokens, context, t_emb, cos, sin, v0,
-                            None if context_kv is None else context_kv[i])
+            args = (tokens, context, t_emb, cos, sin, v0,
+                    None if context_kv is None else context_kv[i])
+            if remat:
+                tokens, v = checkpoint(blk, *args, use_reentrant=False)
+            else:
+                tokens, v = blk(*args)
             if i == 0:
                 v0 = v
 

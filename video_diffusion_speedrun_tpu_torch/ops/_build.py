@@ -2,8 +2,9 @@
 
 Each `csrc/<name>.cu` compiles with one `nvcc` call into its own shared
 library with a plain C interface, loaded with `ctypes`. The libraries go to
-`csrc/build/` (listed in .gitignore), named by a hash of their source, so a
-changed source rebuilds and an unchanged one loads from disk. Every `.cu`
+`csrc/build/` (listed in .gitignore), named by a hash of their source and
+the shared headers (`csrc/*.cuh`), so a changed source rebuilds and an
+unchanged one loads from disk. Every `.cu`
 exports `<name>_error_string(int)`. Builds happen at first use, never at
 import: the CPU tests import every module on a machine with no `nvcc`.
 """
@@ -43,6 +44,7 @@ def _nvcc() -> str:
 
 def _lib_path(name: str) -> Path:
     src = (CSRC / f"{name}.cu").read_bytes()
+    src += b"".join(p.read_bytes() for p in sorted(CSRC.glob("*.cuh")))
     digest = hashlib.sha1(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 

@@ -1,11 +1,14 @@
-"""Fused AdaLN-modulated RMSNorm forward (port of `ops/fused_adaln.py`).
+"""Fused AdaLN-modulated RMSNorm (port of `ops/fused_adaln.py`).
 
     y = rms_norm(x) · γ? · (1 + scale[b]) + shift[b],   fp32 inside
 
-Replaces the Pallas forward `_forward` (`ops/fused_adaln.py:68`, kernels
-`_fwd_kernel` / `_fwd_kernel_nogamma`). On a CUDA tensor
-`adaln_rms_modulate` launches the Triton kernel below; on a CPU tensor it
-runs the plain twin `adaln_rms_modulate_plain`.
+`adaln_rms_modulate` is a `torch.autograd.Function` (the JAX `_adaln_rms`
+custom_vjp). Its forward replaces the Pallas `_forward`
+(`ops/fused_adaln.py:68`, kernels `_fwd_kernel` / `_fwd_kernel_nogamma`),
+its backward the Pallas `_backward` (`:156`, kernels `_bwd_kernel` /
+`_bwd_kernel_nogamma`). On CUDA tensors both launch the Triton kernels
+below; on CPU tensors they run the plain twins `adaln_rms_modulate_plain`
+and `adaln_rms_modulate_bwd_plain`.
 
 What bounds it on the card: one row reduction plus one elementwise pass, so
 it is bandwidth-bound — it must read x and write y once (~17 MB at
@@ -15,7 +18,18 @@ registers (one read of x, one write of y, fp32 in between); tensor cores and
 shared-memory staging buy nothing. x may be a strided row view (the final
 layer strips the registers with a slice), and shift/scale may be column
 views of the AdaLN projection, so nothing is copied before the kernel.
-The backward kernel comes with the training slice.
+
+The backward is bandwidth-bound too: it must read x and the output
+gradient g and write dx (~104 MB at 64×528×512 bf16). Per row it recomputes
+r = rsqrt(mean(x²)+eps), n = x·r and writes dx = r·(dn − n·mean(n·dn)),
+dn = g·(1+scale)·γ?. The column sums over L (dshift = Σg, dscale =
+Σg·n·γ?, dγ = Σg·n·(1+scale)) cannot carry across Triton programs the way
+the TPU kernel carries them across its row grid in VMEM; each program
+walks 64 rows in tiles of a few rows, keeps the column partials as 2-D
+register accumulators (one cross-row reduction at the end instead of one
+per tile), and writes fp32 partials [B, programs, D]; one torch sum over
+the small partials finishes them (JAX also sums its per-b dγ partials
+outside the kernel).
 """
 
 from typing import Optional
@@ -26,6 +40,13 @@ import torch
 # the CPU tests import this module on a machine without triton)
 tl = None
 _kernel = None
+_bwd_kernel = None
+# backward launch shape: rows a program covers before writing its column
+# partials, rows per register tile (at D=512; scaled by 512/D), warps —
+# the fastest shape tried on the H100 at [64, 528, 512]
+_BWD_ROWS = 64
+_BWD_TILE_ROWS = 4
+_BWD_WARPS = 4
 
 
 def adaln_rms_modulate_plain(x: torch.Tensor, shift: torch.Tensor,
@@ -39,6 +60,29 @@ def adaln_rms_modulate_plain(x: torch.Tensor, shift: torch.Tensor,
     if gamma is not None:
         mul = mul * gamma.float()
     return (n * mul[:, None, :] + shift.float()[:, None, :]).to(x.dtype)
+
+
+def adaln_rms_modulate_bwd_plain(x, shift, scale, gamma, g, eps: float = 1e-6):
+    """Plain twin of the backward (`_bwd_kernel`, fp32 inside): returns
+    (dx, dshift, dscale, dγ or None) in the dtypes of x, shift, scale, γ."""
+    xf, gf = x.float(), g.float()
+    r = torch.rsqrt(xf.square().mean(dim=-1, keepdim=True) + eps)
+    n = xf * r
+    one_p_scale = 1.0 + scale.float()[:, None, :]
+    dgamma = None
+    if gamma is not None:
+        gam = gamma.float()
+        mul = one_p_scale * gam
+        dgamma = (gf * n * one_p_scale).sum(dim=(0, 1)).to(gamma.dtype)
+        dscale = (gf * n * gam).sum(dim=1)
+    else:
+        mul = one_p_scale
+        dscale = (gf * n).sum(dim=1)
+    dshift = gf.sum(dim=1)
+    dn = gf * mul
+    dx = r * (dn - n * (n * dn).sum(dim=-1, keepdim=True) / x.shape[-1])
+    return dx.to(x.dtype), dshift.to(shift.dtype), dscale.to(scale.dtype), \
+        dgamma
 
 
 def _triton_kernel():
@@ -74,17 +118,71 @@ def _triton_kernel():
     return _kernel
 
 
-def adaln_rms_modulate(x: torch.Tensor, shift: torch.Tensor,
-                       scale: torch.Tensor,
-                       gamma: Optional[torch.Tensor] = None,
-                       eps: float = 1e-6) -> torch.Tensor:
-    """`rms_norm(x[, gamma]) * (1 + scale) + shift` in one pass.
+def _triton_bwd_kernel():
+    global tl, _bwd_kernel
+    if _bwd_kernel is None:
+        import triton
+        import triton.language as tl
 
-    x [B, L, D] (rows may be strided); shift/scale [B, D] (unit column
-    stride); gamma [D] or None. Returns a contiguous [B, L, D] in x's dtype.
-    """
-    if not x.is_cuda:
-        return adaln_rms_modulate_plain(x, shift, scale, gamma, eps)
+        @triton.jit
+        def adaln_rms_modulate_bwd(x_ptr, g_ptr, scale_ptr, gamma_ptr,
+                                   dx_ptr, part_ptr, L, D, x_sb, x_sl,
+                                   mod_sb, eps, n_prog,
+                                   HAS_GAMMA: tl.constexpr,
+                                   ROWS: tl.constexpr, ITERS: tl.constexpr,
+                                   BLOCK_D: tl.constexpr):
+            pid = tl.program_id(0)
+            b = tl.program_id(1)
+            cols = tl.arange(0, BLOCK_D)
+            cmask = cols < D
+            ops = 1.0 + tl.load(scale_ptr + b * mod_sb + cols, mask=cmask,
+                                other=0.0).to(tl.float32)
+            if HAS_GAMMA:
+                gam = tl.load(gamma_ptr + cols, mask=cmask,
+                              other=0.0).to(tl.float32)
+                mul = ops * gam
+            else:
+                mul = ops
+            # column partials stay 2-D in registers across the row tiles;
+            # one cross-row reduction at the end
+            dsh = tl.zeros([ROWS, BLOCK_D], dtype=tl.float32)
+            dsc = tl.zeros([ROWS, BLOCK_D], dtype=tl.float32)
+            dga = tl.zeros([ROWS, BLOCK_D], dtype=tl.float32)
+            for it in range(ITERS):
+                rows = (pid * ITERS + it) * ROWS + tl.arange(0, ROWS)
+                mask = (rows < L)[:, None] & cmask[None, :]
+                x_off = (b.to(tl.int64) * x_sb + rows[:, None].to(tl.int64)
+                         * x_sl + cols[None, :])
+                x = tl.load(x_ptr + x_off, mask=mask, other=0.0).to(tl.float32)
+                row_off = ((b.to(tl.int64) * L + rows[:, None]) * D
+                           + cols[None, :])
+                g = tl.load(g_ptr + row_off, mask=mask,
+                            other=0.0).to(tl.float32)
+                r = tl.rsqrt(tl.sum(x * x, axis=1) / D + eps)
+                n = x * r[:, None]
+                gn = g * n
+                dsh += g
+                if HAS_GAMMA:
+                    dsc += gn * gam[None, :]
+                    dga += gn * ops[None, :]
+                else:
+                    dsc += gn
+                dn = g * mul[None, :]
+                dot = tl.sum(n * dn, axis=1)
+                dx = r[:, None] * (dn - n * dot[:, None] / D)
+                tl.store(dx_ptr + row_off, dx.to(dx_ptr.dtype.element_ty),
+                         mask=mask)
+            part = part_ptr + ((b * n_prog + pid) * 3).to(tl.int64) * D
+            tl.store(part + cols, tl.sum(dsh, axis=0), mask=cmask)
+            tl.store(part + D + cols, tl.sum(dsc, axis=0), mask=cmask)
+            if HAS_GAMMA:
+                tl.store(part + 2 * D + cols, tl.sum(dga, axis=0), mask=cmask)
+
+        _bwd_kernel = adaln_rms_modulate_bwd
+    return _bwd_kernel
+
+
+def _check_operands(x, shift, scale, gamma) -> None:
     b, l, d = x.shape
     operands = [("shift", shift), ("scale", scale)]
     if gamma is not None:
@@ -99,10 +197,13 @@ def adaln_rms_modulate(x: torch.Tensor, shift: torch.Tensor,
         raise ValueError("shift/scale must be [B, D] views with one row stride")
     if x.stride(-1) != 1:
         raise ValueError("x must have a unit column stride")
-    if torch.is_grad_enabled() and any(
-            t is not None and t.requires_grad for t in (x, shift, scale, gamma)):
-        raise RuntimeError("the AdaLN kernel has no backward yet; run under "
-                           "torch.no_grad()")
+
+
+def _forward(x, shift, scale, gamma, eps: float) -> torch.Tensor:
+    if not x.is_cuda:
+        return adaln_rms_modulate_plain(x, shift, scale, gamma, eps)
+    _check_operands(x, shift, scale, gamma)
+    b, l, d = x.shape
     y = torch.empty((b, l, d), dtype=x.dtype, device=x.device)
     block = max(16, 1 << (d - 1).bit_length())
     kernel = _triton_kernel()
@@ -113,6 +214,72 @@ def adaln_rms_modulate(x: torch.Tensor, shift: torch.Tensor,
                        num_warps=min(8, max(1, block // 256)))
     adaln_rms_modulate.launches += 1
     return y
+
+
+def adaln_rms_modulate_bwd(x, shift, scale, gamma, g, eps: float = 1e-6):
+    """The backward: (dx, dshift, dscale, dγ or None) in the dtypes of x,
+    shift, scale and γ. The Triton kernel on CUDA, the twin on the CPU."""
+    if not x.is_cuda:
+        return adaln_rms_modulate_bwd_plain(x, shift, scale, gamma, g, eps)
+    _check_operands(x, shift, scale, gamma)
+    b, l, d = x.shape
+    g = g.contiguous()
+    dx = torch.empty((b, l, d), dtype=x.dtype, device=x.device)
+    block = max(16, 1 << (d - 1).bit_length())
+    rows = max(1, min(_BWD_ROWS, _BWD_TILE_ROWS * 512 // block))
+    iters = _BWD_ROWS // rows
+    n_prog = -(-l // _BWD_ROWS)
+    part = torch.empty((b, n_prog, 3, d), dtype=torch.float32,
+                       device=x.device)
+    kernel = _triton_bwd_kernel()
+    with torch.cuda.device(x.device):
+        kernel[(n_prog, b)](x, g, scale, x if gamma is None else gamma, dx,
+                            part, l, d, x.stride(0), x.stride(1),
+                            scale.stride(0), eps, n_prog,
+                            HAS_GAMMA=gamma is not None, ROWS=rows,
+                            ITERS=iters, BLOCK_D=block,
+                            num_warps=_BWD_WARPS)
+    adaln_rms_modulate_bwd.launches += 1
+    sums = part.sum(dim=1)  # [B, 3, D]
+    dgamma = None
+    if gamma is not None:
+        dgamma = sums[:, 2].sum(dim=0).to(gamma.dtype)
+    return dx, sums[:, 0].to(shift.dtype), sums[:, 1].to(scale.dtype), dgamma
+
+
+adaln_rms_modulate_bwd.launches = 0
+
+
+class _AdaLNRms(torch.autograd.Function):
+    """The JAX `_adaln_rms` custom_vjp: saves (x, shift, scale, γ)."""
+
+    @staticmethod
+    def forward(ctx, x, shift, scale, gamma, eps):
+        ctx.save_for_backward(x, shift, scale, gamma)
+        ctx.eps = eps
+        return _forward(x, shift, scale, gamma, eps)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, shift, scale, gamma = ctx.saved_tensors
+        dx, dshift, dscale, dgamma = adaln_rms_modulate_bwd(
+            x, shift, scale, gamma, g, ctx.eps)
+        return dx, dshift, dscale, dgamma, None
+
+
+def adaln_rms_modulate(x: torch.Tensor, shift: torch.Tensor,
+                       scale: torch.Tensor,
+                       gamma: Optional[torch.Tensor] = None,
+                       eps: float = 1e-6) -> torch.Tensor:
+    """`rms_norm(x[, gamma]) * (1 + scale) + shift` in one pass,
+    differentiable in x, shift, scale and γ.
+
+    x [B, L, D] (rows may be strided); shift/scale [B, D] (unit column
+    stride, one row stride); gamma [D] or None. Returns a contiguous
+    [B, L, D] in x's dtype. `adaln_rms_modulate.launches` counts forward
+    kernel launches.
+    """
+    return _AdaLNRms.apply(x, shift, scale, gamma, eps)
 
 
 adaln_rms_modulate.launches = 0

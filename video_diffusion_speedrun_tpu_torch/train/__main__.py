@@ -1,0 +1,138 @@
+"""Training entry point of the port: muP-AdamW rectified-flow training of
+the video DiT on synthetic Cosmos-shaped latents.
+
+    python -m video_diffusion_speedrun_tpu_torch.train --batch_size 64 \\
+        --learning_rate 0.015625 --max_steps 5004 --evaluate_every 500 \\
+        --model_width 512 --model_depth 24 --model_head_dim 128 \\
+        --lr_scheduler_type linear
+
+Flags keep the names and defaults of the JAX package's `train.py`. Runs on
+the card by default (`--device cuda`, which raises when no card is
+present); `--device cpu` runs the fused ops' plain twins. Flags of later
+slices (real data, checkpoints, T5, optimizer-in-backward, meshes, wandb)
+raise.
+"""
+
+from __future__ import annotations
+
+import argparse
+import logging
+from typing import Dict, List, Optional
+
+import torch
+
+from video_diffusion_speedrun_tpu_torch.core.config import (
+    DataConfig,
+    DiTConfig,
+    OptimizerConfig,
+    TrainConfig,
+)
+
+
+def _bool(s: str) -> bool:
+    if s.lower() in ("true", "1", "yes"):
+        return True
+    if s.lower() in ("false", "0", "no"):
+        return False
+    raise argparse.ArgumentTypeError(f"not a boolean: {s}")
+
+
+def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
+    p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    add = p.add_argument
+    add("--num_epochs", type=int, default=2)
+    add("--batch_size", type=int, default=64)
+    add("--learning_rate", type=float, default=1e-4)
+    add("--max_steps", type=int, default=10000)
+    add("--evaluate_every", type=int, default=20)
+    add("--log_every", type=int, default=10)
+    add("--model_width", type=int, default=512)
+    add("--model_depth", type=int, default=9)
+    add("--model_head_dim", type=int, default=128)
+    add("--optimizer_type", default="mup_adam")
+    add("--lr_scheduler_type", choices=["cosine", "linear", "constant"],
+        default="cosine")
+    add("--train_bias_and_rms", type=_bool, default=False)
+    add("--init_std_factor", type=float, default=0.1)
+    add("--rope_order", choices=["auto", "matched", "reference"],
+        default="auto")
+    add("--dataset", choices=["synthetic", "cosmos_openvid"],
+        default="synthetic")
+    add("--synthetic_rows", type=int, default=4096)
+    add("--seed", type=int, default=0)
+    add("--grad_accum", type=int, default=1)
+    add("--remat", type=_bool, default=True)
+    add("--context_dim", type=int, default=4096)
+    add("--moments_dtype", choices=["fp32", "bf16"], default="fp32")
+    add("--param_dtype", choices=["fp32", "bf16"], default="fp32")
+    add("--device", default="cuda")
+    # flags of later slices: accepted so that they can refuse
+    add("--load_checkpoint", default=None)
+    add("--use_t5", type=_bool, default=False)
+    add("--optimizer_in_backward", type=_bool, default=False)
+    add("--wandb", type=_bool, default=False)
+    for axis in ("replica", "fsdp", "context", "tensor"):
+        add(f"--mesh_{axis}", type=int, default=-1 if axis == "fsdp" else 1)
+    return p.parse_args(argv)
+
+
+def build_config(args: argparse.Namespace) -> TrainConfig:
+    """The TrainConfig of the JAX `train.py`, refusing what the port lacks."""
+    later = {
+        "--load_checkpoint (checkpoints)": args.load_checkpoint is not None,
+        "--use_t5 (T5 slice)": args.use_t5,
+        "--optimizer_in_backward (ROADMAP A10)": args.optimizer_in_backward,
+        "--wandb (logging)": args.wandb,
+        # one device: every axis 1 (fsdp's -1 takes the remaining one)
+        "--mesh_* other than 1 (multi-GPU slice)": any(
+            getattr(args, f"mesh_{a}") not in (1, -1 if a == "fsdp" else 1)
+            for a in ("replica", "fsdp", "context", "tensor")),
+        "--dataset cosmos_openvid (real-data slice)":
+            args.dataset != "synthetic",
+    }
+    refused = [flag for flag, on in later.items() if on]
+    if refused:
+        raise NotImplementedError(
+            "not ported yet: " + ", ".join(refused))
+    if args.optimizer_type != "mup_adam":
+        raise ValueError(f"unknown optimizer type: {args.optimizer_type}")
+    if args.param_dtype == "bf16":
+        # bf16 masters under the standard optimizer round small updates
+        # away; the JAX CLI allows them only with optimizer-in-backward
+        raise ValueError("--param_dtype bf16 requires --optimizer_in_backward "
+                         "true; use --moments_dtype bf16 to halve optimizer "
+                         "memory instead")
+    model = DiTConfig(
+        in_channels=16, patch_size=2, time_patch_size=2,
+        hidden_size=args.model_width, depth=args.model_depth,
+        num_heads=args.model_width // args.model_head_dim, mlp_ratio=4.0,
+        cross_attn_input_size=args.context_dim, residual_v=True,
+        train_bias_and_rms=args.train_bias_and_rms, use_rope=True,
+        rope_order="matched" if args.rope_order == "auto" else args.rope_order,
+        remat=args.remat)
+    return TrainConfig(
+        model=model,
+        data=DataConfig(synthetic_rows=args.synthetic_rows,
+                        context_dim=args.context_dim),
+        optimizer=OptimizerConfig(
+            learning_rate=args.learning_rate,
+            scheduler=args.lr_scheduler_type,
+            moments_dtype=(torch.bfloat16 if args.moments_dtype == "bf16"
+                           else None)),
+        num_epochs=args.num_epochs, batch_size=args.batch_size,
+        grad_accum=args.grad_accum, max_steps=args.max_steps,
+        evaluate_every=args.evaluate_every, seed=args.seed,
+        init_std_factor=args.init_std_factor, log_every=args.log_every)
+
+
+def main(argv: Optional[List[str]] = None) -> Dict[str, float]:
+    args = parse_args(argv)
+    cfg = build_config(args)
+    logging.basicConfig(level=logging.INFO, format="%(message)s")
+    from video_diffusion_speedrun_tpu_torch.train.loop import Trainer
+
+    return Trainer(cfg, device=args.device).train()
+
+
+if __name__ == "__main__":
+    main()

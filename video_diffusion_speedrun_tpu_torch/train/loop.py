@@ -1,0 +1,134 @@
+"""Single-device training loop (port of `train/loop.py`).
+
+Keeps the JAX loop's semantics: an epoch × step loop bounded by
+`max_steps`; metrics every `log_every` steps, read back one log interval
+late so the host never stalls the card to print (`loop.py:410-418`);
+evaluation with a fixed-seed generator on `eval_batches` batches of the
+test split when `step % evaluate_every == 1`; timestep-decile loss bins.
+Synthetic data only: train rows seeded 0, test rows seeded 1, and the
+context drawn on the device inside the step. Checkpoints come with the
+next slice.
+"""
+
+from __future__ import annotations
+
+import logging
+import time
+from typing import Dict, Iterator, Optional
+
+import torch
+
+from video_diffusion_speedrun_tpu_torch.core.config import (
+    TrainConfig,
+    resolve_device,
+)
+from video_diffusion_speedrun_tpu_torch.data.loader import (
+    ShardedSampler,
+    device_batches,
+    host_batches,
+)
+from video_diffusion_speedrun_tpu_torch.data.synthetic import (
+    SyntheticLatentDataset,
+)
+from video_diffusion_speedrun_tpu_torch.models.dit import DiT
+from video_diffusion_speedrun_tpu_torch.train.optim import MupAdamW
+from video_diffusion_speedrun_tpu_torch.train.step import eval_step, train_step
+
+logger = logging.getLogger("video_diffusion_speedrun_tpu_torch.train")
+
+
+class Trainer:
+    def __init__(self, cfg: TrainConfig, device="cuda"):
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        self.model = DiT(cfg.model, device=self.device,
+                         init_std_factor=cfg.init_std_factor, seed=cfg.seed)
+        self.opt = MupAdamW(self.model.named_parameters(),
+                            cfg.optimizer.learning_rate, cfg.max_steps,
+                            cfg.optimizer)
+        self.n_params = sum(p.numel() for p in self.model.parameters())
+        logger.info("param_count: %.2fM", self.n_params / 1e6)
+        dcfg = cfg.data
+        self.datasets = {
+            split: SyntheticLatentDataset(
+                num_rows=rows, latent_shape=dcfg.synthetic_shape, seed=seed)
+            for split, rows, seed in (("train", dcfg.synthetic_rows, 0),
+                                      ("test", dcfg.test_rows, 1))}
+        self.step = 0
+
+    def batches(self, split: str) -> Iterator[Dict[str, torch.Tensor]]:
+        """The split's batches as device tensors (captions dropped: the
+        context is drawn on the device), epoch after epoch."""
+        ds = self.datasets[split]
+        batch = self.cfg.batch_size
+        if split != "train":
+            batch = min(batch, len(ds))  # the test split is 40 rows
+        sampler = ShardedSampler(len(ds), batch, self.cfg.data.shuffle_seed,
+                                 shuffle=split == "train")
+        epochs = self.cfg.num_epochs if split == "train" else 1
+        for batch in device_batches(host_batches(ds, sampler, epochs),
+                                    self.device):
+            yield {k: v for k, v in batch.items()
+                   if isinstance(v, torch.Tensor)}
+
+    def evaluate(self) -> Dict[str, float]:
+        """Mean test loss and per-decile losses, with a fixed-seed
+        generator (the reference's seeded eval)."""
+        gen = torch.Generator(device=self.device).manual_seed(
+            self.cfg.seed + 1000)
+        losses, sums, counts = [], 0.0, 0.0
+        for idx, batch in enumerate(self.batches("test")):
+            m = eval_step(self.model, batch, gen, self.cfg)
+            losses.append(m["loss"])
+            sums = sums + m["bin_sums"]
+            counts = counts + m["bin_counts"]
+            if idx + 1 >= self.cfg.eval_batches:
+                break
+        bins = (sums / counts.clamp(min=1)).tolist()
+        out = {"test/total_loss": float(torch.stack(losses).mean())}
+        out.update({f"test_binning/{k}": bins[k] for k in range(10)})
+        return out
+
+    def _record(self, m: Dict, step: int,
+                avg_ms: Optional[float]) -> Dict[str, float]:
+        bins = (m["bin_sums"] / m["bin_counts"].clamp(min=1)).tolist()
+        rec = {"train/step": step, "train/total_loss": float(m["loss"]),
+               "train/learning_rate_scale": float(m["lr_scale"])}
+        if "grad_norm" in m:
+            rec["train/grad_norm"] = float(m["grad_norm"])
+        rec.update({f"train_binning/{k}": bins[k] for k in range(10)})
+        if avg_ms is not None:
+            rec["train/avg_step_ms"] = avg_ms
+        logger.info("step %d/%d loss %.4f%s", step, self.cfg.max_steps,
+                    rec["train/total_loss"],
+                    f" avg_step {avg_ms:.1f}ms" if avg_ms else "")
+        return rec
+
+    def train(self) -> Dict[str, float]:
+        """Train to `max_steps`; returns the last logged record merged with
+        the last evaluation."""
+        cfg = self.cfg
+        gen = torch.Generator(device=self.device).manual_seed(cfg.seed + 1)
+        last: Dict[str, float] = {}
+        pending = None  # (metrics, step) read back one interval late
+        t_tick, ticks = time.perf_counter(), 0
+        for batch in self.batches("train"):
+            if self.step >= cfg.max_steps:
+                break
+            m = train_step(self.model, self.opt, batch, gen, cfg)
+            ticks += 1
+            if self.step % cfg.log_every == 0:
+                now = time.perf_counter()
+                avg_ms = 1e3 * (now - t_tick) / ticks if self.step else None
+                t_tick, ticks = now, 0
+                if pending is not None:
+                    last.update(self._record(*pending, avg_ms))
+                pending = (m, self.step)
+            self.step += 1
+            if self.step % cfg.evaluate_every == 1:
+                ev = self.evaluate()
+                logger.info("eval @%d: %.4f", self.step, ev["test/total_loss"])
+                last.update(ev)
+        if pending is not None:
+            last.update(self._record(*pending, None))
+        return last

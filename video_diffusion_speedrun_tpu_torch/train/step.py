@@ -1,0 +1,92 @@
+"""Single-device train and eval steps (port of `train/step.py`).
+
+`train_step` runs the loss forward, its backward (remat recomputes each
+block) and one muP-AdamW update, and returns the step's metrics as device
+tensors, so the caller decides when to read them back. With
+`grad_accum > 1` the batch splits into equal microbatches whose gradients
+and losses are averaged and whose bins are summed (`accumulate_grads`,
+`step.py:42-74`). A batch may inject `timesteps`, `noise` (split with the
+batch) and `rope_offsets` (shared); a batch with no `context` gets
+0.05·N(0, 1) [b, caption_tokens, context_dim] drawn on the device in the
+compute dtype (`step.py:132-141`).
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Optional
+
+import torch
+
+from video_diffusion_speedrun_tpu_torch.core.config import TrainConfig
+from video_diffusion_speedrun_tpu_torch.models.dit import DiT
+from video_diffusion_speedrun_tpu_torch.train.loss import rectified_flow_loss
+from video_diffusion_speedrun_tpu_torch.train.optim import MupAdamW
+
+_SPLIT = ("latent", "context", "timesteps", "noise")
+
+
+def _loss(model: DiT, batch: Dict, generator: Optional[torch.Generator],
+          cfg: TrainConfig):
+    mcfg = model.cfg
+    latent = batch["latent"]
+    context = batch.get("context")
+    if context is None and mcfg.cross_attn_input_size is not None:
+        context = 0.05 * torch.randn(
+            latent.shape[0], cfg.data.caption_tokens, cfg.data.context_dim,
+            generator=generator, device=latent.device,
+            dtype=mcfg.compute_dtype)
+    return rectified_flow_loss(
+        model, latent, context, generator, alpha=cfg.time_shift_alpha,
+        caption_dropout=cfg.caption_dropout,
+        timesteps=batch.get("timesteps"), noise=batch.get("noise"),
+        rope_offsets=batch.get("rope_offsets"))
+
+
+def _microbatches(batch: Dict, n: int):
+    if n <= 1:
+        return [batch]
+    b = batch["latent"].shape[0]
+    micro = b // n
+    return [{k: (v[i * micro:(i + 1) * micro] if k in _SPLIT else v)
+             for k, v in batch.items()} for i in range(n)]
+
+
+def train_step(model: DiT, opt: MupAdamW, batch: Dict,
+               generator: Optional[torch.Generator],
+               cfg: TrainConfig) -> Dict[str, torch.Tensor]:
+    """One optimizer step. Returns {loss, lr_scale, bin_sums, bin_counts
+    [, grad_norm]}; lr_scale is λ of this update (the count before it)."""
+    accum = cfg.grad_accum
+    loss_sum = 0.0
+    bin_sums = bin_counts = 0.0
+    for mb in _microbatches(batch, accum):
+        loss, aux = _loss(model, mb, generator, cfg)
+        loss.backward()
+        loss_sum = loss_sum + loss.detach()
+        bin_sums = bin_sums + aux["bin_sums"]
+        bin_counts = bin_counts + aux["bin_counts"]
+    grads = [p.grad for p in opt.params]
+    if accum > 1:
+        for g in grads:
+            if g is not None:
+                g.mul_(1.0 / accum)
+    metrics = {"loss": loss_sum / accum if accum > 1 else loss_sum,
+               "lr_scale": opt.lr_scale(), "bin_sums": bin_sums,
+               "bin_counts": bin_counts}
+    if cfg.log_grad_norm:
+        metrics["grad_norm"] = torch.sqrt(sum(
+            g.float().square().sum() for g in grads if g is not None))
+    opt.step(grads)
+    for p in opt.params:
+        p.grad = None
+    return metrics
+
+
+@torch.no_grad()
+def eval_step(model: DiT, batch: Dict, generator: torch.Generator,
+              cfg: TrainConfig) -> Dict[str, torch.Tensor]:
+    """The loss on one batch without gradients: {loss, bin_sums,
+    bin_counts}."""
+    loss, aux = _loss(model, batch, generator, cfg)
+    return {"loss": loss, "bin_sums": aux["bin_sums"],
+            "bin_counts": aux["bin_counts"]}
