@@ -31,12 +31,35 @@ Run from the root of a checkout. Phases, each of which raises on failure:
              one evaluation, one profiled step;
 6. train parity — depth 2, full width: 3 optimizer steps on the card (bf16
              compute, kernels) against the CPU (fp32, twins) on the same
-             weights and injected batches.
+             weights and injected batches;
+7. long kernels — the long attention forward and backward (rows 6–7)
+             against their twins at L = 8208 (the serve shape B=2, H=16 and
+             the train shape B=2, H=4, D=128) and a ragged L = 2100; at
+             L = 8208 the same launches against JAX's split-prefix
+             decomposition in plain torch (rows 8–9); times beside SDPA;
+8. serve-long — the demo DiT at the sampling CLI's default 512×512×16
+             latent frames (L = 8208) through `generate_latents`: 1 request
+             of 8 Euler steps, full width and depth, counters per step;
+             profile one Euler step;
+9. train-long — the canonical DiT at batch 2, latent [16, 16, 64, 64]
+             (L = 8208; JAX `bench.py --longctx`), remat, bf16 moments,
+             through `Trainer` and `train_step`: 4 steps, counters per step,
+             ms per step, MFU, peak memory; profile one step;
+10. long parity — depth 2 at L = 2064 (above the short limit): 2 Euler
+             steps of the demo DiT (width 2048) at 256×256×16 frames, and 3
+             train steps of the canonical DiT (width 512) on latents
+             [16, 17, 32, 32], card (bf16, kernels) against CPU (fp32,
+             twins).
 
-The next-to-last lines are the kernels JSON and the card's name and power
-limit; the last line is {"ok": true, "device": {...}}. With no card, or
-outside a checkout, it exits non-zero before printing any result.
+The kernels JSON lists every kernel with `launches` summed over the four
+main-path runs (serve, train, serve-long, train-long), each run with the
+counters set to 0 just before it and read just after. The next-to-last
+lines are that JSON and the card's name and power limit; the last line is
+{"ok": true, "device": {...}}. With no card, or outside a checkout, it
+exits non-zero before printing any result.
 """
+
+import dataclasses
 
 import json
 import subprocess
@@ -101,6 +124,24 @@ T_STEPS = 8
 # activations and the bf16 p/ds of the attention backward)
 TRAIN_LOSS_REL = 5e-2
 TRAIN_GRAD_REL_L2 = 1e-1
+
+# the long path: the demo DiT at the sampling CLI's default size, and the
+# canonical DiT at the JAX `bench.py --longctx` shape (bench.py:174-187)
+LONG_PX, LONG_FRAMES, LONG_STEPS = 512, 16, 8
+LONG_L = (LONG_FRAMES // 2) * (LONG_PX // 16) ** 2 + 16  # 8208
+TL_BATCH, TL_STEPS = 2, 4
+TL_LATENT = (16, 16, 64, 64)  # [C, T, H, W] → L = 8·32·32 + 16 = 8208
+# long-path parity at L = 2064 = 8·16·16 + 16, the smallest long length of
+# the model: 16 latent frames at 256×256; latents [16, 17, 32, 32] for
+# training (17 frames floor-crop to 16). Training runs at the canonical
+# width 512: at width 2048, lr 2^-6 and no warm-up the 3-step trajectory
+# diverges on the CPU and the card alike (loss 2.96 → ~300 by step 3)
+LP_FRAMES, LP_LATENT = 16, (16, 17, 32, 32)
+# long forward against its twin: the same rounding points, the online
+# softmax sums in another order, which can flip the last bf16 rounding of
+# o: two bf16 ulps of the largest |o|. At L = 8208 o averages v over
+# thousands of keys, so |o| is ~0.02 and an absolute 2e-2 would see nothing
+LONG_FWD_REL = 2.0 ** -6
 
 
 def log(msg: str) -> None:
@@ -513,6 +554,159 @@ def adamw_row(dev):
         library_ms=lib_ms)}
 
 
+def long_inputs(dev, gen, b: int, lq: int, lk: int, h: int):
+    """bf16 q [B, Lq, H·D] and k, v [B, Lk, H·D] for the long kernels: at
+    L = 8208 q and k rotated by the serve shape's RoPE tables (as the model
+    hands them over, contiguous) and v strided out of qkv; at other lengths
+    all three strided out of qkv, as the no-RoPE model hands them over."""
+    from video_diffusion_speedrun_tpu_torch.models.rope import rope_cos_sin
+    from video_diffusion_speedrun_tpu_torch.ops import fused_attention as fa
+
+    hd = h * HEAD_DIM
+    qkv = torch.randn(b, lq, 3 * hd, generator=gen, device=dev).bfloat16()
+    kv = qkv if lk == lq else torch.randn(b, lk, 3 * hd, generator=gen,
+                                          device=dev).bfloat16()
+    q, k, v = qkv[..., :hd], kv[..., hd:2 * hd], kv[..., 2 * hd:]
+    if lq == lk == LONG_L:
+        grid = (LONG_FRAMES // 2, LONG_PX // 16, LONG_PX // 16)
+        cos, sin = rope_cos_sin(HEAD_DIM, *grid, torch.tensor(
+            [3, 5, 7], device=dev), num_registers=16)
+        q, k = (fa.rotate_flat(t, cos, sin, h) for t in (q, k))
+    return q, k, v
+
+
+def attention_bounds(b, h, lq, lk, d, backward: bool):
+    """(bound ms, what bounds it) of attention over [B, H, Lq/Lk, D] bf16:
+    forward reads q, k, v and writes o, lse (4·B·H·Lq·Lk·D tensor flops,
+    ~5 fp32 flops a logit: the scale and the softmax); backward reads q, k,
+    v, o, do, lse and writes dq, dk, dv (10·B·H·Lq·Lk·D useful tensor
+    flops, the JAX count; ~4 fp32 flops a logit)."""
+    hd = h * d
+    if not backward:
+        return bound(2 * b * (2 * lq + 2 * lk) * hd + 4 * b * h * lq,
+                     4 * b * h * lq * lk * d, 5 * b * h * lq * lk)
+    return bound(2 * b * hd * (3 * lq + 2 * lk) + 4 * b * h * lq
+                 + 2 * b * hd * (lq + 2 * lk),
+                 10 * b * h * lq * lk * d, 4 * b * h * lq * lk)
+
+
+def long_attention_rows(dev):
+    """Rows 6–9: the long kernels against their twins at L = 8208 (serve
+    and train shapes) and a ragged L = 2100, and at L = 8208 against the
+    split-prefix plain version; times beside SDPA at the main-path shapes
+    (forward: serve, backward: train)."""
+    import torch.nn.functional as F
+
+    from video_diffusion_speedrun_tpu_torch.ops import fused_attention as fa
+
+    gen = torch.Generator(device=dev).manual_seed(11)
+    d = HEAD_DIM
+    scale = d ** -0.5
+    serve_h, train_h = WIDTH // HEAD_DIM, T_WIDTH // T_HEAD_DIM
+    src = "video_diffusion_speedrun_tpu_torch/csrc/long_attention_{}.cu"
+    rep = "video_diffusion_speedrun_tpu/ops/fused_attention.py:{}"
+    n_pfx = fa._split_prefix(LONG_L, LONG_L, fa.DEFAULT_BLOCK)
+    rows, errs = {}, {}
+
+    def fwd_check(name, what, got, want):
+        (o, lse), (wo, wlse) = got, want
+        err = check_close(name, what + " o", o, wo, 0.0,
+                          LONG_FWD_REL * wo.float().abs().max().item(),
+                          "two bf16 ulps of the largest |o|: the online "
+                          "softmax sums in another order")
+        check_close(name, what + " lse", lse, wlse, 0.0, LSE_TOL,
+                    "fp32 sums in another order")
+        errs[name] = max(errs.get(name, 0.0), err)
+
+    def bwd_check(name, what, got, want):
+        for gname, x, y in zip(("dq", "dk", "dv"), got, want):
+            err = check_close(
+                name, f"{what} {gname}", x, y, 0.0,
+                ATTN_BWD_REL * y.float().abs().max().item(),
+                "2% of the largest |grad|: bf16 p/ds rounding flips under "
+                "another summation order")
+            errs[name] = max(errs.get(name, 0.0), err)
+
+    def heads(*ts):
+        return [t.reshape(t.shape[0], t.shape[1], -1, d).transpose(1, 2)
+                .contiguous() for t in ts]
+
+    for b, l, h in ((2, LONG_L, serve_h), (2, LONG_L, train_h),
+                    (2, 2100, train_h)):
+        q, k, v = long_inputs(dev, gen, b, l, l, h)
+        what = f"B={b} H={h} Lq=Lk={l}"
+        got = fa.long_attention_cuda(q, k, v, h, scale)
+        fwd_check("long_attention_fwd", what, got,
+                  fa.long_attention_plain(q, k, v, h, scale))
+        if l != LONG_L:
+            continue
+        fwd_check("long_attention_fwd<split>", what + f" n_pfx={n_pfx}", got,
+                  fa.split_attention_plain(q, k, v, h, scale, n_pfx))
+        ms = cuda_ms(lambda: fa.long_attention_cuda(q, k, v, h, scale),
+                     iters=10, warmup=2)
+        bms, by = attention_bounds(b, h, l, l, d, backward=False)
+        log(f"[kernels] long_attention_fwd {what}: kernel {ms:.4f} ms, bound "
+            f"{bms:.4f} ms ({by}), {4 * b * h * l * l * d / ms / 1e9:.1f} "
+            f"TFLOP/s")
+        if h != serve_h:
+            continue
+        plain_ms = cuda_ms(lambda: fa.long_attention_plain(q, k, v, h, scale),
+                           iters=3, warmup=1)
+        split_ms = cuda_ms(lambda: fa.split_attention_plain(
+            q, k, v, h, scale, n_pfx), iters=3, warmup=1)
+        qh, kh, vh = heads(q, k, v)
+        lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(qh, kh, vh),
+                         iters=10, warmup=2)
+        log(f"[kernels] long_attention_fwd {what}: twin {plain_ms:.4f} ms, "
+            f"split plain version {split_ms:.4f} ms, SDPA {lib_ms:.4f} ms")
+        for name, line, pms in (("long_attention_fwd", 251, plain_ms),
+                                ("long_attention_fwd<split>", 1468, split_ms)):
+            rows[name] = dict(name=name, route="cuda", source=src.format("fwd"),
+                              replaces=rep.format(line), ms=ms, plain_ms=pms,
+                              bound_ms=bms, bound_by=by, library_ms=lib_ms)
+
+    for b, l, h in ((2, LONG_L, train_h), (2, 2100, train_h)):
+        q, k, v = long_inputs(dev, gen, b, l, l, h)
+        what = f"B={b} H={h} Lq=Lk={l}"
+        o, lse = fa.long_attention_cuda(q, k, v, h, scale)
+        do = torch.randn(q.shape, generator=gen, device=dev).bfloat16()
+        args = (q, k, v, o, lse, do, h, scale)
+        got = fa.long_attention_bwd_cuda(*args)
+        bwd_check("long_attention_bwd", what, got,
+                  fa.long_attention_bwd_plain(*args))
+        if l != LONG_L:
+            continue
+        bwd_check("long_attention_bwd<split>", what + f" n_pfx={n_pfx}", got,
+                  fa.split_attention_bwd_plain(*args, n_pfx))
+        del got
+        ms = cuda_ms(lambda: fa.long_attention_bwd_cuda(*args), iters=10,
+                     warmup=2)
+        plain_ms = cuda_ms(lambda: fa.long_attention_bwd_plain(*args),
+                           iters=2, warmup=1)
+        split_ms = cuda_ms(lambda: fa.split_attention_bwd_plain(*args, n_pfx),
+                           iters=2, warmup=1)
+        qh, kh, vh = (t.requires_grad_() for t in heads(q, k, v))
+        oh = F.scaled_dot_product_attention(qh, kh, vh)
+        (doh,) = heads(do)
+        lib_ms = cuda_ms(lambda: torch.autograd.grad(
+            oh, (qh, kh, vh), doh, retain_graph=True), iters=10, warmup=2)
+        del oh
+        bms, by = attention_bounds(b, h, l, l, d, backward=True)
+        log(f"[kernels] long_attention_bwd {what}: kernel {ms:.4f} ms, twin "
+            f"{plain_ms:.4f} ms, split plain version {split_ms:.4f} ms, SDPA "
+            f"backward {lib_ms:.4f} ms, bound {bms:.4f} ms ({by}), "
+            f"{10 * b * h * l * l * d / ms / 1e9:.1f} useful TFLOP/s")
+        for name, line, pms in (("long_attention_bwd", 534, plain_ms),
+                                ("long_attention_bwd<split>", 1596, split_ms)):
+            rows[name] = dict(name=name, route="cuda", source=src.format("bwd"),
+                              replaces=rep.format(line), ms=ms, plain_ms=pms,
+                              bound_ms=bms, bound_by=by, library_ms=lib_ms)
+    for name, row in rows.items():
+        row["max_abs_err"] = errs[name]
+    torch.cuda.empty_cache()
+    return rows
+
+
 def randomize_zero_layers(model, gen) -> None:
     """Give the zero-initialised AdaLN and output layers random weights: at
     the zero init the DiT outputs exactly 0 and sampling never moves the
@@ -542,7 +736,14 @@ def counters():
             "short_attention_bwd<rope>": fa.qkv_rope_flash_backward,
             "short_attention_bwd<norope>": fa.cross_flash_backward,
             "adaln_rms_modulate_bwd": fad.adaln_rms_modulate_bwd,
-            "adamw_multi_tensor": fw.MultiTensorAdamW}
+            "adamw_multi_tensor": fw.MultiTensorAdamW,
+            "long_attention_fwd": fa.long_attention_forward,
+            "long_attention_bwd": fa.long_attention_backward}
+
+
+# rows 8–9 are functions of the row 6/7 launches: their counts are those
+COUNTED_AS = {"long_attention_fwd<split>": "long_attention_fwd",
+              "long_attention_bwd<split>": "long_attention_bwd"}
 
 
 def reset_counters() -> None:
@@ -554,13 +755,11 @@ def read_counters():
     return {name: fn.launches for name, fn in counters().items()}
 
 
-def phase_serve(dev):
-    from video_diffusion_speedrun_tpu_torch.core.config import SamplingConfig
-    from video_diffusion_speedrun_tpu_torch.sample import demo_config
-    from video_diffusion_speedrun_tpu_torch.sampling.euler import (
-        generate_latents,
-    )
+def build_demo(dev):
+    """The demo DiT (random weights, the zero-initialised layers made
+    random) in bf16 on the card, and a seeded 512×4096 context."""
     from video_diffusion_speedrun_tpu_torch.models.dit import DiT
+    from video_diffusion_speedrun_tpu_torch.sample import demo_config
 
     cfg = demo_config(WIDTH, DEPTH, HEAD_DIM, CTX_DIM,
                       param_dtype=torch.bfloat16)
@@ -574,59 +773,76 @@ def phase_serve(dev):
     gen = torch.Generator(device=dev).manual_seed(1)
     context = torch.randn(1, CTX_LEN, CTX_DIM, generator=gen,
                           device=dev).bfloat16() * 0.05
+    return model, context
 
+
+def phase_serve(dev, model, context, px: int, frames: int, steps: int,
+                seeds, tag: str):
+    """Sample one request per seed through `generate_latents` with the
+    launch counters set to 0 just before and read just after; check the
+    counts per Euler step and the latents; profile one Euler step. Returns
+    the counts."""
+    from video_diffusion_speedrun_tpu_torch.core.config import SamplingConfig
+    from video_diffusion_speedrun_tpu_torch.ops import fused_attention as fa
+    from video_diffusion_speedrun_tpu_torch.sampling.euler import (
+        generate_latents,
+    )
+
+    l = (frames // 2) * (px // 16) ** 2 + 16
     torch.cuda.reset_peak_memory_stats(dev)
     reset_counters()
     outs, step_ms = [], []
-    for seed in SEEDS:
-        sampling = SamplingConfig(inference_steps=STEPS, cfg_scale=6.0,
-                                  height=HEIGHT, width=WIDTH_PX,
-                                  num_latent_frames=FRAMES, seed=seed)
+    for seed in seeds:
+        sampling = SamplingConfig(inference_steps=steps, cfg_scale=6.0,
+                                  height=px, width=px,
+                                  num_latent_frames=frames, seed=seed)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         lat = generate_latents(model, context, sampling)
         torch.cuda.synchronize()
-        step_ms.append(1e3 * (time.perf_counter() - t0) / STEPS)
+        step_ms.append(1e3 * (time.perf_counter() - t0) / steps)
         outs.append(lat)
     launches = read_counters()
     peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
 
-    # sampling runs no backward and no optimizer
+    # sampling runs no backward and no optimizer; self-attention takes the
+    # short kernel up to SHORT_MAX_KV tokens and the long one past it
+    self_attn = ("short_attention_fwd<rope>" if l <= fa.SHORT_MAX_KV
+                 else "long_attention_fwd")
+    n = len(seeds) * steps
     want = dict.fromkeys(launches, 0)
-    want.update({"short_attention_fwd<rope>": len(SEEDS) * STEPS * DEPTH,
-                 "short_attention_fwd<norope>": len(SEEDS) * STEPS * DEPTH,
-                 "adaln_rms_modulate_fwd":
-                     len(SEEDS) * STEPS * ADALN_PER_FORWARD})
-    for i, (seed, lat, ms) in enumerate(zip(SEEDS, outs, step_ms)):
-        log(f"[serve] request {i} seed {seed}: latents {tuple(lat.shape)} "
+    want.update({self_attn: n * DEPTH,
+                 "short_attention_fwd<norope>": n * DEPTH,
+                 "adaln_rms_modulate_fwd": n * ADALN_PER_FORWARD})
+    for i, (seed, lat, ms) in enumerate(zip(seeds, outs, step_ms)):
+        log(f"[{tag}] request {i} seed {seed}: latents {tuple(lat.shape)} "
             f"std {lat.std().item():.4f}, {ms:.2f} ms per Euler step "
-            f"(one forward at batch 2, L={lat.shape[2] // 2 * 16 * 16 + 16})")
-    log(f"[serve] peak memory {peak_gb:.2f} GB; launches {launches}, "
+            f"(one forward at batch 2, L={l})")
+    log(f"[{tag}] peak memory {peak_gb:.2f} GB; launches {launches}, "
         f"expected {want}")
-    expect_shape = (1, 16, FRAMES, HEIGHT // 8, WIDTH_PX // 8)
+    expect_shape = (1, 16, frames, px // 8, px // 8)
     for lat in outs:
         if tuple(lat.shape) != expect_shape or not bool(torch.isfinite(lat).all()):
             raise AssertionError(f"bad latents {tuple(lat.shape)}")
-    # the sampler moved the noise, and the two requests differ
-    for seed, lat in zip(SEEDS, outs):
+    # the sampler moved the noise, and two requests differ
+    for seed, lat in zip(seeds, outs):
         g = torch.Generator(device=dev).manual_seed(seed)
         noise = torch.randn(lat.shape, generator=g, device=dev).bfloat16()
         moved = (lat - noise.float()).norm() / noise.float().norm()
-        log(f"[serve] seed {seed}: |latents − noise| / |noise| = "
+        log(f"[{tag}] seed {seed}: |latents − noise| / |noise| = "
             f"{moved.item():.4f}")
         if not moved.item() > 1e-2:
             raise AssertionError("sampling did not move the latents")
-    if torch.equal(outs[0], outs[1]):
+    if len(outs) > 1 and torch.equal(outs[0], outs[1]):
         raise AssertionError("two seeds gave the same latents")
     if launches != want:
         raise AssertionError(f"launch counts {launches} != {want}")
 
-    profile_step(model, context, outs[1])
-    del model
-    torch.cuda.empty_cache()
+    profile_step(model, context, outs[-1], tag + "-profile")
+    return launches
 
 
-def profile_step(model, context, lat):
+def profile_step(model, context, lat, tag: str):
     """Device time by kernel over one Euler step (one batch-2 forward)."""
     ckv = model.precompute_context_kv(torch.cat([context,
                                                  torch.zeros_like(context)]))
@@ -635,14 +851,14 @@ def profile_step(model, context, lat):
     with torch.no_grad():
         model(x2, None, t2, context_kv=ckv)
         profile_device(lambda: model(x2, None, t2, context_kv=ckv),
-                       "one forward", "profile")
+                       "one forward", tag)
 
 
 # profile rows grouped by kernel name: (kind, substrings), first match wins
 KERNEL_KINDS = (
-    ("attention kernels (csrc/short_attention_*.cu)",
-     ("short_attention", "bwd_dkdv", "bwd_dq", "prep_q", "prep_k",
-      "rope_rotate")),
+    ("attention kernels (csrc/{short,long}_attention_*.cu)",
+     ("short_attention", "long_attention", "bwd_dkdv", "bwd_dq", "prep_q",
+      "prep_k", "rope_rotate")),
     ("AdaLN kernels (Triton)", ("adaln_rms_modulate",)),
     ("AdamW kernel (csrc/adamw_multi_tensor.cu)", ("adamw_multi_tensor",)),
     ("GEMMs (cuBLAS)", ("nvjet", "gemm", "cutlass", "xmma")),
@@ -688,9 +904,10 @@ def profile_device(fn, what: str, tag: str, rows: int = 14) -> None:
             f"{kind}")
 
 
-def phase_parity(dev):
+def phase_parity(dev, frames: int, tag: str):
     """Depth 2, full width: 2 Euler steps on the card (bf16, kernels)
-    against the CPU (fp32, the fused ops' twins), same weights and noise."""
+    against the CPU (fp32, the fused ops' twins), same weights and noise,
+    at 256×256 with `frames` latent frames."""
     from video_diffusion_speedrun_tpu_torch.sample import demo_config
     from video_diffusion_speedrun_tpu_torch.sampling.euler import (
         euler_cfg_sample,
@@ -707,7 +924,8 @@ def phase_parity(dev):
     card_model.load_state_dict(cpu_model.state_dict())
 
     rng = np.random.default_rng(0)
-    shape = (1, 16, FRAMES, HEIGHT // 8, WIDTH_PX // 8)
+    shape = (1, 16, frames, HEIGHT // 8, WIDTH_PX // 8)
+    l = (frames // 2) * (HEIGHT // 16) * (WIDTH_PX // 16) + 16
     noise = torch.from_numpy(rng.standard_normal(shape, np.float32)).bfloat16()
     ctx = torch.from_numpy(
         rng.standard_normal((1, CTX_LEN, CTX_DIM), np.float32) * 0.05)
@@ -720,37 +938,48 @@ def phase_parity(dev):
     d_cpu, d_card = cpu - noise.float(), card - noise.float()
     rel = ((d_card - d_cpu).norm() / d_cpu.norm()).item()
     ok = rel <= PARITY_REL_L2 and bool(torch.isfinite(card).all())
-    log(f"[parity] depth 2, width {WIDTH}, 2 steps: relative L2 of the "
+    log(f"[{tag}] depth 2, width {WIDTH}, L={l}, 2 steps: relative L2 of the "
         f"latent update, card vs CPU {rel:.3e} (tol {PARITY_REL_L2}; CPU "
         f"run {cpu_s:.1f} s) {'ok' if ok else 'FAIL'}")
     if not ok:
         raise AssertionError("card and CPU disagree")
 
 
-def train_config(depth: int, **overrides):
+def train_config(depth: int, width: int = T_WIDTH, **overrides):
     """The canonical training DiT, built as the training CLI builds it."""
     from video_diffusion_speedrun_tpu_torch.train.__main__ import (
         build_config,
         parse_args,
     )
 
-    cfg = build_config(parse_args(train_argv(depth)))
+    cfg = build_config(parse_args(train_argv(depth, width=width)))
     return cfg.model.replace(**overrides)
 
 
-def train_argv(depth: int):
+def train_argv(depth: int, width: int = T_WIDTH, batch: int = T_BATCH,
+               extra=()):
     """The JAX package's canonical speedrun flags (train.py docstring)."""
-    return ["--batch_size", str(T_BATCH), "--learning_rate", str(T_LR),
+    return ["--batch_size", str(batch), "--learning_rate", str(T_LR),
             "--max_steps", "5004", "--evaluate_every", "500",
-            "--model_width", str(T_WIDTH), "--model_depth", str(depth),
+            "--model_width", str(width), "--model_depth", str(depth),
             "--model_head_dim", str(T_HEAD_DIM),
-            "--lr_scheduler_type", "linear"]
+            "--lr_scheduler_type", "linear", *extra]
 
 
-def phase_train(dev):
-    """The canonical DiT through the port's Trainer: T_STEPS timed steps of
-    `train_step` with the launch counters read around them, one
-    evaluation, one profiled step."""
+def latent_len(latent) -> int:
+    """Tokens of a [C, T, H, W] latent (T floor-cropped to even) plus the
+    16 registers."""
+    _, t, hh, ww = latent
+    return (t // 2) * (hh // 2) * (ww // 2) + 16
+
+
+def phase_train(dev, batch: int, latent, steps: int, extra, tag: str,
+                evaluate: bool):
+    """The canonical DiT through the port's Trainer: `steps` timed steps of
+    `train_step` with the launch counters set to 0 just before and read
+    just after, optionally one evaluation, one profiled step. Returns the
+    counts."""
+    from video_diffusion_speedrun_tpu_torch.ops import fused_attention as fa
     from video_diffusion_speedrun_tpu_torch.train.__main__ import (
         build_config,
         parse_args,
@@ -762,68 +991,82 @@ def phase_train(dev):
         peak_flops_for,
     )
 
-    cfg = build_config(parse_args(train_argv(T_DEPTH)))
+    cfg = build_config(parse_args(train_argv(T_DEPTH, batch=batch,
+                                             extra=extra)))
+    cfg = dataclasses.replace(cfg, data=dataclasses.replace(
+        cfg.data, synthetic_shape=tuple(latent)))
+    l = latent_len(latent)
     t0 = time.perf_counter()
     trainer = Trainer(cfg, device=dev)
     n_leaves = len(trainer.opt.params)
     torch.cuda.synchronize()
-    log(f"[train] canonical DiT: {trainer.n_params / 1e6:.2f} M params in "
+    moments = cfg.optimizer.moments_dtype or "fp32"
+    log(f"[{tag}] canonical DiT: {trainer.n_params / 1e6:.2f} M params in "
         f"{n_leaves} leaves, built in {time.perf_counter() - t0:.1f} s; "
-        f"batch {T_BATCH}, latent {T_LATENT} → L={T_L}, remat "
-        f"{cfg.model.remat}, lr {T_LR}, {cfg.optimizer.scheduler} schedule")
+        f"batch {batch}, latent {tuple(latent)} → L={l}, remat "
+        f"{cfg.model.remat}, moments {moments}, lr {T_LR}, "
+        f"{cfg.optimizer.scheduler} schedule")
     gen = torch.Generator(device=dev).manual_seed(cfg.seed + 1)
     loader = trainer.batches("train")
     torch.cuda.reset_peak_memory_stats(dev)
     reset_counters()
     losses, step_ms = [], []
-    for step in range(T_STEPS):
-        batch = next(loader)
+    for step in range(steps):
+        batch_t = next(loader)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        m = train_step(trainer.model, trainer.opt, batch, gen, cfg)
+        m = train_step(trainer.model, trainer.opt, batch_t, gen, cfg)
         torch.cuda.synchronize()
         step_ms.append(1e3 * (time.perf_counter() - t0))
         losses.append(float(m["loss"]))
-        log(f"[train] step {step}: loss {losses[-1]:.5f}, lr scale "
+        log(f"[{tag}] step {step}: loss {losses[-1]:.5f}, lr scale "
             f"{m['lr_scale']:.4f}, {step_ms[-1]:.2f} ms")
     launches = read_counters()
     peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
-    per_step = {"short_attention_fwd<rope>": 2 * T_DEPTH,  # fwd + remat
-                "short_attention_fwd<norope>": 2 * T_DEPTH,
-                "adaln_rms_modulate_fwd": 2 * 3 * T_DEPTH + 1,  # final: once
-                "short_attention_bwd<rope>": T_DEPTH,
-                "short_attention_bwd<norope>": T_DEPTH,
-                "adaln_rms_modulate_bwd": 3 * T_DEPTH + 1,
-                "adamw_multi_tensor": 1}
-    want = {k: T_STEPS * v for k, v in per_step.items()}
-    steady = float(np.median(step_ms[2:]))
-    flops = dit_train_flops(cfg.model, T_BATCH, *T_LATENT[1:])
+    short = l <= fa.SHORT_MAX_KV
+    per_step = dict.fromkeys(launches, 0)
+    per_step.update({
+        # forward + remat recompute; the final layer's AdaLN runs once
+        "short_attention_fwd<rope>" if short else "long_attention_fwd":
+            2 * T_DEPTH,
+        "short_attention_fwd<norope>": 2 * T_DEPTH,
+        "adaln_rms_modulate_fwd": 2 * 3 * T_DEPTH + 1,
+        "short_attention_bwd<rope>" if short else "long_attention_bwd":
+            T_DEPTH,
+        "short_attention_bwd<norope>": T_DEPTH,
+        "adaln_rms_modulate_bwd": 3 * T_DEPTH + 1,
+        "adamw_multi_tensor": 1})
+    want = {k: steps * v for k, v in per_step.items()}
+    skip = 2 if steps >= 6 else 1  # warm-up steps (cuBLAS, Triton, caches)
+    steady = float(np.median(step_ms[skip:]))
+    flops = dit_train_flops(cfg.model, batch, *latent[1:])
     peak = peak_flops_for(torch.cuda.get_device_name(0))
-    log(f"[train] steady state {steady:.2f} ms per step (median of steps "
-        f"2–{T_STEPS - 1}), {flops / 1e12:.2f} useful TFLOP per step → MFU "
-        f"{flops / (steady / 1e3) / peak:.4f} at {peak / 1e12:.0f} TFLOP/s; "
-        f"peak memory {peak_gb:.2f} GB")
-    log(f"[train] launches {launches}, expected {want}")
+    log(f"[{tag}] steady state {steady:.2f} ms per step (median of steps "
+        f"{skip}–{steps - 1}), {flops / 1e12:.2f} useful TFLOP "
+        f"per step → MFU {flops / (steady / 1e3) / peak:.4f} at "
+        f"{peak / 1e12:.0f} TFLOP/s; peak memory {peak_gb:.2f} GB")
+    log(f"[{tag}] launches {launches}, expected {want}")
     if not all(np.isfinite(losses)):
         raise AssertionError(f"non-finite training loss {losses}")
     if launches != want:
         raise AssertionError(f"launch counts {launches} != {want}")
-    ev = trainer.evaluate()
-    log(f"[train] evaluate: test loss {ev['test/total_loss']:.5f}")
-    if not np.isfinite(ev["test/total_loss"]):
-        raise AssertionError("non-finite evaluation loss")
-    batch = next(loader)
-    profile_device(lambda: train_step(trainer.model, trainer.opt, batch, gen,
-                                      cfg), "one train step", "train-profile",
-                   rows=16)
+    if evaluate:
+        ev = trainer.evaluate()
+        log(f"[{tag}] evaluate: test loss {ev['test/total_loss']:.5f}")
+        if not np.isfinite(ev["test/total_loss"]):
+            raise AssertionError("non-finite evaluation loss")
+    batch_t = next(loader)
+    profile_device(lambda: train_step(trainer.model, trainer.opt, batch_t,
+                                      gen, cfg), "one train step",
+                   tag + "-profile", rows=16)
     del trainer, loader
     torch.cuda.empty_cache()
     return launches
 
 
-def phase_train_parity(dev):
-    """Depth 2, full width: 3 steps on the card (bf16 compute, kernels)
-    against the CPU (fp32, twins), same weights and injected batches."""
+def phase_train_parity(dev, width: int, latent, b: int, tag: str):
+    """Depth 2: 3 steps on the card (bf16 compute, kernels) against the
+    CPU (fp32, twins), same weights and injected batches."""
     from video_diffusion_speedrun_tpu_torch.core.config import (
         OptimizerConfig,
         TrainConfig,
@@ -835,16 +1078,16 @@ def phase_train_parity(dev):
     from video_diffusion_speedrun_tpu_torch.train.optim import MupAdamW
     from video_diffusion_speedrun_tpu_torch.train.step import train_step
 
-    b, steps = 4, 3
-    cpu_mcfg = train_config(2, compute_dtype=torch.float32,
+    steps = 3
+    cpu_mcfg = train_config(2, width, compute_dtype=torch.float32,
                             attention_impl="fused", fused_adaln="fused")
     cpu_model = DiT(cpu_mcfg, device="cpu", init_std_factor=0.1, seed=0)
     randomize_zero_layers(cpu_model, torch.Generator().manual_seed(1))
-    card_model = DiT(train_config(2), device=dev)
+    card_model = DiT(train_config(2, width), device=dev)
     card_model.load_state_dict(cpu_model.state_dict())
 
     rng = np.random.default_rng(0)
-    c, t, hh, ww = T_LATENT
+    c, t, hh, ww = latent
     data = [dict(
         latent=rng.standard_normal((b, c, t, hh, ww), np.float32),
         context=rng.standard_normal((b, CTX_LEN, CTX_DIM), np.float32) * 0.05,
@@ -879,9 +1122,9 @@ def phase_train_parity(dev):
     card_losses, card_grads = run(card_model, dev)
     loss_rel = [abs(a / w - 1) for a, w in zip(card_losses, cpu_losses)]
     grad_rel = ((card_grads - cpu_grads).norm() / cpu_grads.norm()).item()
-    log(f"[train-parity] depth 2, width {T_WIDTH}, batch {b}, 3 steps: "
-        f"losses card {card_losses} vs CPU {cpu_losses} (CPU run "
-        f"{cpu_s:.1f} s); relative loss difference "
+    log(f"[{tag}] depth 2, width {width}, batch {b}, latent {tuple(latent)} "
+        f"→ L={latent_len(latent)}, 3 steps: losses card {card_losses} vs "
+        f"CPU {cpu_losses} (CPU run {cpu_s:.1f} s); relative loss difference "
         f"{max(loss_rel):.3e} (tol {TRAIN_LOSS_REL}); step-1 gradient "
         f"relative L2 {grad_rel:.3e} (tol {TRAIN_GRAD_REL_L2})")
     if max(loss_rel) > TRAIN_LOSS_REL or grad_rel > TRAIN_GRAD_REL_L2 \
@@ -905,12 +1148,32 @@ def main() -> int:
 
     phase_build()
     rows = phase_kernels(dev)
-    phase_serve(dev)
-    phase_parity(dev)
-    launches = phase_train(dev)
-    phase_train_parity(dev)
+    rows.update(long_attention_rows(dev))
+    runs = []  # the counts of each main-path run
+    model, context = build_demo(dev)
+    runs.append(phase_serve(dev, model, context, HEIGHT, FRAMES, STEPS, SEEDS,
+                            "serve"))
+    runs.append(phase_serve(dev, model, context, LONG_PX, LONG_FRAMES,
+                            LONG_STEPS, SEEDS[:1], "serve-long"))
+    del model
+    torch.cuda.empty_cache()
+    phase_parity(dev, FRAMES, "parity")
+    phase_parity(dev, LP_FRAMES, "long-parity")
+    runs.append(phase_train(dev, T_BATCH, T_LATENT, T_STEPS, (), "train",
+                            evaluate=True))
+    runs.append(phase_train(dev, TL_BATCH, TL_LATENT, TL_STEPS,
+                            ("--moments_dtype", "bf16"), "train-long",
+                            evaluate=False))
+    phase_train_parity(dev, T_WIDTH, T_LATENT, 4, "train-parity")
+    phase_train_parity(dev, T_WIDTH, LP_LATENT, 2, "long-train-parity")
 
-    kernels = [dict(rows[name], launches=launches[name]) for name in rows]
+    launches = {name: sum(r[name] for r in runs) for name in runs[0]}
+    kernels = [dict(rows[name], launches=launches[COUNTED_AS.get(name, name)])
+               for name in rows]
+    unlaunched = [k["name"] for k in kernels if not k["launches"]]
+    if unlaunched:
+        raise AssertionError(f"kernels the main path never launched: "
+                             f"{unlaunched}")
     log(f"[done] all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     smi = subprocess.run(

@@ -77,8 +77,10 @@ def test_attention_kernel_refuses_what_it_does_not_take(dev):
                                  1, 1.0)
     long_kv = torch.zeros(1, tfa.SHORT_MAX_KV + 16, 64, device=dev,
                           dtype=torch.bfloat16)
-    with pytest.raises(NotImplementedError):  # the long path is not ported
+    with pytest.raises(ValueError):  # long kv takes the long kernels
         tfa.short_attention_cuda(q, long_kv, long_kv, None, None, 1, 1.0)
+    with pytest.raises(ValueError):  # head_dim 32
+        tfa.long_attention_cuda(q, q, q, 2, 1.0)
 
 
 @pytest.mark.parametrize("l,with_gamma", [(1040, False), (333, True)])
@@ -244,3 +246,64 @@ def test_adamw_kernel_matches_twin(dev, moments):
         torch.testing.assert_close(a, b, rtol=2e-6, atol=1e-6 * lr)
     for a, b in zip(mk + vk, mt + vt):
         torch.testing.assert_close(a, b, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("b,lq,lk,h,d", [(2, 2100, 2100, 4, 128),
+                                          (1, 333, 2100, 2, 64),
+                                          (2, 2064, 2064, 16, 128)])
+def test_long_attention_kernels_match_twins(dev, b, lq, lk, h, d):
+    """The long forward and backward kernels against their twins over
+    pre-rotated bf16 inputs (q/k strided out of qkv), ragged lengths. The
+    forward within one bf16 ulp of values of order 1 (the online softmax
+    sums in another order), lse within 1e-3; the gradients within 2% of
+    each one's largest magnitude, as the short backward."""
+    hd = h * d
+    gen = torch.Generator(device=dev).manual_seed(8)
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen, device=dev).bfloat16()
+
+    q = randn(b, lq, 3 * hd)[..., :hd]
+    kv = randn(b, lk, 3 * hd)
+    k, v = kv[..., hd:2 * hd], kv[..., 2 * hd:]
+    scale = d ** -0.5
+    before = tfa.long_attention_forward.launches
+    o, lse = tfa.long_attention_forward(q, k, v, h, scale)
+    po, plse = tfa.long_attention_plain(q, k, v, h, scale)
+    torch.cuda.synchronize()
+    assert tfa.long_attention_forward.launches == before + 1
+    assert o.shape == (b, lq, hd) and lse.shape == (b, h, lq)
+    assert (o.float() - po.float()).abs().max().item() < 2e-2
+    assert (lse - plse).abs().max().item() < 1e-3
+    do = randn(b, lq, hd)
+    before = tfa.long_attention_backward.launches
+    got = tfa.long_attention_backward(q, k, v, o, lse, do, h, scale)
+    want = tfa.long_attention_bwd_plain(q, k, v, o, lse, do, h, scale)
+    torch.cuda.synchronize()
+    assert tfa.long_attention_backward.launches == before + 1
+    for name, x, y in zip(("dq", "dk", "dv"), got, want):
+        assert x.shape == y.shape and x.dtype == torch.bfloat16, name
+        assert _rel_err(x, y) < 2e-2, name
+
+
+def test_long_autograd_launches_both_kernels(dev):
+    """`rope_flash_attention` past SHORT_MAX_KV: one long forward and one
+    long backward launch, finite gradients for q, k and v."""
+    h, d, l = 2, 128, 2064
+    gen = torch.Generator(device=dev).manual_seed(9)
+    qkv = torch.randn(1, l, 3 * h * d, generator=gen, device=dev).bfloat16()
+    qkv.requires_grad_()
+    ang = torch.arange(l * (d // 2), dtype=torch.float32, device=dev)
+    ang = ang.reshape(l, d // 2) * 0.01
+    hd = h * d
+    fwd, bwd = (tfa.long_attention_forward.launches,
+                tfa.long_attention_backward.launches)
+    out = tfa.rope_flash_attention(qkv[..., :hd], qkv[..., hd:2 * hd],
+                                   qkv[..., 2 * hd:], ang.cos(), ang.sin(), h)
+    out.float().square().sum().backward()
+    torch.cuda.synchronize()
+    assert tfa.long_attention_forward.launches == fwd + 1
+    assert tfa.long_attention_backward.launches == bwd + 1
+    assert torch.isfinite(qkv.grad.float()).all()
+    assert all(qkv.grad[..., i * hd:(i + 1) * hd].abs().sum() > 0
+               for i in range(3))

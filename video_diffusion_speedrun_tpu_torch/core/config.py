@@ -71,8 +71,8 @@ class DiTConfig:
         if self.remat_policy != "nothing":
             if self.remat_policy in ("dots", "attn", "dots_attn"):
                 raise NotImplementedError(
-                    f"remat_policy {self.remat_policy!r} comes with the "
-                    "long-path slice; the port has 'nothing'")
+                    f"remat_policy {self.remat_policy!r} is not ported yet "
+                    "(ROADMAP A9); the port has 'nothing'")
             raise ValueError(f"unknown remat_policy: {self.remat_policy}")
 
     @property
@@ -125,6 +125,11 @@ class DataConfig:
     synthetic_rows: int = 4096
     # [C, T, H, W]: Cosmos CV4x8x8 latents of 17-frame 256px clips
     synthetic_shape: tuple = (16, 5, 32, 32)
+    # variable-length clips: the T values mixed into the synthetic train
+    # split (e.g. (5, 9, 17) ≈ 17/33/65-frame clips); needs bucket_by_shape
+    synthetic_t_choices: tuple = ()
+    # group rows by latent shape so mixed-length clips form uniform batches
+    bucket_by_shape: bool = False
     caption_tokens: int = 512
     context_dim: int = 4096
 

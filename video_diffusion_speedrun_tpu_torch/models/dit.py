@@ -9,7 +9,10 @@ unpatchify. Parameter names are the reference torch state-dict names
 
 Each block follows `block_forward` (`models/dit.py:232-395` of the JAX
 package) op for op, including where it dispatches to the fused ops
-(`DiTConfig.attention_impl`, `DiTConfig.fused_adaln`). With `cfg.remat`
+(`DiTConfig.attention_impl`, `DiTConfig.fused_adaln`): self-attention
+takes the short kernel reading q/k from qkv up to SHORT_MAX_KV tokens and
+the long path (`rope_flash_attention`) beyond, as `dit.py:287-299` does;
+a no-RoPE model goes through `norope_flash_attention`. With `cfg.remat`
 and grad enabled, each block runs under `torch.utils.checkpoint`: its
 backward recomputes the whole block, kernels included, as `jax.checkpoint`
 with policy "nothing" does (`dit.py:481-501`). The MLP's GELU h·Φ_poly(h)
@@ -44,8 +47,11 @@ from video_diffusion_speedrun_tpu_torch.ops.fused_adaln import (
     adaln_rms_modulate,
 )
 from video_diffusion_speedrun_tpu_torch.ops.fused_attention import (
+    SHORT_MAX_KV,
     cross_flash_attention,
+    norope_flash_attention,
     qkv_rope_flash_attention,
+    rope_flash_attention,
 )
 from video_diffusion_speedrun_tpu_torch.ops.fused_gelu import _phi_poly
 from video_diffusion_speedrun_tpu_torch.ops.normalization import rms_norm
@@ -143,11 +149,13 @@ class DiTBlock(nn.Module):
             v = lam * v + (1 - lam) * v0
 
         if _use_fused_attention(cfg, x):
-            if cos is not None:
+            q, k = qkv[..., :d], qkv[..., d:2 * d]
+            if cos is None:  # no-RoPE model
+                attn = norope_flash_attention(q, k, v, nh)
+            elif l <= SHORT_MAX_KV:  # q/k read straight from qkv
                 attn = qkv_rope_flash_attention(qkv, v, cos, sin, nh)
-            else:  # no-RoPE model: the same kernel with RoPE off
-                attn = cross_flash_attention(qkv[..., :d], qkv[..., d:2 * d],
-                                             v, nh)
+            else:  # the long path: q/k rotated once, then the long kernel
+                attn = rope_flash_attention(q, k, v, cos, sin, nh)
         else:
             qh, kh, vh = (t.reshape(b, l, nh, hd).transpose(1, 2)
                           for t in (qkv[..., :d], qkv[..., d:2 * d], v))

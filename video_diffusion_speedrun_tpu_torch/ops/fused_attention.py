@@ -1,15 +1,33 @@
-"""Fused RoPE + flash attention on the short path, flat [B, L, H·D] layout.
+"""Fused RoPE + flash attention over the flat [B, L, H·D] layout.
 
-Port of the short path of `ops/fused_attention.py`: `_forward_short_qkv`
-(self-attention, q/k read from the fused qkv projection, RoPE in the kernel)
-and `_forward_short` through `cross_flash_attention` (RoPE off). On a CUDA
-tensor both launch the hand-written kernel `csrc/short_attention_fwd.cu`;
-on a CPU tensor they run its plain twin, `short_attention_plain`, which
-keeps the kernel's rounding points. The public entries are
-`torch.autograd.Function`s whose backward is `_backward_short_qkv` /
-`_backward_short` (`_bwd_short_kernel`): the hand-written kernel
-`csrc/short_attention_bwd.cu` on CUDA, its twin `short_attention_bwd_plain`
-on the CPU.
+Port of `ops/fused_attention.py`, short and long paths.
+
+Short path (kv ≤ SHORT_MAX_KV): `_forward_short_qkv` (self-attention, q/k
+read from the fused qkv projection, RoPE in the kernel) and `_forward_short`
+(RoPE off: cross-attention), with their backward `_backward_short_qkv` /
+`_backward_short`. On a CUDA tensor they launch the hand-written kernels
+`csrc/short_attention_fwd.cu` and `csrc/short_attention_bwd.cu`; on a CPU
+tensor they run the plain twins `short_attention_plain` and
+`short_attention_bwd_plain`, which keep the kernels' rounding points.
+
+Long path (kv > SHORT_MAX_KV): `_forward` and `_backward` on the
+pre-rotated arity the JAX package takes there (`_preroted_flash`): q and k
+rotate once per layer (`rotate_flat`, plain torch as the JAX XLA pass), then
+`csrc/long_attention_fwd.cu` and `csrc/long_attention_bwd.cu` (twins
+`long_attention_plain` and `long_attention_bwd_plain`) attend over the whole
+kv in one launch, the ragged last kv tile masked. Where JAX splits off a
+thin prefix because L does not tile into its 1024-row blocks
+(`_split_prefix`: 8208 = 16 registers + 8·1024) and folds it back in with
+`_forward_tail` / `_backward_tail`, the H100 kernels cover the prefix
+columns as one more masked 64-row kv tile of the same online softmax.
+`split_attention_plain` and `split_attention_bwd_plain` keep JAX's split
+decomposition in plain torch, to hold the one launch against it.
+
+The public entries are `torch.autograd.Function`s and dispatch as JAX does:
+`qkv_rope_flash_attention` (short), `rope_flash_attention` and
+`norope_flash_attention` (short when ceil(Lk/128)·128 ≤ SHORT_MAX_KV, else
+long), `cross_flash_attention` (short only; it raises past it). On a CUDA
+tensor each launches its kernel or raises; on a CPU tensor it runs the twin.
 
 Head h of q, k and v lives in columns [h·D, (h+1)·D). The self-attention
 entry reads q at column h·D and k at column (H+h)·D of qkv through strides;
@@ -26,12 +44,24 @@ import torch
 
 from video_diffusion_speedrun_tpu_torch.ops import _build
 
-# the JAX package's short-path limit on the kv length; longer sequences take
-# its blocked long path, which this port does not have yet
+# the JAX package's short-path limit on the kv length; longer kv takes the
+# long path
 SHORT_MAX_KV = 2048
 _LOG2E = 1.4426950408889634  # the softmax runs in the exp2 domain
 _LIB = "short_attention_fwd"
 _LIB_BWD = "short_attention_bwd"
+_LIB_LONG = "long_attention_fwd"
+_LIB_LONG_BWD = "long_attention_bwd"
+
+# the JAX long path's tiling, which decides where it splits off a prefix
+DEFAULT_BLOCK = 1024  # DEFAULT_BLOCK_Q == DEFAULT_BLOCK_K
+_SPLIT_MAX_PFX = 768
+_ALIGN = 16
+_TAIL_MAX = 128
+_MAX_DQ_PARTIALS = 16
+# q rows per chunk of the long twins: a [B, H, rows, Lk] fp32 logits tile
+# at a time (1 GB at B=2, H=16, Lk=8208) instead of the whole [Lq, Lk]
+_TWIN_ROWS = 1024
 
 
 def _rope_rotate(x: torch.Tensor, cos: torch.Tensor,
@@ -48,6 +78,24 @@ def _rope_rotate_t(x: torch.Tensor, cos: torch.Tensor,
     d = x.shape[-1] // 2
     x1, x2 = x[..., :d], x[..., d:]
     return torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+
+
+def rotate_flat(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor,
+                num_heads: int, transpose: bool = False) -> torch.Tensor:
+    """`_rotate_flat`: RoPE over the flat [B, L, H·D] layout (head h's pair
+    halves at columns [h·D, h·D + D/2) and [h·D + D/2, (h+1)·D)); cos/sin
+    [L, D/2]. fp32 math on the input, rounded back to its dtype. With
+    `transpose` the inverse rotation, which takes dq/dk back."""
+    b, l, hd = x.shape
+    d = hd // num_heads
+    xr = x.reshape(b, l, num_heads, 2, d // 2).float()
+    x1, x2 = xr[:, :, :, 0], xr[:, :, :, 1]
+    c, s = cos[None, :l, None, :], sin[None, :l, None, :]
+    if transpose:
+        y1, y2 = x1 * c - x2 * s, x1 * s + x2 * c
+    else:
+        y1, y2 = x1 * c + x2 * s, -x1 * s + x2 * c
+    return torch.stack([y1, y2], dim=3).reshape(b, l, hd).to(x.dtype)
 
 
 def _heads(t: torch.Tensor, h: int) -> torch.Tensor:
@@ -123,27 +171,168 @@ def short_attention_bwd_plain(q, k, v, cos, sin, o, lse, do, num_heads: int,
     return _flat(dq, q.dtype), _flat(dk, k.dtype), _flat(dv, dt)
 
 
-def _library() -> ctypes.CDLL:
-    lib = _build.load(_LIB)
-    fn = lib.short_attention_fwd
+def long_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         num_heads: int, scale: float
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The long forward kernel's plain twin over PRE-ROTATED q [B, Lq, H·D]
+    and k/v [B, Lk, H·D] (strided views allowed), any lengths. Returns o in
+    v's dtype and the exp2-domain lse [B, H, Lq] fp32.
+
+    The long path's rounding points (`_fwd_kernel`, fused_attention.py:
+    210-213), which differ from the short path's: the logits are
+    dot(q, k) of the inputs as they come, in fp32, THEN × scale·log2e (the
+    short kernels fold scale·log2e into q before rounding it, so the two
+    differ by about an ulp of the logits in bf16); p rounds to v's dtype for
+    PV, the row sum stays fp32. Runs over chunks of q rows, so the logits of
+    L = 8208 never exist whole."""
+    h = num_heads
+    dt = v.dtype
+    kh, vh = _heads(k, h), _heads(v, h)
+    os_, lses = [], []
+    for i in range(0, q.shape[1], _TWIN_ROWS):
+        qh = _heads(q[:, i:i + _TWIN_ROWS], h)
+        s = torch.matmul(qh, kh.transpose(-1, -2)) * (scale * _LOG2E)
+        m = s.amax(dim=-1, keepdim=True)
+        p = torch.exp2(s - m)
+        l = p.sum(dim=-1, keepdim=True)
+        acc = torch.matmul(p.to(dt).float(), vh)
+        os_.append(_flat(acc / l, dt))
+        lses.append((m + torch.log2(l)).squeeze(-1))
+    return torch.cat(os_, dim=1), torch.cat(lses, dim=2)
+
+
+def long_attention_bwd_plain(q, k, v, o, lse, do, num_heads: int,
+                             scale: float):
+    """The long backward kernel's plain twin: (dq, dk, dv) over PRE-ROTATED
+    q and k, with dq and dk IN ROPED SPACE (the caller rotates them back),
+    in the dtypes of q, k and v. The rounding points of `_bwd_dkv_kernel` /
+    `_bwd_dq_kernel` (`:409-413`): qs = q·scale·log2e, qd = q·scale, kc = k,
+    kd = k·scale, each rounded to v's dtype; p and δ = rowsum(do ⊙ o) in
+    fp32; p rounds for dv = pᵀ·do, ds = p·(dp − δ) rounds for dq = ds·kd and
+    dk = dsᵀ·qd. dq accumulates in fp32 over all of kv and rounds once (the
+    JAX kernel stores per-kv-block dq partials in the input dtype and sums
+    them). Runs over chunks of q rows, as the forward twin."""
+    h = num_heads
+    dt = v.dtype
+    kh, vh = _heads(k, h), _heads(v, h)
+    kc = kh.to(dt).float()
+    kd = (kh * scale).to(dt).float()
+    dk, dv = torch.zeros_like(kh), torch.zeros_like(vh)
+    dqs = []
+    for i in range(0, q.shape[1], _TWIN_ROWS):
+        rows = slice(i, i + _TWIN_ROWS)
+        qh, doh = _heads(q[:, rows], h), _heads(do[:, rows], h)
+        qs = (qh * (scale * _LOG2E)).to(dt).float()
+        qd = (qh * scale).to(dt).float()
+        delta = (doh * _heads(o[:, rows], h)).sum(dim=-1, keepdim=True)
+        p = torch.exp2(torch.matmul(qs, kc.transpose(-1, -2))
+                       - lse[:, :, rows, None])
+        dv += torch.matmul(p.to(dt).float().transpose(-1, -2), doh)
+        dp = torch.matmul(doh, vh.transpose(-1, -2))
+        ds = (p * (dp - delta)).to(dt).float()
+        dqs.append(_flat(torch.matmul(ds, kd), q.dtype))
+        dk += torch.matmul(ds.transpose(-1, -2), qd)
+    return torch.cat(dqs, dim=1), _flat(dk, k.dtype), _flat(dv, dt)
+
+
+def _split_prefix(lq: int, lk: int, block: int) -> int:
+    """`_split_prefix`: the prefix width r > 0 where JAX's split-prefix path
+    engages — self-attention, a 16-aligned thin remainder r = L mod block,
+    and a bulk of at least 2 full blocks."""
+    if lq != lk:
+        return 0
+    r = lq % block
+    if r == 0 or r % _ALIGN != 0 or r > _SPLIT_MAX_PFX:
+        return 0
+    if lq - r < 2 * block:
+        return 0
+    return r
+
+
+def _use_tail(n_pfx: int, bulk: int, block: int) -> bool:
+    """`_use_tail`: JAX folds thin prefixes (≤ _TAIL_MAX rows) into the
+    bulk kernels when the dq-partials buffer stays small. Its dtype clause
+    (bf16 only: fp32 blocks blow the TPU's VMEM budget) is a TPU limit that
+    JAX's own CPU tests lift in interpret mode, so it takes no q here."""
+    return n_pfx <= _TAIL_MAX and bulk // block <= _MAX_DQ_PARTIALS
+
+
+def _merge(o1, lse1, o2, lse2, h: int, dtype: torch.dtype):
+    """`_online_merge` / the merge of `_tail_merge_kernel`: the exact
+    combination of two normalised partial attentions (exp2-domain lse
+    [B, H, L]), in fp32, o rounded to `dtype`."""
+    m = torch.maximum(lse1, lse2)
+    w1, w2 = torch.exp2(lse1 - m)[..., None], torch.exp2(lse2 - m)[..., None]
+    o = (w1 * _heads(o1, h) + w2 * _heads(o2, h)) / (w1 + w2)
+    return _flat(o, dtype), m + torch.log2(w1 + w2).squeeze(-1)
+
+
+def split_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          num_heads: int, scale: float, n_pfx: int,
+                          block: int = DEFAULT_BLOCK
+                          ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """JAX's split-prefix forward over PRE-ROTATED q/k, in plain torch: the
+    bulk rows attend over the bulk kv (the forward twin), then the n_pfx
+    prefix columns merge in; the prefix rows attend over the whole kv.
+    Where `_use_tail` holds (`_split_fwd_roped` + `_forward_tail`) the
+    prefix columns take `_tail_merge_kernel`'s rounding — q·scale·log2e
+    rounded before the product — and merge unrounded; otherwise
+    (`_split_fwd`) they are one more long forward whose bf16 output
+    `_online_merge` combines. Returns (o, lse) as `long_attention_plain`."""
+    h = num_heads
+    dt = v.dtype
+    qp, qm = q[:, :n_pfx], q[:, n_pfx:]
+    kp, km = k[:, :n_pfx], k[:, n_pfx:]
+    vp, vm = v[:, :n_pfx], v[:, n_pfx:]
+    o1, lse1 = long_attention_plain(qm, km, vm, h, scale)
+    if _use_tail(n_pfx, qm.shape[1], block):
+        qs = (_heads(qm, h) * (scale * _LOG2E)).to(dt).float()
+        st = torch.matmul(qs, _heads(kp, h).transpose(-1, -2))
+        m0 = st.amax(dim=-1, keepdim=True)
+        p0 = torch.exp2(st - m0)
+        l0 = p0.sum(dim=-1, keepdim=True)
+        o2 = _flat(torch.matmul(p0.to(dt).float(), _heads(vp, h)) / l0,
+                   torch.float32)
+        lse2 = (m0 + torch.log2(l0)).squeeze(-1)
+    else:
+        o2, lse2 = long_attention_plain(qm, kp, vp, h, scale)
+    o_m, lse_m = _merge(o1, lse1, o2, lse2, h, dt)
+    o_p, lse_p = long_attention_plain(qp, k, v, h, scale)
+    return torch.cat([o_p, o_m], dim=1), torch.cat([lse_p, lse_m], dim=2)
+
+
+def split_attention_bwd_plain(q, k, v, o, lse, do, num_heads: int,
+                              scale: float, n_pfx: int):
+    """JAX's split-prefix backward (`_split_bwd_roped` + `_backward_tail`)
+    in plain torch, over PRE-ROTATED q/k; dq and dk in roped space. Each q
+    range takes the global (merged) o and lse of its rows, so the bulk
+    rows' backward over [prefix ⊕ bulk] kv gives their exact dq with the
+    prefix columns' terms and their dk/dv part for both kv ranges (the
+    prefix terms of `_bwd_dkv_kernel_tail`); the prefix rows' backward over
+    the whole kv gives the rest. The two dk/dv parts round to k's and v's
+    dtype each and sum in fp32, as JAX sums them."""
+    n = n_pfx
+    dq_p, dk_p, dv_p = long_attention_bwd_plain(
+        q[:, :n], k, v, o[:, :n], lse[:, :, :n], do[:, :n], num_heads, scale)
+    dq_m, dk_m, dv_m = long_attention_bwd_plain(
+        q[:, n:], k, v, o[:, n:], lse[:, :, n:], do[:, n:], num_heads, scale)
+    dk = (dk_p.float() + dk_m.float()).to(k.dtype)
+    dv = (dv_p.float() + dv_m.float()).to(v.dtype)
+    return torch.cat([dq_p, dq_m], dim=1), dk, dv
+
+
+def _library(name: str, fn_name: str, argtypes) -> ctypes.CDLL:
+    lib = _build.load(name)
+    fn = getattr(lib, fn_name)
     if fn.argtypes is None:
-        p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        fn.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i, i,
-                       ll, ll, ll, ll, ll, ll, ctypes.c_float, i, p]
+        fn.argtypes = argtypes
         fn.restype = ctypes.c_int
     return lib
 
 
-def _library_bwd() -> ctypes.CDLL:
-    lib = _build.load(_LIB_BWD)
-    fn = lib.short_attention_bwd
-    if fn.argtypes is None:
-        p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p] * 16 + [i] * 5 + [
-            ctypes.POINTER(ctypes.c_longlong), ctypes.c_float, ctypes.c_float,
-            i, p]
-        fn.restype = ctypes.c_int
-    return lib
+_P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_STRIDES = ctypes.POINTER(ctypes.c_longlong)
+_F = ctypes.c_float
 
 
 def _check_operand(name: str, t: torch.Tensor, device) -> None:
@@ -157,24 +346,32 @@ def _check_operand(name: str, t: torch.Tensor, device) -> None:
         raise ValueError(f"{name}: strides and start must allow 16-byte loads")
 
 
-def _check_shapes(q, k, v, cos, sin, num_heads: int) -> None:
-    """What both kernels refuse: head_dim other than 64/128, mismatched
-    k/v, kv beyond the short path, non-bf16 or misaligned operands."""
+def _check_qkv(q, k, v, num_heads: int) -> None:
+    """What every attention kernel refuses: head_dim other than 64/128,
+    mismatched k/v, non-bf16 or misaligned operands."""
     b, lq, hd = q.shape
     lk = k.shape[1]
     d = hd // num_heads
     if d not in (64, 128) or d * num_heads != hd:
-        raise ValueError(f"CUDA short attention takes head_dim 64 or 128, "
-                         f"got {hd}/{num_heads}")
+        raise ValueError(f"the CUDA attention kernels take head_dim 64 or "
+                         f"128, got {hd}/{num_heads}")
     if k.shape != (b, lk, hd) or v.shape != (b, lk, hd):
         raise ValueError(f"k {tuple(k.shape)} / v {tuple(v.shape)} do not "
                          f"match q {tuple(q.shape)}")
-    if lk > SHORT_MAX_KV:
-        raise NotImplementedError(
-            f"kv length {lk} exceeds the short path ({SHORT_MAX_KV}); the "
-            "long attention path is not ported yet")
     for name, t in (("q", q), ("k", k), ("v", v)):
         _check_operand(name, t, q.device)
+
+
+def _check_shapes(q, k, v, cos, sin, num_heads: int) -> None:
+    """What the short kernels refuse: that of `_check_qkv`, kv beyond the
+    short path, and malformed RoPE tables."""
+    _check_qkv(q, k, v, num_heads)
+    lq, lk = q.shape[1], k.shape[1]
+    d = q.shape[-1] // num_heads
+    if lk > SHORT_MAX_KV:
+        raise ValueError(
+            f"kv length {lk} exceeds the short kernels' {SHORT_MAX_KV}; "
+            "longer kv takes the long kernels (long_attention_cuda)")
     if cos is not None:
         for name, t in (("cos", cos), ("sin", sin)):
             if (t.device != q.device or t.dtype != torch.float32
@@ -200,7 +397,8 @@ def short_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     # k rotated once by the kernel's first launch, streamed by the second
     k_rot = torch.empty((b, lk, hd), dtype=k.dtype, device=k.device) \
         if rope else None
-    lib = _library()
+    lib = _library(_LIB, "short_attention_fwd",
+                   [_P] * 8 + [_I] * 5 + [_LL] * 6 + [_F, _I, _P])
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = lib.short_attention_fwd(
@@ -211,6 +409,30 @@ def short_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             k.stride(1), v.stride(0), v.stride(1), scale * _LOG2E, int(rope),
             stream)
     _build.check(_LIB, err)
+    return o, lse
+
+
+def long_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        num_heads: int, scale: float
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Launch `csrc/long_attention_fwd.cu` over pre-rotated q/k, any
+    lengths; same contract as `long_attention_plain`. Raises on anything
+    the kernel does not take."""
+    _check_qkv(q, k, v, num_heads)
+    b, lq, hd = q.shape
+    lk = k.shape[1]
+    o = torch.empty((b, lq, hd), dtype=q.dtype, device=q.device)
+    lse = torch.empty((b, num_heads, lq), dtype=torch.float32, device=q.device)
+    lib = _library(_LIB_LONG, "long_attention_fwd",
+                   [_P] * 5 + [_I] * 5 + [_LL] * 6 + [_F, _P])
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = lib.long_attention_fwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            lse.data_ptr(), b, num_heads, lq, lk, hd // num_heads,
+            q.stride(0), q.stride(1), k.stride(0), k.stride(1), v.stride(0),
+            v.stride(1), scale * _LOG2E, stream)
+    _build.check(_LIB_LONG, err)
     return o, lse
 
 
@@ -252,16 +474,26 @@ def cross_flash_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 cross_flash_forward.launches = 0
 
 
-def short_attention_bwd_cuda(q, k, v, cos, sin, o, lse, do, num_heads: int,
-                            scale: float, dq: Optional[torch.Tensor] = None,
-                            dk: Optional[torch.Tensor] = None
-                            ) -> Tuple[torch.Tensor, torch.Tensor,
-                                       torch.Tensor]:
-    """Launch `csrc/short_attention_bwd.cu`; same contract as the twin.
-    dq/dk may be given as [B, L, H·D] views with unit column stride (the
-    column slices of one d(qkv) buffer); dv is allocated contiguous.
-    Raises on anything the kernel does not take."""
-    _check_shapes(q, k, v, cos, sin, num_heads)
+def long_attention_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                           num_heads: int, scale: float
+                           ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The long forward over pre-rotated q/k: the kernel on CUDA tensors,
+    the twin on CPU tensors. Returns (o, lse)."""
+    if not q.is_cuda:
+        return long_attention_plain(q, k, v, num_heads, scale)
+    out = long_attention_cuda(q, k, v, num_heads, scale)
+    long_attention_forward.launches += 1
+    return out
+
+
+long_attention_forward.launches = 0
+
+
+def _bwd_buffers(q, k, v, o, lse, do, num_heads: int,
+                 dq: Optional[torch.Tensor], dk: Optional[torch.Tensor]):
+    """Checks what both backward kernels take beyond q/k/v (o, do, lse and
+    given dq/dk views) and allocates the outputs and the scratch. Returns
+    (do, dq, dk, dv, scratch pointers, the 16 strides)."""
     b, lq, hd = q.shape
     lk = k.shape[1]
     d = hd // num_heads
@@ -283,26 +515,68 @@ def short_attention_bwd_cuda(q, k, v, cos, sin, o, lse, do, num_heads: int,
         _check_operand(name, t, dev)
         if t.shape != ref.shape:
             raise ValueError(f"{name} {tuple(t.shape)} does not match")
-    scratch = dict(dtype=torch.bfloat16, device=dev)
-    qs = torch.empty((b, num_heads, lq, d), **scratch)
-    qd = torch.empty_like(qs)
-    kc = torch.empty((b, num_heads, lk, d), **scratch)
-    kd = torch.empty_like(kc)
-    delta = torch.empty((b, num_heads, lq), dtype=torch.float32, device=dev)
+    # qs, qd [B, H, Lq, D] and kc, kd [B, H, Lk, D] bf16, δ [B, H, Lq] fp32
+    scratch = [torch.empty((b, num_heads, n, d), dtype=torch.bfloat16,
+                           device=dev) for n in (lq, lq, lk, lk)]
+    scratch.append(torch.empty((b, num_heads, lq), dtype=torch.float32,
+                               device=dev))
     strides = (ctypes.c_longlong * 16)(*(
         s for t in (q, k, v, o, do, dq, dk, dv) for s in t.stride()[:2]))
+    return do, dq, dk, dv, scratch, strides
+
+
+def short_attention_bwd_cuda(q, k, v, cos, sin, o, lse, do, num_heads: int,
+                             scale: float, dq: Optional[torch.Tensor] = None,
+                             dk: Optional[torch.Tensor] = None
+                             ) -> Tuple[torch.Tensor, torch.Tensor,
+                                        torch.Tensor]:
+    """Launch `csrc/short_attention_bwd.cu`; same contract as the twin.
+    dq/dk may be given as [B, L, H·D] views with unit column stride (the
+    column slices of one d(qkv) buffer); dv is allocated contiguous.
+    Raises on anything the kernel does not take."""
+    _check_shapes(q, k, v, cos, sin, num_heads)
+    do, dq, dk, dv, scratch, strides = _bwd_buffers(q, k, v, o, lse, do,
+                                                    num_heads, dq, dk)
     rope = cos is not None
-    lib = _library_bwd()
+    lib = _library(_LIB_BWD, "short_attention_bwd",
+                   [_P] * 16 + [_I] * 5 + [_STRIDES, _F, _F, _I, _P])
+    dev = q.device
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.short_attention_bwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
             do.data_ptr(), lse.data_ptr(), cos.data_ptr() if rope else None,
-            sin.data_ptr() if rope else None, qs.data_ptr(), qd.data_ptr(),
-            kc.data_ptr(), kd.data_ptr(), delta.data_ptr(), dq.data_ptr(),
-            dk.data_ptr(), dv.data_ptr(), b, num_heads, lq, lk, d, strides,
-            scale, scale * _LOG2E, int(rope), stream)
+            sin.data_ptr() if rope else None,
+            *(t.data_ptr() for t in scratch), dq.data_ptr(), dk.data_ptr(),
+            dv.data_ptr(), q.shape[0], num_heads, q.shape[1], k.shape[1],
+            q.shape[-1] // num_heads, strides, scale, scale * _LOG2E,
+            int(rope), stream)
     _build.check(_LIB_BWD, err)
+    return dq, dk, dv
+
+
+def long_attention_bwd_cuda(q, k, v, o, lse, do, num_heads: int,
+                            scale: float
+                            ) -> Tuple[torch.Tensor, torch.Tensor,
+                                       torch.Tensor]:
+    """Launch `csrc/long_attention_bwd.cu` over pre-rotated q/k, any
+    lengths; same contract as `long_attention_bwd_plain` (dq, dk in roped
+    space). Raises on anything the kernel does not take."""
+    _check_qkv(q, k, v, num_heads)
+    do, dq, dk, dv, scratch, strides = _bwd_buffers(q, k, v, o, lse, do,
+                                                    num_heads, None, None)
+    lib = _library(_LIB_LONG_BWD, "long_attention_bwd",
+                   [_P] * 14 + [_I] * 5 + [_STRIDES, _F, _F, _P])
+    dev = q.device
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.long_attention_bwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            do.data_ptr(), lse.data_ptr(), *(t.data_ptr() for t in scratch),
+            dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), q.shape[0],
+            num_heads, q.shape[1], k.shape[1], q.shape[-1] // num_heads,
+            strides, scale, scale * _LOG2E, stream)
+    _build.check(_LIB_LONG_BWD, err)
     return dq, dk, dv
 
 
@@ -345,6 +619,22 @@ def cross_flash_backward(q, k, v, o, lse, do, num_heads: int, scale: float
 cross_flash_backward.launches = 0
 
 
+def long_attention_backward(q, k, v, o, lse, do, num_heads: int,
+                            scale: float
+                            ) -> Tuple[torch.Tensor, torch.Tensor,
+                                       torch.Tensor]:
+    """Gradients (dq, dk in roped space, dv) of `long_attention_forward`."""
+    if not q.is_cuda:
+        return long_attention_bwd_plain(q, k, v, o, lse, do, num_heads,
+                                        scale)
+    out = long_attention_bwd_cuda(q, k, v, o, lse, do, num_heads, scale)
+    long_attention_backward.launches += 1
+    return out
+
+
+long_attention_backward.launches = 0
+
+
 class _QKVRopeFlash(torch.autograd.Function):
     """The JAX `_qkv_rope_flash` custom_vjp: saves (qkv, v, cos, sin, o,
     lse) and differentiates qkv and v."""
@@ -383,6 +673,39 @@ class _CrossFlash(torch.autograd.Function):
         return dq, dk, dv, None, None
 
 
+class _LongFlash(torch.autograd.Function):
+    """The JAX `_preroted_flash` custom_vjp: q and k rotate once
+    (`rotate_flat`; cos None: no RoPE), the long kernel attends, and the
+    ROTATED q_r, k_r are saved with v, o and lse, so the backward reuses
+    them and rotates dq/dk back with the transpose."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, cos, sin, num_heads, scale):
+        rope = cos is not None
+        q_r = rotate_flat(q, cos, sin, num_heads) if rope else q
+        k_r = rotate_flat(k, cos, sin, num_heads) if rope else k
+        o, lse = long_attention_forward(q_r, k_r, v, num_heads, scale)
+        ctx.save_for_backward(q_r, k_r, v, o, lse, cos, sin)
+        ctx.num_heads, ctx.scale = num_heads, scale
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q_r, k_r, v, o, lse, cos, sin = ctx.saved_tensors
+        h = ctx.num_heads
+        dq, dk, dv = long_attention_backward(q_r, k_r, v, o, lse, do, h,
+                                             ctx.scale)
+        if cos is not None:
+            dq = rotate_flat(dq, cos, sin, h, transpose=True)
+            dk = rotate_flat(dk, cos, sin, h, transpose=True)
+        return dq, dk, dv, None, None, None, None
+
+
+def _short_kv(lk: int) -> bool:
+    """The JAX dispatch rule: kv padded to 128 rows fits the short path."""
+    return -(-lk // 128) * 128 <= SHORT_MAX_KV
+
+
 def qkv_rope_flash_attention(qkv: torch.Tensor, v: torch.Tensor,
                              cos: torch.Tensor, sin: torch.Tensor,
                              num_heads: int) -> torch.Tensor:
@@ -392,8 +715,37 @@ def qkv_rope_flash_attention(qkv: torch.Tensor, v: torch.Tensor,
                                scale)
 
 
+def rope_flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         cos: torch.Tensor, sin: torch.Tensor,
+                         num_heads: int) -> torch.Tensor:
+    """RoPE self-attention over flat q, k, v [B, L, H·D], cos/sin [L, D/2]
+    (`rope_flash_attention`, fused_attention.py:1896). Short kv takes the
+    short kernel (q and k gathered into one qkv-laid-out buffer, the
+    layout that kernel reads); longer kv the long path, pre-rotated."""
+    cos, sin = cos.float(), sin.float()
+    if _short_kv(k.shape[1]):
+        return qkv_rope_flash_attention(torch.cat([q, k, v], dim=-1), v,
+                                        cos, sin, num_heads)
+    scale = (q.shape[-1] // num_heads) ** -0.5
+    return _LongFlash.apply(q, k, v, cos, sin, num_heads, scale)
+
+
+def norope_flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                           num_heads: int) -> torch.Tensor:
+    """Self-attention without RoPE (`norope_flash_attention`, :1936): the
+    short kernel with RoPE off, or the long path with no rotation."""
+    scale = (q.shape[-1] // num_heads) ** -0.5
+    if _short_kv(k.shape[1]):
+        return _CrossFlash.apply(q, k, v, num_heads, scale)
+    return _LongFlash.apply(q, k, v, None, None, num_heads, scale)
+
+
 def cross_flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           num_heads: int) -> torch.Tensor:
-    """Differentiable cross-attention output of `cross_flash_forward`."""
+    """Differentiable cross-attention output of `cross_flash_forward`; the
+    context's kv must fit the short path, as in JAX (`:1979-1983`)."""
+    if not _short_kv(k.shape[1]):
+        raise ValueError(f"cross_flash_attention: kv length {k.shape[1]} "
+                         f"exceeds short-path limit {SHORT_MAX_KV}")
     scale = (q.shape[-1] // num_heads) ** -0.5
     return _CrossFlash.apply(q, k, v, num_heads, scale)

@@ -1,13 +1,15 @@
 """Sampling entry point of the port: Euler+CFG sampling of the demo DiT with
 random weights (the `--random_weights` smoke path of the JAX `sample.py`).
 
-    python -m video_diffusion_speedrun_tpu_torch.sample \\
-        --height 256 --width 256 --num_latent_frames 8 --inference_steps 8
+    python -m video_diffusion_speedrun_tpu_torch.sample --inference_steps 8
 
-Runs on the card by default (`--device cuda`, which raises when no card is
-present); `--device cpu` runs the plain twins of the fused ops. Prints the
-shape and std of the sampled latents. Prompt encoding (T5) and the Cosmos
-decode come with later slices, so the context is seeded random noise.
+samples at the default 512×512 with 16 latent frames (L = 8208 tokens, the
+long attention path); `--height 256 --width 256 --num_latent_frames 8`
+gives L = 1040, the short path. Runs on the card by default (`--device
+cuda`, which raises when no card is present); `--device cpu` runs on the
+CPU. Prints the shape and std of the sampled latents. Prompt encoding (T5)
+and the Cosmos decode come with later slices, so the context is seeded
+random noise.
 """
 
 from __future__ import annotations

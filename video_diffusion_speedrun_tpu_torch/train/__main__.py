@@ -8,9 +8,11 @@ the video DiT on synthetic Cosmos-shaped latents.
 
 Flags keep the names and defaults of the JAX package's `train.py`. Runs on
 the card by default (`--device cuda`, which raises when no card is
-present); `--device cpu` runs the fused ops' plain twins. Flags of later
-slices (real data, checkpoints, T5, optimizer-in-backward, meshes, wandb)
-raise.
+present); `--device cpu` runs on the CPU. `--synthetic_t_choices 5,9,17`
+mixes clips of 5, 9 and 17 latent frames (L = 528, 1040 and 2064 at the
+default 32×32 latents) in shape-uniform batches; L > 2048 takes the long
+attention path. Flags of later slices (real data, checkpoints, T5,
+optimizer-in-backward, meshes, wandb) raise.
 """
 
 from __future__ import annotations
@@ -59,6 +61,9 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     add("--dataset", choices=["synthetic", "cosmos_openvid"],
         default="synthetic")
     add("--synthetic_rows", type=int, default=4096)
+    add("--synthetic_t_choices", default="",
+        help="comma-separated latent frame counts for variable-length "
+             "synthetic clips (turns on shape bucketing), e.g. 5,9,17")
     add("--seed", type=int, default=0)
     add("--grad_accum", type=int, default=1)
     add("--remat", type=_bool, default=True)
@@ -112,8 +117,11 @@ def build_config(args: argparse.Namespace) -> TrainConfig:
         remat=args.remat)
     return TrainConfig(
         model=model,
-        data=DataConfig(synthetic_rows=args.synthetic_rows,
-                        context_dim=args.context_dim),
+        data=DataConfig(
+            synthetic_rows=args.synthetic_rows, context_dim=args.context_dim,
+            synthetic_t_choices=tuple(
+                int(t) for t in args.synthetic_t_choices.split(",") if t),
+            bucket_by_shape=bool(args.synthetic_t_choices)),
         optimizer=OptimizerConfig(
             learning_rate=args.learning_rate,
             scheduler=args.lr_scheduler_type,

@@ -5,9 +5,11 @@ Keeps the JAX loop's semantics: an epoch × step loop bounded by
 late so the host never stalls the card to print (`loop.py:410-418`);
 evaluation with a fixed-seed generator on `eval_batches` batches of the
 test split when `step % evaluate_every == 1`; timestep-decile loss bins.
-Synthetic data only: train rows seeded 0, test rows seeded 1, and the
-context drawn on the device inside the step. Checkpoints come with the
-next slice.
+Synthetic data only: train rows seeded 0 (with `synthetic_t_choices`, of
+mixed lengths), test rows seeded 1, and the context drawn on the device
+inside the step. With `bucket_by_shape` both splits go through the
+coordinated shape-bucketing collate, as `loop.py:100-110,164-180` of the
+JAX package. Checkpoints come with the next slice.
 """
 
 from __future__ import annotations
@@ -23,7 +25,10 @@ from video_diffusion_speedrun_tpu_torch.core.config import (
     resolve_device,
 )
 from video_diffusion_speedrun_tpu_torch.data.loader import (
+    CoordinatedShapeBucketingCollate,
+    ShapeBucketingCollate,
     ShardedSampler,
+    default_collate,
     device_batches,
     host_batches,
 )
@@ -51,7 +56,8 @@ class Trainer:
         dcfg = cfg.data
         self.datasets = {
             split: SyntheticLatentDataset(
-                num_rows=rows, latent_shape=dcfg.synthetic_shape, seed=seed)
+                num_rows=rows, latent_shape=dcfg.synthetic_shape, seed=seed,
+                t_choices=dcfg.synthetic_t_choices if split == "train" else ())
             for split, rows, seed in (("train", dcfg.synthetic_rows, 0),
                                       ("test", dcfg.test_rows, 1))}
         self.step = 0
@@ -66,8 +72,15 @@ class Trainer:
         sampler = ShardedSampler(len(ds), batch, self.cfg.data.shuffle_seed,
                                  shuffle=split == "train")
         epochs = self.cfg.num_epochs if split == "train" else 1
-        for batch in device_batches(host_batches(ds, sampler, epochs),
-                                    self.device):
+        collate = default_collate
+        if self.cfg.data.bucket_by_shape:
+            shapes = getattr(ds, "latent_shapes", lambda: None)()
+            collate = (ShapeBucketingCollate(batch) if shapes is None else
+                       CoordinatedShapeBucketingCollate(
+                           batch, shapes,
+                           seed=self.cfg.data.shuffle_seed + 101))
+        for batch in device_batches(host_batches(ds, sampler, epochs,
+                                                 collate), self.device):
             yield {k: v for k, v in batch.items()
                    if isinstance(v, torch.Tensor)}
 
