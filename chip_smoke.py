@@ -49,11 +49,27 @@ Run from the root of a checkout. Phases, each of which raises on failure:
              steps of the demo DiT (width 2048) at 256×256×16 frames, and 3
              train steps of the canonical DiT (width 512) on latents
              [16, 17, 32, 32], card (bf16, kernels) against CPU (fp32,
-             twins).
+             twins);
+11. epilogue kernels — the gated-residual AdaLN forward and backward
+             (rows 13–14) against their twins at [2, 1040, 2048] and
+             [64, 528, 512] and a ragged L = 333, with and without γ; the
+             bias+GELU forward and backward (rows 15–16) at the MLP's
+             shapes ([2, 1040, 8192], [2, 8208, 8192], [64, 528, 2048],
+             [2, 8208, 2048]) and L = 333, the MLP's variant and
+             `bias_gelu` on bf16 and fp32 with and without bias, and the
+             MLP's variant at saturated tails (|x| = 4.5, 64, 1e4); times
+             beside `F.gelu`;
+12. fused residual — `DiTConfig.fused_residual`: 2 requests of the demo
+             DiT at 256×256×8 through `generate_latents` and 4 train steps
+             of the canonical DiT (batch 64, L = 528) through `Trainer` and
+             `train_step`, counters per step, one profiled step each; and
+             card vs CPU at depth 2 for both, as phases 4 and 6.
 
-The kernels JSON lists every kernel with `launches` summed over the four
-main-path runs (serve, train, serve-long, train-long), each run with the
-counters set to 0 just before it and read just after. The next-to-last
+Every run of the DiT's MLP launches the bias+GELU kernels. The kernels JSON
+lists every kernel with `launches` summed over the six main-path runs
+(serve, serve-long, serve with `fused_residual`, train, train-long, train
+with `fused_residual`), each run with the counters set to 0 just before it
+and read just after. The next-to-last
 lines are that JSON and the card's name and power limit; the last line is
 {"ok": true, "device": {...}}. With no card, or outside a checkout, it
 exits non-zero before printing any result.
@@ -142,6 +158,11 @@ LP_FRAMES, LP_LATENT = 16, (16, 17, 32, 32)
 # o: two bf16 ulps of the largest |o|. At L = 8208 o averages v over
 # thousands of keys, so |o| is ~0.02 and an absolute 2e-2 would see nothing
 LONG_FWD_REL = 2.0 ** -6
+# the fused_residual configuration's train run: 4 steps (it serves the
+# SEEDS requests, as the default config does)
+FR_STEPS = 4
+# MLP hidden widths of the demo and the canonical DiT
+MLP, T_MLP = 4 * WIDTH, 4 * T_WIDTH
 
 
 def log(msg: str) -> None:
@@ -707,6 +728,218 @@ def long_attention_rows(dev):
     return rows
 
 
+def gelu_atol(s, factor, coeffs, fp32: bool):
+    """How far two fp32 evaluations of a fitted polynomial may part: four
+    fp32 ulps of factor·(0.5 + Σ|c_i|·t^2i), t = min(|s|/R, 1), its largest
+    term (the fits cancel terms up to 20·t^8 for Φ, 180·t^8 for Φ', 256·t^8
+    for gelu'; Triton contracts the Horner chain into FMAs, the twin does
+    not). The fp32 A&S form (exp2, a division) within 2^-20 of
+    factor·(1 + |s|)."""
+    from video_diffusion_speedrun_tpu_torch.ops import fused_gelu as fg
+
+    if fp32:
+        return 2.0 ** -20 * factor * (1 + s.abs())
+    t2 = (s.abs() / fg._POLY_R).clamp(max=1.0).square()
+    terms = sum(abs(c) * t2 ** i for i, c in enumerate(coeffs))
+    return 2.0 ** -22 * factor * (0.5 + terms)
+
+
+def epilogue_rows(dev):
+    """Rows 13–16: the gated-residual AdaLN and bias+GELU kernels against
+    their twins at the main path's shapes and ragged ones; times beside the
+    twins, the bound and (row 15) `F.gelu`."""
+    import torch.nn.functional as F
+
+    from video_diffusion_speedrun_tpu_torch.ops import fused_adaln as fad
+    from video_diffusion_speedrun_tpu_torch.ops import fused_gelu as fg
+
+    gen = torch.Generator(device=dev).manual_seed(13)
+    rows, errs = {}, {}
+    src = "video_diffusion_speedrun_tpu_torch/ops/fused_{}.py"
+    rep = "video_diffusion_speedrun_tpu/ops/fused_{}.py:{}"
+
+    def randn(*shape, std=1.0):
+        return torch.randn(*shape, generator=gen, device=dev) * std
+
+    def row(name, module, line, ms, plain_ms, bms, by, lib_ms):
+        rows[name] = dict(name=name, route="triton", source=src.format(module),
+                          replaces=rep.format(module, line),
+                          max_abs_err=errs[name], ms=ms, plain_ms=plain_ms,
+                          bound_ms=bms, bound_by=by, library_ms=lib_ms)
+
+    def check(name, what, got, want, rtol, atol, note):
+        errs[name] = max(errs.get(name, 0.0),
+                         check_close(name, what, got, want, rtol, atol, note))
+
+    # rows 13–14: x, δ [B, L, D]; gate/shift/scale column views of [B, 9D]
+    def gr_case(b, l, d, strided):
+        x = randn(b, l + 16, d).bfloat16()
+        x = x[:, 16:] if strided else x[:, :l].contiguous()
+        mod = randn(b, 9 * d).bfloat16()
+        return (x, randn(b, l, d).bfloat16(), mod[:, 2 * d:3 * d],
+                mod[:, :d], mod[:, d:2 * d])
+
+    fwd, bwd = "gated_residual_adaln_fwd", "gated_residual_adaln_bwd"
+    one_ulp = "one bf16 ulp: the same fp32 values, rounded once"
+    for b, l, d, with_gamma in ((2, 1040, WIDTH, False),
+                                (T_BATCH, T_L, T_WIDTH, True),
+                                (2, 333, WIDTH, True), (3, 333, T_WIDTH, False)):
+        x, delta, gate, shift, scale = gr_case(b, l, d, strided=l == 333)
+        gamma = randn(d) if with_gamma else None
+        what = f"[{b}, {l}, {d}] gamma={with_gamma}"
+        got = fad.gated_residual_adaln(x, delta, gate, shift, scale, gamma)
+        want = fad.gated_residual_adaln_plain(x, delta, gate, shift, scale,
+                                              gamma)
+        torch.cuda.synchronize()
+        check(fwd, what + " x_new", got[0], want[0], 2.0 ** -7, 1e-6,
+              one_ulp + " (x + δ·gate, an FMA on one side)")
+        check(fwd, what + " y", got[1], want[1], ADALN_RTOL, 1e-2,
+              one_ulp + " + 1e-2 (row-sum order), as row 3")
+        gx, gy = randn(b, l, d).bfloat16(), randn(b, l, d).bfloat16()
+        got = fad.gated_residual_adaln_bwd(want[0], delta, gate, scale, gamma,
+                                           gx, gy)
+        ref = fad.gated_residual_adaln_bwd_plain(want[0], delta, gate, scale,
+                                                 gamma, gx, gy)
+        torch.cuda.synchronize()
+        for gname, a, w in zip(("dx", "ddelta", "dgate", "dshift", "dscale",
+                                "dgamma"), got, ref):
+            if w is None:
+                continue
+            rel, note = ((1e-2, "one bf16 ulp + 1% of scale: row-sum order")
+                         if gname in ("dx", "ddelta") else
+                         (1e-3, "one bf16 ulp + 0.1% of scale: column-sum "
+                                "order"))
+            rtol = 1e-4 if gname == "dgamma" else ADALN_BWD_RTOL
+            check(bwd, f"{what} {gname}", a, w, rtol,
+                  rel * w.float().abs().max().item(), note)
+        if l == 1040:  # the serve shape: time the forward
+            n = b * l * d
+            ms = cuda_ms(lambda: fad.gated_residual_adaln(x, delta, gate,
+                                                          shift, scale))
+            plain_ms = cuda_ms(lambda: fad.gated_residual_adaln_plain(
+                x, delta, gate, shift, scale), iters=20)
+            # reads x, δ and gate/shift/scale, writes x_new and y
+            bms, by = bound(4 * n * 2 + 3 * b * d * 2, 0, 8 * n)
+            log(f"[kernels] {fwd} [{b}, {l}, {d}]: kernel {ms:.4f} ms, twin "
+                f"{plain_ms:.4f} ms, no single library call, bound "
+                f"{bms:.4f} ms ({by}), {4 * n * 2 / ms / 1e6:.1f} GB/s")
+            fwd_times = (ms, plain_ms, bms, by)
+        if l == T_L:  # the train shape: time both
+            n = b * l * d
+            ms = cuda_ms(lambda: fad.gated_residual_adaln(x, delta, gate,
+                                                          shift, scale, gamma))
+            log(f"[kernels] {fwd} [{b}, {l}, {d}]: kernel {ms:.4f} ms, bound "
+                f"{bound(4 * n * 2, 0, 8 * n)[0]:.4f} ms")
+            args = (want[0], delta, gate, scale, None, gx, gy)
+            ms = cuda_ms(lambda: fad.gated_residual_adaln_bwd(*args))
+            plain_ms = cuda_ms(lambda: fad.gated_residual_adaln_bwd_plain(
+                *args), iters=10)
+            # reads x_new, δ, gx, gy, writes dx, dδ (+ the [B, D] vectors)
+            bms, by = bound(6 * n * 2 + 6 * b * d * 2, 0, 20 * n)
+            log(f"[kernels] {bwd} [{b}, {l}, {d}]: kernel {ms:.4f} ms, twin "
+                f"{plain_ms:.4f} ms, no single library call, bound "
+                f"{bms:.4f} ms ({by}), {6 * n * 2 / ms / 1e6:.1f} GB/s")
+            row(bwd, "adaln", 379, ms, plain_ms, bms, by, None)
+    row(fwd, "adaln", 281, *fwd_times, None)
+
+    # rows 15–16: the MLP's variant at its shapes, bias_gelu on both dtypes
+    mlp, fwd, bwd = fg.BLOCK, "bias_gelu_fwd", "bias_gelu_bwd"
+    coeffs = {fg.BLOCK: fg._PHI_C, fg.POLY: fg._PHI_C, fg.ERF: ()}
+    dcoeffs = {fg.BLOCK: fg._DPHI_C, fg.POLY: fg._DGELU_C, fg.ERF: ()}
+    poly_note = ("one ulp of the output + four fp32 ulps of the polynomial's "
+                 "largest term: Triton contracts the Horner chain into FMAs")
+    erf_note = ("2^-20 of the inputs' scale: Triton's exp2 and division are "
+                "approximate")
+    cases = [(mlp, (2, 1040, MLP), True), (mlp, (2, LONG_L, MLP), True),
+             (mlp, (T_BATCH, T_L, T_MLP), True),
+             (mlp, (2, LONG_L, T_MLP), True), (mlp, (3, 333, 320), True)]
+    cases += [(mode, (2, 333, T_MLP), with_bias)
+              for mode in (fg.POLY, fg.ERF) for with_bias in (True, False)]
+    for mode, shape, with_bias in cases:
+        fp32 = mode == fg.ERF
+        x = randn(*shape, std=3.0).to(torch.float32 if fp32 else
+                                      torch.bfloat16)
+        bias = randn(shape[-1], std=0.5).to(x.dtype) if with_bias else None
+        what = (f"{('mlp', 'poly', 'erf')[mode]} {list(shape)} "
+                f"{x.dtype} bias={with_bias}")
+        s = fg._preact(x, bias, mode)
+        ulp = 2.0 ** -20 if fp32 else 2.0 ** -7
+        y = fg.bias_gelu_forward(x, bias, mode)
+        want = fg.bias_gelu_fwd_plain(x, bias, mode)
+        torch.cuda.synchronize()
+        note = erf_note if fp32 else poly_note
+        check(fwd, what, y, want, ulp,
+              gelu_atol(s, s.abs(), coeffs[mode], fp32), note)
+        del y, want
+        big = shape in ((2, LONG_L, MLP), (2, 1040, MLP))
+        if not big:  # the backward at the training shapes and the rest
+            g = randn(*shape).to(x.dtype)
+            dx, db = fg.bias_gelu_backward(x, bias, g, mode)
+            rdx, rdb = fg.bias_gelu_bwd_plain(x, bias, g, mode)
+            torch.cuda.synchronize()
+            atol = gelu_atol(s, g.float().abs(), dcoeffs[mode], fp32)
+            if mode == fg.BLOCK:  # g·(Φ + hf·Φ'): |hf|/R times Φ''s terms
+                atol = atol * (1 + s.abs() / fg._POLY_R)
+            check(bwd, what + " dx", dx, rdx, ulp, atol, note)
+            if with_bias:
+                # the per-element bound and each rounding of dx, summed over
+                # the rows, plus fp32 sums in another order
+                col = (atol + ulp * rdx.float().abs()).reshape(-1, shape[-1])
+                check(bwd, what + " dbias", db, rdb, 1e-5, col.sum(0),
+                      "the dx bound summed over the rows, fp32 sum order")
+            del g, dx, rdx
+        if shape == (2, LONG_L, MLP):  # time the forward at the CLI default
+            n = x.numel()
+            ms = cuda_ms(lambda: fg.bias_gelu_forward(x, bias, mode),
+                         iters=20)
+            plain_ms = cuda_ms(lambda: fg.bias_gelu_fwd_plain(x, bias, mode),
+                               iters=3, warmup=1)
+            pre = (x + bias).contiguous()
+            lib_ms = cuda_ms(lambda: F.gelu(pre), iters=20)
+            del pre
+            # reads x, writes y; ~20 fp32 flops an element
+            bms, by = bound(2 * n * 2 + shape[-1] * 2, 0, 20 * n)
+            log(f"[kernels] {fwd} {what}: kernel {ms:.4f} ms, twin "
+                f"{plain_ms:.4f} ms, F.gelu on x + bias {lib_ms:.4f} ms, "
+                f"bound {bms:.4f} ms ({by}), {2 * n * 2 / ms / 1e6:.1f} GB/s")
+            row(fwd, "gelu", 157, ms, plain_ms, bms, by, lib_ms)
+        elif mode == mlp and shape != (3, 333, 320):
+            n = x.numel()
+            ms = cuda_ms(lambda: fg.bias_gelu_forward(x, bias, mode))
+            log(f"[kernels] {fwd} {what}: kernel {ms:.4f} ms, bound "
+                f"{bound(2 * n * 2, 0, 20 * n)[0]:.4f} ms")
+            if not big:
+                g = randn(*shape).to(x.dtype)
+                ms = cuda_ms(lambda: fg.bias_gelu_backward(x, bias, g, mode))
+                # reads x and g, writes dx; ~40 fp32 flops an element
+                bms, by = bound(3 * n * 2 + shape[-1] * 6, 0, 40 * n)
+                log(f"[kernels] {bwd} {what}: kernel {ms:.4f} ms, bound "
+                    f"{bms:.4f} ms ({by}), {3 * n * 2 / ms / 1e6:.1f} GB/s")
+                if shape == (T_BATCH, T_L, T_MLP):
+                    plain_ms = cuda_ms(lambda: fg.bias_gelu_bwd_plain(
+                        x, bias, g, mode), iters=5, warmup=1)
+                    log(f"[kernels] {bwd} {what}: twin {plain_ms:.4f} ms")
+                    row(bwd, "gelu", 184, ms, plain_ms, bms, by, None)
+                del g
+        del x, s
+
+    # the MLP's variant where Φ saturates: y = x or 0, dx = g or 0
+    x = torch.tensor([4.5, -4.5, 64.0, -64.0, 1e4, -1e4], device=dev)
+    x = x.repeat(2, 7, 48).bfloat16()  # [2, 7, 288]
+    bias = torch.zeros(x.shape[-1], device=dev).bfloat16()
+    pos = (x > 0).float()
+    y = fg.bias_gelu_forward(x, bias, mlp)
+    dx, db = fg.bias_gelu_backward(x, bias, torch.ones_like(x), mlp)
+    torch.cuda.synchronize()
+    check(fwd, "mlp saturated tails y", y, x.float() * pos, 0.0, 0.0,
+          "exactly x or 0")
+    check(bwd, "mlp saturated tails dx", dx, pos, 0.0, 0.0, "exactly 1 or 0")
+    check(bwd, "mlp saturated tails dbias", db, pos.sum((0, 1)), 0.0, 0.0,
+          "exactly the count of positive rows")
+    torch.cuda.empty_cache()
+    return rows
+
+
 def randomize_zero_layers(model, gen) -> None:
     """Give the zero-initialised AdaLN and output layers random weights: at
     the zero init the DiT outputs exactly 0 and sampling never moves the
@@ -729,6 +962,7 @@ def counters():
     from video_diffusion_speedrun_tpu_torch.ops import fused_adamw as fw
     from video_diffusion_speedrun_tpu_torch.ops import fused_adaln as fad
     from video_diffusion_speedrun_tpu_torch.ops import fused_attention as fa
+    from video_diffusion_speedrun_tpu_torch.ops import fused_gelu as fg
 
     return {"short_attention_fwd<rope>": fa.qkv_rope_flash_forward,
             "short_attention_fwd<norope>": fa.cross_flash_forward,
@@ -738,7 +972,11 @@ def counters():
             "adaln_rms_modulate_bwd": fad.adaln_rms_modulate_bwd,
             "adamw_multi_tensor": fw.MultiTensorAdamW,
             "long_attention_fwd": fa.long_attention_forward,
-            "long_attention_bwd": fa.long_attention_backward}
+            "long_attention_bwd": fa.long_attention_backward,
+            "gated_residual_adaln_fwd": fad.gated_residual_adaln,
+            "gated_residual_adaln_bwd": fad.gated_residual_adaln_bwd,
+            "bias_gelu_fwd": fg.bias_gelu_forward,
+            "bias_gelu_bwd": fg.bias_gelu_backward}
 
 
 # rows 8–9 are functions of the row 6/7 launches: their counts are those
@@ -755,21 +993,21 @@ def read_counters():
     return {name: fn.launches for name, fn in counters().items()}
 
 
-def build_demo(dev):
+def build_demo(dev, **overrides):
     """The demo DiT (random weights, the zero-initialised layers made
     random) in bf16 on the card, and a seeded 512×4096 context."""
     from video_diffusion_speedrun_tpu_torch.models.dit import DiT
     from video_diffusion_speedrun_tpu_torch.sample import demo_config
 
     cfg = demo_config(WIDTH, DEPTH, HEAD_DIM, CTX_DIM,
-                      param_dtype=torch.bfloat16)
+                      param_dtype=torch.bfloat16, **overrides)
     t0 = time.perf_counter()
     model = DiT(cfg, device=dev, init_std_factor=0.1, seed=0)
     randomize_zero_layers(model, torch.Generator(device=dev).manual_seed(1))
     n_params = sum(p.numel() for p in model.parameters())
     torch.cuda.synchronize()
     log(f"[serve] demo DiT {n_params / 1e9:.3f} B params (bf16) built in "
-        f"{time.perf_counter() - t0:.1f} s")
+        f"{time.perf_counter() - t0:.1f} s; {overrides or 'default config'}")
     gen = torch.Generator(device=dev).manual_seed(1)
     context = torch.randn(1, CTX_LEN, CTX_DIM, generator=gen,
                           device=dev).bfloat16() * 0.05
@@ -806,14 +1044,20 @@ def phase_serve(dev, model, context, px: int, frames: int, steps: int,
     peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
 
     # sampling runs no backward and no optimizer; self-attention takes the
-    # short kernel up to SHORT_MAX_KV tokens and the long one past it
+    # short kernel up to SHORT_MAX_KV tokens and the long one past it; with
+    # fused_residual the norms after self- and cross-attention run in the
+    # two gated-residual joins of each block
     self_attn = ("short_attention_fwd<rope>" if l <= fa.SHORT_MAX_KV
                  else "long_attention_fwd")
+    fused_residual = model.cfg.fused_residual
     n = len(seeds) * steps
     want = dict.fromkeys(launches, 0)
     want.update({self_attn: n * DEPTH,
                  "short_attention_fwd<norope>": n * DEPTH,
-                 "adaln_rms_modulate_fwd": n * ADALN_PER_FORWARD})
+                 "adaln_rms_modulate_fwd": n * (
+                     DEPTH + 1 if fused_residual else ADALN_PER_FORWARD),
+                 "gated_residual_adaln_fwd": n * 2 * DEPTH * fused_residual,
+                 "bias_gelu_fwd": n * DEPTH})
     for i, (seed, lat, ms) in enumerate(zip(seeds, outs, step_ms)):
         log(f"[{tag}] request {i} seed {seed}: latents {tuple(lat.shape)} "
             f"std {lat.std().item():.4f}, {ms:.2f} ms per Euler step "
@@ -860,6 +1104,8 @@ KERNEL_KINDS = (
      ("short_attention", "long_attention", "bwd_dkdv", "bwd_dq", "prep_q",
       "prep_k", "rope_rotate")),
     ("AdaLN kernels (Triton)", ("adaln_rms_modulate",)),
+    ("gated-residual AdaLN kernels (Triton)", ("gated_residual_adaln",)),
+    ("bias+GELU kernels (Triton)", ("bias_gelu",)),
     ("AdamW kernel (csrc/adamw_multi_tensor.cu)", ("adamw_multi_tensor",)),
     ("GEMMs (cuBLAS)", ("nvjet", "gemm", "cutlass", "xmma")),
     ("PyTorch elementwise, reductions and copies", ("at::native",)),
@@ -904,10 +1150,11 @@ def profile_device(fn, what: str, tag: str, rows: int = 14) -> None:
             f"{kind}")
 
 
-def phase_parity(dev, frames: int, tag: str):
+def phase_parity(dev, frames: int, tag: str, **overrides):
     """Depth 2, full width: 2 Euler steps on the card (bf16, kernels)
     against the CPU (fp32, the fused ops' twins), same weights and noise,
-    at 256×256 with `frames` latent frames."""
+    at 256×256 with `frames` latent frames; `overrides` of the config on
+    both sides."""
     from video_diffusion_speedrun_tpu_torch.sample import demo_config
     from video_diffusion_speedrun_tpu_torch.sampling.euler import (
         euler_cfg_sample,
@@ -916,11 +1163,13 @@ def phase_parity(dev, frames: int, tag: str):
 
     cpu_cfg = demo_config(WIDTH, 2, HEAD_DIM, CTX_DIM,
                           compute_dtype=torch.float32,
-                          attention_impl="fused", fused_adaln="fused")
+                          attention_impl="fused", fused_adaln="fused",
+                          **overrides)
     cpu_model = DiT(cpu_cfg, device="cpu", init_std_factor=0.1, seed=0)
     randomize_zero_layers(cpu_model, torch.Generator().manual_seed(1))
     card_model = DiT(demo_config(WIDTH, 2, HEAD_DIM, CTX_DIM,
-                                 param_dtype=torch.bfloat16), device=dev)
+                                 param_dtype=torch.bfloat16, **overrides),
+                     device=dev)
     card_model.load_state_dict(cpu_model.state_dict())
 
     rng = np.random.default_rng(0)
@@ -974,11 +1223,11 @@ def latent_len(latent) -> int:
 
 
 def phase_train(dev, batch: int, latent, steps: int, extra, tag: str,
-                evaluate: bool):
-    """The canonical DiT through the port's Trainer: `steps` timed steps of
-    `train_step` with the launch counters set to 0 just before and read
-    just after, optionally one evaluation, one profiled step. Returns the
-    counts."""
+                evaluate: bool, **overrides):
+    """The canonical DiT (its config with `overrides`) through the port's
+    Trainer: `steps` timed steps of `train_step` with the launch counters
+    set to 0 just before and read just after, optionally one evaluation,
+    one profiled step. Returns the counts."""
     from video_diffusion_speedrun_tpu_torch.ops import fused_attention as fa
     from video_diffusion_speedrun_tpu_torch.train.__main__ import (
         build_config,
@@ -993,8 +1242,9 @@ def phase_train(dev, batch: int, latent, steps: int, extra, tag: str,
 
     cfg = build_config(parse_args(train_argv(T_DEPTH, batch=batch,
                                              extra=extra)))
-    cfg = dataclasses.replace(cfg, data=dataclasses.replace(
-        cfg.data, synthetic_shape=tuple(latent)))
+    cfg = dataclasses.replace(cfg, model=cfg.model.replace(**overrides),
+                              data=dataclasses.replace(
+                                  cfg.data, synthetic_shape=tuple(latent)))
     l = latent_len(latent)
     t0 = time.perf_counter()
     trainer = Trainer(cfg, device=dev)
@@ -1005,7 +1255,7 @@ def phase_train(dev, batch: int, latent, steps: int, extra, tag: str,
         f"{n_leaves} leaves, built in {time.perf_counter() - t0:.1f} s; "
         f"batch {batch}, latent {tuple(latent)} → L={l}, remat "
         f"{cfg.model.remat}, moments {moments}, lr {T_LR}, "
-        f"{cfg.optimizer.scheduler} schedule")
+        f"{cfg.optimizer.scheduler} schedule; {overrides or 'default config'}")
     gen = torch.Generator(device=dev).manual_seed(cfg.seed + 1)
     loader = trainer.batches("train")
     torch.cuda.reset_peak_memory_stats(dev)
@@ -1024,17 +1274,24 @@ def phase_train(dev, batch: int, latent, steps: int, extra, tag: str,
     launches = read_counters()
     peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
     short = l <= fa.SHORT_MAX_KV
+    # AdaLN norms per block: 3, or only norm1 beside 2 gated-residual joins
+    fr = cfg.model.fused_residual
+    norms, joins = (1, 2) if fr else (3, 0)
     per_step = dict.fromkeys(launches, 0)
     per_step.update({
         # forward + remat recompute; the final layer's AdaLN runs once
         "short_attention_fwd<rope>" if short else "long_attention_fwd":
             2 * T_DEPTH,
         "short_attention_fwd<norope>": 2 * T_DEPTH,
-        "adaln_rms_modulate_fwd": 2 * 3 * T_DEPTH + 1,
+        "adaln_rms_modulate_fwd": 2 * norms * T_DEPTH + 1,
+        "gated_residual_adaln_fwd": 2 * joins * T_DEPTH,
+        "bias_gelu_fwd": 2 * T_DEPTH,
         "short_attention_bwd<rope>" if short else "long_attention_bwd":
             T_DEPTH,
         "short_attention_bwd<norope>": T_DEPTH,
-        "adaln_rms_modulate_bwd": 3 * T_DEPTH + 1,
+        "adaln_rms_modulate_bwd": norms * T_DEPTH + 1,
+        "gated_residual_adaln_bwd": joins * T_DEPTH,
+        "bias_gelu_bwd": T_DEPTH,
         "adamw_multi_tensor": 1})
     want = {k: steps * v for k, v in per_step.items()}
     skip = 2 if steps >= 6 else 1  # warm-up steps (cuBLAS, Triton, caches)
@@ -1064,9 +1321,11 @@ def phase_train(dev, batch: int, latent, steps: int, extra, tag: str,
     return launches
 
 
-def phase_train_parity(dev, width: int, latent, b: int, tag: str):
+def phase_train_parity(dev, width: int, latent, b: int, tag: str,
+                       **overrides):
     """Depth 2: 3 steps on the card (bf16 compute, kernels) against the
-    CPU (fp32, twins), same weights and injected batches."""
+    CPU (fp32, twins), same weights and injected batches; `overrides` of
+    the config on both sides."""
     from video_diffusion_speedrun_tpu_torch.core.config import (
         OptimizerConfig,
         TrainConfig,
@@ -1080,10 +1339,11 @@ def phase_train_parity(dev, width: int, latent, b: int, tag: str):
 
     steps = 3
     cpu_mcfg = train_config(2, width, compute_dtype=torch.float32,
-                            attention_impl="fused", fused_adaln="fused")
+                            attention_impl="fused", fused_adaln="fused",
+                            **overrides)
     cpu_model = DiT(cpu_mcfg, device="cpu", init_std_factor=0.1, seed=0)
     randomize_zero_layers(cpu_model, torch.Generator().manual_seed(1))
-    card_model = DiT(train_config(2, width), device=dev)
+    card_model = DiT(train_config(2, width, **overrides), device=dev)
     card_model.load_state_dict(cpu_model.state_dict())
 
     rng = np.random.default_rng(0)
@@ -1146,26 +1406,48 @@ def main() -> int:
     log(f"[env] torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"{torch.cuda.get_device_name(0)}")
 
-    phase_build()
-    rows = phase_kernels(dev)
-    rows.update(long_attention_rows(dev))
+    def timed(tag, fn, *args, **kw):
+        t0 = time.perf_counter()
+        out = fn(*args, **kw)
+        log(f"[time] {tag}: {time.perf_counter() - t0:.1f} s")
+        return out
+
+    timed("build", phase_build)
+    rows = timed("kernels", phase_kernels, dev)
+    rows.update(timed("long kernels", long_attention_rows, dev))
+    rows.update(timed("epilogue kernels", epilogue_rows, dev))
     runs = []  # the counts of each main-path run
     model, context = build_demo(dev)
-    runs.append(phase_serve(dev, model, context, HEIGHT, FRAMES, STEPS, SEEDS,
-                            "serve"))
-    runs.append(phase_serve(dev, model, context, LONG_PX, LONG_FRAMES,
-                            LONG_STEPS, SEEDS[:1], "serve-long"))
+    runs.append(timed("serve", phase_serve, dev, model, context, HEIGHT,
+                      FRAMES, STEPS, SEEDS, "serve"))
+    runs.append(timed("serve-long", phase_serve, dev, model, context,
+                      LONG_PX, LONG_FRAMES, LONG_STEPS, SEEDS[:1],
+                      "serve-long"))
     del model
     torch.cuda.empty_cache()
-    phase_parity(dev, FRAMES, "parity")
-    phase_parity(dev, LP_FRAMES, "long-parity")
-    runs.append(phase_train(dev, T_BATCH, T_LATENT, T_STEPS, (), "train",
-                            evaluate=True))
-    runs.append(phase_train(dev, TL_BATCH, TL_LATENT, TL_STEPS,
-                            ("--moments_dtype", "bf16"), "train-long",
-                            evaluate=False))
-    phase_train_parity(dev, T_WIDTH, T_LATENT, 4, "train-parity")
-    phase_train_parity(dev, T_WIDTH, LP_LATENT, 2, "long-train-parity")
+    model, context = build_demo(dev, fused_residual=True)
+    runs.append(timed("serve-fr", phase_serve, dev, model, context, HEIGHT,
+                      FRAMES, STEPS, SEEDS, "serve-fr"))
+    del model
+    torch.cuda.empty_cache()
+    timed("parity", phase_parity, dev, FRAMES, "parity")
+    timed("long-parity", phase_parity, dev, LP_FRAMES, "long-parity")
+    timed("parity-fr", phase_parity, dev, FRAMES, "parity-fr",
+          fused_residual=True)
+    runs.append(timed("train", phase_train, dev, T_BATCH, T_LATENT, T_STEPS,
+                      (), "train", evaluate=True))
+    runs.append(timed("train-long", phase_train, dev, TL_BATCH, TL_LATENT,
+                      TL_STEPS, ("--moments_dtype", "bf16"), "train-long",
+                      evaluate=False))
+    runs.append(timed("train-fr", phase_train, dev, T_BATCH, T_LATENT,
+                      FR_STEPS, (), "train-fr", evaluate=False,
+                      fused_residual=True))
+    timed("train-parity", phase_train_parity, dev, T_WIDTH, T_LATENT, 4,
+          "train-parity")
+    timed("long-train-parity", phase_train_parity, dev, T_WIDTH, LP_LATENT,
+          2, "long-train-parity")
+    timed("train-parity-fr", phase_train_parity, dev, T_WIDTH, T_LATENT, 4,
+          "train-parity-fr", fused_residual=True)
 
     launches = {name: sum(r[name] for r in runs) for name in runs[0]}
     kernels = [dict(rows[name], launches=launches[COUNTED_AS.get(name, name)])

@@ -13,6 +13,7 @@ import torch
 from video_diffusion_speedrun_tpu_torch.ops import fused_adamw as tfw
 from video_diffusion_speedrun_tpu_torch.ops import fused_adaln as tad
 from video_diffusion_speedrun_tpu_torch.ops import fused_attention as tfa
+from video_diffusion_speedrun_tpu_torch.ops import fused_gelu as tfg
 
 pytestmark = pytest.mark.gpu
 
@@ -307,3 +308,156 @@ def test_long_autograd_launches_both_kernels(dev):
     assert torch.isfinite(qkv.grad.float()).all()
     assert all(qkv.grad[..., i * hd:(i + 1) * hd].abs().sum() > 0
                for i in range(3))
+
+
+@pytest.mark.parametrize("b,l,d,with_gamma", [(2, 1040, 2048, False),
+                                              (8, 528, 512, True),
+                                              (3, 333, 512, False)])
+def test_gated_residual_kernels_match_twins(dev, b, l, d, with_gamma):
+    """Rows 13–14 against their twins, fp32 inside on both sides: x_new and
+    y within one bf16 ulp (y + 1e-2 for the row-sum order, as row 3); dx
+    and dδ one ulp + 1% of scale, the [B, D] sums one ulp + 0.1% of scale,
+    dγ 1e-4, as row 12. x is a row slice and gate/shift/scale are column
+    views of a 9-way modulation, as the model passes them."""
+    gen = torch.Generator(device=dev).manual_seed(10)
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen, device=dev).bfloat16()
+
+    x = randn(b, l + 16, d)[:, 16:]
+    delta, gx, gy = randn(b, l, d), randn(b, l, d), randn(b, l, d)
+    mod = randn(b, 9 * d)
+    gate, shift, scale = mod[:, 2 * d:3 * d], mod[:, :d], mod[:, d:2 * d]
+    gamma = randn(d).float() if with_gamma else None
+    before = tad.gated_residual_adaln.launches
+    x_new, y = tad.gated_residual_adaln(x, delta, gate, shift, scale, gamma)
+    want_new, want_y = tad.gated_residual_adaln_plain(x, delta, gate, shift,
+                                                      scale, gamma)
+    torch.cuda.synchronize()
+    assert tad.gated_residual_adaln.launches == before + 1
+    torch.testing.assert_close(x_new.float(), want_new.float(),
+                               rtol=2 ** -7, atol=1e-6)
+    torch.testing.assert_close(y.float(), want_y.float(), rtol=2 ** -7,
+                               atol=1e-2)
+    before = tad.gated_residual_adaln_bwd.launches
+    got = tad.gated_residual_adaln_bwd(want_new, delta, gate, scale, gamma,
+                                       gx, gy)
+    want = tad.gated_residual_adaln_bwd_plain(want_new, delta, gate, scale,
+                                              gamma, gx, gy)
+    torch.cuda.synchronize()
+    assert tad.gated_residual_adaln_bwd.launches == before + 1
+    for i, (a, w) in enumerate(zip(got, want)):
+        if w is None:
+            assert a is None
+            continue
+        a, w = a.float(), w.float()
+        scale_ = w.abs().max().item()
+        if i < 2:
+            assert torch.all((a - w).abs() <= 2 ** -7 * w.abs()
+                             + 1e-2 * scale_), i
+        elif i < 5:
+            torch.testing.assert_close(a, w, rtol=2 ** -7,
+                                       atol=1e-3 * scale_)
+        else:
+            torch.testing.assert_close(a, w, rtol=1e-4, atol=1e-3)
+
+
+def test_gated_residual_autograd_launches_both_kernels(dev):
+    gen = torch.Generator(device=dev).manual_seed(11)
+    x, delta = (torch.randn(2, 100, 256, generator=gen, device=dev)
+                .bfloat16().requires_grad_() for _ in "ab")
+    mod = torch.randn(2, 9 * 256, generator=gen, device=dev).bfloat16()
+    mod.requires_grad_()
+    fwd, bwd = (tad.gated_residual_adaln.launches,
+                tad.gated_residual_adaln_bwd.launches)
+    x_new, y = tad.gated_residual_adaln(x, delta, mod[:, 512:768],
+                                        mod[:, :256], mod[:, 256:512])
+    y.float().square().sum().backward()  # x_new's cotangent is zero
+    torch.cuda.synchronize()
+    assert tad.gated_residual_adaln.launches == fwd + 1
+    assert tad.gated_residual_adaln_bwd.launches == bwd + 1
+    assert all(torch.isfinite(t.grad.float()).all() for t in (x, delta, mod))
+    assert mod.grad[:, 768:].abs().sum() == 0  # outside gate/shift/scale
+
+
+def _gelu_atol(s, factor, coeffs):
+    """Four fp32 ulps of factor·(0.5 + Σ|c_i|·t^2i), t = min(|s|/R, 1):
+    the polynomial's largest term (Triton contracts its Horner chain into
+    FMAs, the twin does not)."""
+    t2 = (s.abs() / tfg._POLY_R).clamp(max=1.0).square()
+    terms = sum(abs(c) * t2 ** i for i, c in enumerate(coeffs))
+    return 2.0 ** -22 * factor * (0.5 + terms)
+
+
+@pytest.mark.parametrize("mode,shape,with_bias", [
+    (tfg.BLOCK, (8, 528, 2048), True), (tfg.BLOCK, (3, 333, 320), True),
+    (tfg.POLY, (2, 333, 512), True), (tfg.POLY, (2, 333, 512), False),
+    (tfg.ERF, (2, 333, 512), True), (tfg.ERF, (2, 19, 96), False)])
+def test_bias_gelu_kernels_match_twins(dev, mode, shape, with_bias):
+    """Rows 15–16 against their twins on the same inputs: one ulp of the
+    output plus four fp32 ulps of the fitted polynomial's largest term
+    (bf16), or 2^-20 relative to the inputs' scale (fp32, where Triton's
+    exp2 and division are approximate); dbias within the dx bound summed
+    over the rows plus 1e-5."""
+    gen = torch.Generator(device=dev).manual_seed(12)
+    dt = torch.float32 if mode == tfg.ERF else torch.bfloat16
+    x = (torch.randn(*shape, generator=gen, device=dev) * 3).to(dt)
+    bias = ((torch.randn(shape[-1], generator=gen, device=dev) * 0.5).to(dt)
+            if with_bias else None)
+    g = torch.randn(*shape, generator=gen, device=dev).to(dt)
+    s = tfg._preact(x, bias, mode)
+    before = (tfg.bias_gelu_forward.launches, tfg.bias_gelu_backward.launches)
+    y = tfg.bias_gelu_forward(x, bias, mode)
+    dx, db = tfg.bias_gelu_backward(x, bias, g, mode)
+    want_y = tfg.bias_gelu_fwd_plain(x, bias, mode)
+    want_dx, want_db = tfg.bias_gelu_bwd_plain(x, bias, g, mode)
+    torch.cuda.synchronize()
+    assert (tfg.bias_gelu_forward.launches,
+            tfg.bias_gelu_backward.launches) == (before[0] + 1, before[1] + 1)
+    if mode == tfg.ERF:
+        ulp = 2.0 ** -20
+        atol_y = ulp * s.abs() * (1 + s.abs())
+        atol_dx = ulp * g.float().abs() * (1 + s.abs())
+    else:
+        ulp = 2.0 ** -7
+        atol_y = _gelu_atol(s, s.abs(), tfg._PHI_C)
+        coeffs = tfg._DPHI_C if mode == tfg.BLOCK else tfg._DGELU_C
+        atol_dx = _gelu_atol(s, g.float().abs(), coeffs) * (
+            1 + s.abs() / tfg._POLY_R)
+    assert y.dtype == dx.dtype == dt
+    assert torch.all((y.float() - want_y.float()).abs()
+                     <= ulp * want_y.float().abs() + atol_y)
+    assert torch.all((dx.float() - want_dx.float()).abs()
+                     <= ulp * want_dx.float().abs() + atol_dx)
+    if with_bias:
+        col = (atol_dx + ulp * want_dx.float().abs()).reshape(-1, shape[-1])
+        assert db.dtype == bias.dtype
+        assert torch.all((db.float() - want_db.float()).abs()
+                         <= col.sum(0) + 1e-5 * want_db.float().abs())
+    else:
+        assert db is None
+
+
+def test_mlp_gelu_autograd_saturates_and_refuses(dev):
+    """`mlp_bias_gelu` under autograd launches both kernels; at |h| = 1e4
+    the gradient is exactly 1 or 0 (no NaN); what the kernels do not take
+    raises."""
+    h = torch.tensor([1e4, -1e4, 64.0, -64.0, 0.5], device=dev)
+    h = h.repeat(1, 3, 8).bfloat16().requires_grad_()  # [1, 3, 40]
+    bias = torch.zeros(40, device=dev, requires_grad=True)
+    fwd, bwd = tfg.bias_gelu_forward.launches, tfg.bias_gelu_backward.launches
+    y = tfg.mlp_bias_gelu(h, bias.bfloat16())
+    y.float().sum().backward()
+    torch.cuda.synchronize()
+    assert tfg.bias_gelu_forward.launches == fwd + 1
+    assert tfg.bias_gelu_backward.launches == bwd + 1
+    sat = h.detach().float().abs() > 10
+    want = (h.detach().float() > 0).float()
+    assert torch.equal(h.grad.float()[sat], want[sat])
+    assert torch.isfinite(bias.grad).all()
+    with pytest.raises(TypeError):  # fp16
+        tfg.bias_gelu(h.detach().half())
+    with pytest.raises(ValueError):  # not contiguous
+        tfg.bias_gelu(h.detach().transpose(1, 2))
+    with pytest.raises(ValueError):  # bias of another width
+        tfg.bias_gelu(h.detach(), torch.zeros(8, device=dev).bfloat16())

@@ -140,8 +140,9 @@ def test_port_imports_no_jax():
     scanned = {p.relative_to(REPO).as_posix() for p in files}
     pkg = "video_diffusion_speedrun_tpu_torch/"
     for module in ("core/config", "ops/fused_attention", "ops/fused_adaln",
-                   "ops/fused_adamw", "models/dit", "data/synthetic",
-                   "data/loader", "train/loss", "train/schedules",
+                   "ops/fused_adamw", "ops/fused_gelu", "models/dit",
+                   "data/synthetic", "data/loader", "train/loss",
+                   "train/schedules",
                    "train/mup", "train/optim", "train/step", "train/loop",
                    "train/__main__", "utils/flops", "sampling/euler",
                    "sample"):

@@ -52,6 +52,10 @@ class DiTConfig:
     compute_dtype: torch.dtype = torch.bfloat16
     attention_impl: str = "auto"  # auto | fused | plain
     fused_adaln: str = "auto"  # auto | fused | off
+    # fuse each residual join with the next sub-layer's norm prologue
+    # (`gated_residual_adaln`); acts only where the fused AdaLN does. Off by
+    # default, as in JAX, where it is net-slower on the canonical config
+    fused_residual: bool = False
     # recompute each block in the backward (torch.utils.checkpoint), the
     # JAX `jax.checkpoint` with policy "nothing"; sampling (no grad) skips it
     remat: bool = True

@@ -12,11 +12,15 @@ package) op for op, including where it dispatches to the fused ops
 (`DiTConfig.attention_impl`, `DiTConfig.fused_adaln`): self-attention
 takes the short kernel reading q/k from qkv up to SHORT_MAX_KV tokens and
 the long path (`rope_flash_attention`) beyond, as `dit.py:287-299` does;
-a no-RoPE model goes through `norope_flash_attention`. With `cfg.remat`
-and grad enabled, each block runs under `torch.utils.checkpoint`: its
-backward recomputes the whole block, kernels included, as `jax.checkpoint`
-with policy "nothing" does (`dit.py:481-501`). The MLP's GELU h·Φ_poly(h)
-is plain torch differentiated by autograd, as JAX autodiffs it.
+a no-RoPE model goes through `norope_flash_attention`. Where the fused
+AdaLN runs, the MLP's bias + Φ-poly GELU after the fc1 product is the
+bias+GELU kernel (`mlp_bias_gelu`, the JAX fc1 epilogue at
+`dit.py:383-385`), and with `cfg.fused_residual` the joins after self- and
+cross-attention fuse with the next norm (`gated_residual_adaln`,
+`dit.py:312-325,356-366`). With `cfg.remat` and grad enabled, each block
+runs under `torch.utils.checkpoint`: its backward recomputes the whole
+block, kernels included, as `jax.checkpoint` with policy "nothing" does
+(`dit.py:481-501`).
 """
 
 from __future__ import annotations
@@ -45,6 +49,7 @@ from video_diffusion_speedrun_tpu_torch.ops.embeddings import (
 )
 from video_diffusion_speedrun_tpu_torch.ops.fused_adaln import (
     adaln_rms_modulate,
+    gated_residual_adaln,
 )
 from video_diffusion_speedrun_tpu_torch.ops.fused_attention import (
     SHORT_MAX_KV,
@@ -53,7 +58,7 @@ from video_diffusion_speedrun_tpu_torch.ops.fused_attention import (
     qkv_rope_flash_attention,
     rope_flash_attention,
 )
-from video_diffusion_speedrun_tpu_torch.ops.fused_gelu import _phi_poly
+from video_diffusion_speedrun_tpu_torch.ops.fused_gelu import mlp_bias_gelu
 from video_diffusion_speedrun_tpu_torch.ops.normalization import rms_norm
 from video_diffusion_speedrun_tpu_torch.ops.patchify import (
     patchify,
@@ -164,11 +169,23 @@ class DiTBlock(nn.Module):
                 kh = apply_rotary(kh, cos, sin)
             attn = dot_product_attention(qh, kh, vh)
             attn = attn.transpose(1, 2).reshape(b, l, d)
-        x = x + _dense(self.attn_proj, attn) * gate_sa[:, None, :]
+        attn = _dense(self.attn_proj, attn)
+        has_cross = cfg.cross_attn_input_size is not None
+        # fuse each residual join with the next sub-layer's norm prologue
+        fuse_join = _use_fused_adaln(cfg, x) and cfg.fused_residual
+        if fuse_join:
+            norm, shift, scale = ((self.norm2, shift_ca, scale_ca) if has_cross
+                                  else (self.norm3, shift_mlp, scale_mlp))
+            x, xn = gated_residual_adaln(x, attn, gate_sa, shift, scale,
+                                         norm.weight)
+        else:
+            x = x + attn * gate_sa[:, None, :]
+            xn = None
 
         # --- cross-attention ---
-        if cfg.cross_attn_input_size is not None:
-            xn = _norm_modulate(cfg, x, self.norm2, shift_ca, scale_ca)
+        if has_cross:
+            if xn is None:
+                xn = _norm_modulate(cfg, x, self.norm2, shift_ca, scale_ca)
             qc = _dense(self.q_cross, xn)
             # [B, Lc, 2D], features (2, h, d): projected once per trajectory
             # by the sampler, or here from the context
@@ -183,17 +200,23 @@ class DiTBlock(nn.Module):
                 ckvh = ckv.reshape(b, lc, 2, nh, hd).permute(2, 0, 3, 1, 4)
                 cross = dot_product_attention(qch, ckvh[0], ckvh[1])
                 cross = cross.transpose(1, 2).reshape(b, l, d)
-            x = x + _dense(self.cross_proj, cross) * gate_ca[:, None, :]
+            cross = _dense(self.cross_proj, cross)
+            if fuse_join:
+                x, xn = gated_residual_adaln(x, cross, gate_ca, shift_mlp,
+                                             scale_mlp, self.norm3.weight)
+            else:
+                x = x + cross * gate_ca[:, None, :]
+                xn = None
 
         # --- MLP ---
-        xn = _norm_modulate(cfg, x, self.norm3, shift_mlp, scale_mlp)
+        if xn is None:
+            xn = _norm_modulate(cfg, x, self.norm3, shift_mlp, scale_mlp)
         fc1, fc2 = self.mlp[0], self.mlp[2]
         if _use_fused_adaln(cfg, x):
             # the JAX model's fc1 epilogue: bias in the compute dtype, then
-            # h·Φ_poly(h) in fp32
+            # h·Φ_poly(h) in fp32, one kernel
             h = torch.matmul(xn, fc1.weight.to(x.dtype).t())
-            hf = (h + fc1.bias.to(x.dtype)).float()
-            h = (hf * _phi_poly(hf)).to(x.dtype)
+            h = mlp_bias_gelu(h, fc1.bias.to(x.dtype))
         else:
             h = F.gelu(_dense(fc1, xn))  # exact erf GELU
         x = x + _dense(fc2, h) * gate_mlp[:, None, :]
