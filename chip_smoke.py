@@ -63,13 +63,33 @@ Run from the root of a checkout. Phases, each of which raises on failure:
              DiT at 256×256×8 through `generate_latents` and 4 train steps
              of the canonical DiT (batch 64, L = 528) through `Trainer` and
              `train_step`, counters per step, one profiled step each; and
-             card vs CPU at depth 2 for both, as phases 4 and 6.
+             card vs CPU at depth 2 for both, as phases 4 and 6;
+13. ring kernels — the ring chunk forward and backward (rows 10–11)
+             against their twins at the serve chunk (B=2, H=16, L = 8208
+             over cp = 4: chunk 2064, 48 padded kv rows) and the train chunk
+             (B=2, H=4, cp = 8: chunk 1040, 112 padded), a chunk that is
+             all padding and a ragged Lq ≠ Lk; rows 6–7 with the kv-bias at
+             chunk 4112 (cp = 2); times beside SDPA with the bias as mask;
+14. serve-cp — context parallelism over `LocalRing(4)` and `LocalRing(2)`
+             (every rank's work on this one card): the demo DiT at
+             512×512×16 (L = 8208), 1 request of 2 Euler steps each,
+             counters per step, against the same request without a ring;
+15. train-cp — the train-long configuration over `LocalRing(4)` and
+             `LocalRing(8)`, 3 steps each through `Trainer` and
+             `train_step`, losses against train-long's on the same batches;
+16. cp parity — depth 2 over `LocalRing(4)`, card against CPU: sampling
+             at L = 2064, training at L = 528 and 2064;
+17. nccl-ring — `DistRing` over NCCL between 2 processes against
+             `LocalRing(2)` where the machine has 2 cards; else one line
+             says why it did not run.
 
 Every run of the DiT's MLP launches the bias+GELU kernels. The kernels JSON
-lists every kernel with `launches` summed over the six main-path runs
-(serve, serve-long, serve with `fused_residual`, train, train-long, train
-with `fused_residual`), each run with the counters set to 0 just before it
-and read just after. The next-to-last
+lists every kernel with `launches` summed over the ten main-path runs
+(serve, serve-long, serve-cp over 4 and 2, serve with `fused_residual`,
+train, train-long, train-cp over 4 and 8, train with `fused_residual`),
+each run with the counters set to 0 just before it and read just after;
+the long kernels' kv-bias launches (the ring's fallback) are rows of their
+own. The next-to-last
 lines are that JSON and the card's name and power limit; the last line is
 {"ok": true, "device": {...}}. With no card, or outside a checkout, it
 exits non-zero before printing any result.
@@ -163,6 +183,19 @@ LONG_FWD_REL = 2.0 ** -6
 FR_STEPS = 4
 # MLP hidden widths of the demo and the canonical DiT
 MLP, T_MLP = 4 * WIDTH, 4 * T_WIDTH
+# context parallelism over LocalRing(cp) (every rank's work on this card):
+# serving at L = 8208 over cp = 4 (chunk 2064: row 10) and cp = 2 (chunk
+# 4112: row 6 with the kv-bias), CP_STEPS Euler steps; training at
+# L = 8208 over cp = 4 (row 10 forward, row 7 with the bias backward) and
+# cp = 8 (chunk 1040: rows 10 and 11), CP_TRAIN_STEPS steps
+CP_SERVE, CP_TRAIN, CP_STEPS, CP_TRAIN_STEPS = (4, 2), (4, 8), 2, 3
+# the ring against the same request without one, both bf16 on the card:
+# each merge rounds o to bf16 again (JAX's rounding), and the difference
+# passes through 24 blocks and CFG 6 — relative L2 of the latent update
+CP_REL_L2 = 5e-2
+# card vs CPU parity over LocalRing(4) at depth 2 (chunk 528 at L = 2064,
+# 144 at L = 528): the limits of the other parity phases
+CP_PARITY = 4
 
 
 def log(msg: str) -> None:
@@ -728,6 +761,243 @@ def long_attention_rows(dev):
     return rows
 
 
+def ring_inputs(dev, gen, b: int, h: int, l: int, cp: int, i: int, j: int,
+                lq=None, lk=None):
+    """Rank i's q chunk and kv chunk j of a context-parallel split of L
+    tokens over cp ranks (chunk = ⌈L/(cp·16)⌉·16), as the model hands them
+    to the ring: bf16 q, k, v strided out of qkv-laid-out tensors, the
+    chunks' rows of the model's RoPE table padded to cp·chunk rows, and
+    chunk j's kv-bias (−1e30 on the padded tail). `lq`/`lk` cut the chunks
+    for a ragged case."""
+    import torch.nn.functional as F
+
+    from video_diffusion_speedrun_tpu_torch.models.rope import rope_cos_sin
+    from video_diffusion_speedrun_tpu_torch.ops import fused_attention as fa
+
+    chunk, lp = fa.ring_layout(l, cp)
+    lq, lk = min(lq or chunk, chunk), min(lk or chunk, chunk)
+    hd = h * HEAD_DIM
+    grid = ((LONG_FRAMES // 2, LONG_PX // 16, LONG_PX // 16) if l == LONG_L
+            else (1, 1, l - 16))
+    cos, sin = (F.pad(t, (0, 0, 0, lp - l)) for t in rope_cos_sin(
+        HEAD_DIM, *grid, torch.tensor([3, 5, 7], device=dev),
+        num_registers=16))
+    kbias = fa.ring_kbias(l, lp, dev)
+    qr, kr = slice(i * chunk, i * chunk + lq), slice(j * chunk, j * chunk + lk)
+    q = torch.randn(b, lq, 3 * hd, generator=gen, device=dev).bfloat16()
+    kv = torch.randn(b, lk, 3 * hd, generator=gen, device=dev).bfloat16()
+    tabs = (cos[qr], sin[qr], cos[kr], sin[kr])
+    return q[..., :hd], kv[..., hd:2 * hd], kv[..., 2 * hd:], tabs, \
+        kbias[kr].contiguous()
+
+
+def ring_attention_rows(dev):
+    """Rows 10–11 against their twins at the serve chunk (B=2, H=16, L =
+    8208 over cp = 4: chunk 2064, rank 0's q against the last chunk, 48
+    padded kv rows) and the train chunk (B=2, H=4, cp = 8: chunk 1040,
+    112 padded), a chunk that is all padding (L = 17, cp = 4) and a ragged
+    Lq ≠ Lk; rows 6–7 with the kv-bias at chunk 4112 (cp = 2) and row 7's
+    at chunk 2064 (cp = 4, the train-cp4 shape). Times beside
+    the bound, the twin and SDPA with the bias as `attn_mask` over the
+    pre-rotated chunk."""
+    import torch.nn.functional as F
+
+    from video_diffusion_speedrun_tpu_torch.ops import fused_attention as fa
+
+    gen = torch.Generator(device=dev).manual_seed(15)
+    d = HEAD_DIM
+    scale = d ** -0.5
+    serve_h, train_h = WIDTH // HEAD_DIM, T_WIDTH // T_HEAD_DIM
+    rep = "video_diffusion_speedrun_tpu/ops/fused_attention.py:{}"
+    src = "video_diffusion_speedrun_tpu_torch/csrc/{}.cu"
+    rows, errs = {}, {}
+
+    def fwd_check(name, what, got, want):
+        (o, lse), (wo, wlse) = got, want
+        err = check_close(name, what + " o", o, wo, 0.0,
+                          LONG_FWD_REL * wo.float().abs().max().item(),
+                          "two bf16 ulps of the largest |o|: the online "
+                          "softmax sums in another order")
+        finite = bool(torch.isfinite(o.float()).all()
+                      and torch.isfinite(lse).all())
+        masked = bool((wlse < -1e29).all())
+        if masked:  # a chunk of padding: lse ≈ −1e30 on both sides
+            ok = finite and bool((lse < -1e29).all())
+            log(f"[kernels] {name} {what} lse: {lse.max().item():.3e} on a "
+                f"chunk of padding (want ≈ −1e30, finite) "
+                f"{'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError(f"{name}: a masked chunk is not finite")
+        else:
+            check_close(name, what + " lse", lse, wlse, 0.0, LSE_TOL,
+                        "fp32 sums in another order")
+        errs[name] = max(errs.get(name, 0.0), err)
+
+    def bwd_check(name, what, got, want):
+        for gname, x, y in zip(("dq", "dk", "dv"), got, want):
+            err = check_close(
+                name, f"{what} {gname}", x, y, 0.0,
+                ATTN_BWD_REL * y.float().abs().max().item(),
+                "2% of the largest |grad|: bf16 p/ds rounding flips under "
+                "another summation order")
+            errs[name] = max(errs.get(name, 0.0), err)
+
+    def heads(*ts):
+        return [t.reshape(t.shape[0], t.shape[1], -1, d).transpose(1, 2)
+                .contiguous() for t in ts]
+
+    def sdpa_args(q, k, v, tabs, kbias):
+        """Pre-rotated [B, H, L, D] q, k, v and the bias as a bf16 mask."""
+        qr = fa.rotate_flat(q, tabs[0], tabs[1], q.shape[-1] // d)
+        kr = fa.rotate_flat(k, tabs[2], tabs[3], k.shape[-1] // d)
+        return (*heads(qr, kr, v),
+                kbias.bfloat16()[None, None, None, :])
+
+    def record(name, src_name, line, ms, plain_ms, lib_ms, bms, by):
+        rows[name] = dict(name=name, route="cuda", source=src.format(src_name),
+                          replaces=rep.format(line), ms=ms, plain_ms=plain_ms,
+                          bound_ms=bms, bound_by=by, library_ms=lib_ms)
+
+    # row 10: serve chunk (timed), train chunk, padding chunk, ragged
+    for b, h, l, cp, j, lq, lk, timed in (
+            (2, serve_h, LONG_L, 4, 3, None, None, True),
+            (2, train_h, LONG_L, 8, 7, None, None, False),
+            (2, train_h, 17, 4, 2, None, None, False),
+            (2, train_h, LONG_L, 4, 3, 333, None, False)):
+        q, k, v, tabs, kbias = ring_inputs(dev, gen, b, h, l, cp, 0, j, lq,
+                                           lk)
+        what = (f"B={b} H={h} L={l} cp={cp} chunk 0 vs {j}: Lq={q.shape[1]} "
+                f"Lk={k.shape[1]}, {int((kbias < 0).sum())} padded kv rows")
+        args = (q, k, v, *tabs, kbias, h, scale)
+        got = fa.ring_attention_cuda(*args)
+        fwd_check("ring_attention_fwd", what, got, fa.ring_chunk_plain(*args))
+        if not timed:
+            continue
+        ms = cuda_ms(lambda: fa.ring_attention_cuda(*args), iters=20)
+        plain_ms = cuda_ms(lambda: fa.ring_chunk_plain(*args), iters=3,
+                           warmup=1)
+        qh, kh, vh, mask = sdpa_args(q, k, v, tabs, kbias)
+        lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+            qh, kh, vh, attn_mask=mask), iters=20)
+        bms, by = attention_bounds(b, h, q.shape[1], k.shape[1], d,
+                                   backward=False)
+        record("ring_attention_fwd", "ring_attention_fwd", 1185, ms,
+               plain_ms, lib_ms, bms, by)
+        log(f"[kernels] ring_attention_fwd {what}: kernel {ms:.4f} ms, twin "
+            f"{plain_ms:.4f} ms, SDPA with the bias as mask {lib_ms:.4f} ms, "
+            f"bound {bms:.4f} ms ({by}), "
+            f"{4 * b * h * q.shape[1] * k.shape[1] * d / ms / 1e9:.1f} "
+            f"TFLOP/s")
+
+    # row 11 (kv up to its 2048 ceiling): train chunk (timed), serve-width
+    # chunk cut to 2048 kv, ragged; o and lse are the chunk's own
+    # forward's (one chunk: the merged ones)
+    for b, h, l, cp, j, lq, lk, timed in (
+            (2, train_h, LONG_L, 8, 7, None, None, True),
+            (2, serve_h, LONG_L, 4, 3, None, 2048, False),
+            (2, train_h, LONG_L, 8, 7, 333, None, False)):
+        q, k, v, tabs, kbias = ring_inputs(dev, gen, b, h, l, cp, 0, j, lq,
+                                           lk)
+        what = (f"B={b} H={h} L={l} cp={cp} chunk 0 vs {j}: Lq={q.shape[1]} "
+                f"Lk={k.shape[1]}, {int((kbias < 0).sum())} padded kv rows")
+        o, lse = fa.ring_attention_cuda(q, k, v, *tabs, kbias, h, scale)
+        do = torch.randn(o.shape, generator=gen, device=dev).bfloat16()
+        args = (q, k, v, *tabs, kbias, o, lse, do, h, scale)
+        got = fa.ring_attention_bwd_cuda(*args)
+        bwd_check("ring_attention_bwd", what, got,
+                  fa.ring_chunk_bwd_plain(*args))
+        if not timed:
+            continue
+        del got
+        ms = cuda_ms(lambda: fa.ring_attention_bwd_cuda(*args), iters=20)
+        plain_ms = cuda_ms(lambda: fa.ring_chunk_bwd_plain(*args), iters=3,
+                           warmup=1)
+        qh, kh, vh, mask = sdpa_args(q, k, v, tabs, kbias)
+        qh, kh, vh = (t.requires_grad_() for t in (qh, kh, vh))
+        oh = F.scaled_dot_product_attention(qh, kh, vh, attn_mask=mask)
+        (doh,) = heads(do)
+        lib_ms = cuda_ms(lambda: torch.autograd.grad(
+            oh, (qh, kh, vh), doh, retain_graph=True), iters=20)
+        del oh
+        bms, by = attention_bounds(b, h, q.shape[1], k.shape[1], d,
+                                   backward=True)
+        record("ring_attention_bwd", "ring_attention_bwd", 1235, ms,
+               plain_ms, lib_ms, bms, by)
+        log(f"[kernels] ring_attention_bwd {what}: kernel {ms:.4f} ms, twin "
+            f"{plain_ms:.4f} ms, SDPA backward with the bias as mask "
+            f"{lib_ms:.4f} ms, bound {bms:.4f} ms ({by}), "
+            f"{10 * b * h * q.shape[1] * k.shape[1] * d / ms / 1e9:.1f} "
+            f"useful TFLOP/s")
+
+    # rows 6–7 with the kv-bias over pre-rotated q/k, as the ring's
+    # fallback hands them over: the forward at chunk 4112 of L = 8208 over
+    # cp = 2 (serve-cp2, timed); the backward there and at chunk 2064 over
+    # cp = 4, the shape train-cp4 gives it (timed)
+    for b, h, cp, backward in ((2, serve_h, 2, False), (2, train_h, 2, True),
+                               (2, train_h, 4, True)):
+        q, k, v, tabs, kbias = ring_inputs(dev, gen, b, h, LONG_L, cp, 0,
+                                           cp - 1)
+        q = fa.rotate_flat(q, tabs[0], tabs[1], h)
+        k = fa.rotate_flat(k, tabs[2], tabs[3], h)
+        l = q.shape[1]
+        what = (f"B={b} H={h} Lq=Lk={l}, {int((kbias < 0).sum())} padded kv "
+                f"rows (cp={cp})")
+        name = "long_attention_fwd<bias>"
+        got = fa.long_attention_cuda(q, k, v, h, scale, kbias)
+        want = fa.long_attention_plain(q, k, v, h, scale, kbias)
+        err = check_close(name, what + " o", got[0], want[0], 0.0,
+                          LONG_FWD_REL * want[0].float().abs().max().item(),
+                          "two bf16 ulps of the largest |o|")
+        check_close(name, what + " lse", got[1], want[1], 0.0, LSE_TOL,
+                    "fp32 sums in another order")
+        errs[name] = max(errs.get(name, 0.0), err)
+        qh, kh, vh, mask = (*heads(q, k, v),
+                            kbias.bfloat16()[None, None, None, :])
+        if not backward:
+            ms = cuda_ms(lambda: fa.long_attention_cuda(q, k, v, h, scale,
+                                                        kbias),
+                         iters=10, warmup=2)
+            plain_ms = cuda_ms(lambda: fa.long_attention_plain(
+                q, k, v, h, scale, kbias), iters=3, warmup=1)
+            lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+                qh, kh, vh, attn_mask=mask), iters=10, warmup=2)
+            bms, by = attention_bounds(b, h, l, l, d, backward=False)
+            record(name, "long_attention_fwd", 251, ms, plain_ms, lib_ms,
+                   bms, by)
+            log(f"[kernels] {name} {what}: kernel {ms:.4f} ms, twin "
+                f"{plain_ms:.4f} ms, SDPA with mask {lib_ms:.4f} ms, bound "
+                f"{bms:.4f} ms ({by})")
+            continue
+        name = "long_attention_bwd<bias>"
+        o, lse = got
+        do = torch.randn(o.shape, generator=gen, device=dev).bfloat16()
+        args = (q, k, v, o, lse, do, h, scale, kbias)
+        got = fa.long_attention_bwd_cuda(*args)
+        bwd_check(name, what, got, fa.long_attention_bwd_plain(*args))
+        del got
+        if cp != 4:
+            continue
+        ms = cuda_ms(lambda: fa.long_attention_bwd_cuda(*args), iters=10,
+                     warmup=2)
+        plain_ms = cuda_ms(lambda: fa.long_attention_bwd_plain(*args),
+                           iters=2, warmup=1)
+        qh, kh, vh = (t.requires_grad_() for t in (qh, kh, vh))
+        oh = F.scaled_dot_product_attention(qh, kh, vh, attn_mask=mask)
+        (doh,) = heads(do)
+        lib_ms = cuda_ms(lambda: torch.autograd.grad(
+            oh, (qh, kh, vh), doh, retain_graph=True), iters=10, warmup=2)
+        del oh
+        bms, by = attention_bounds(b, h, l, l, d, backward=True)
+        record(name, "long_attention_bwd", 534, ms, plain_ms, lib_ms, bms, by)
+        log(f"[kernels] {name} {what}: kernel {ms:.4f} ms, twin "
+            f"{plain_ms:.4f} ms, SDPA backward with mask {lib_ms:.4f} ms, "
+            f"bound {bms:.4f} ms ({by})")
+    for name, row in rows.items():
+        row["max_abs_err"] = errs[name]
+    torch.cuda.empty_cache()
+    return rows
+
+
 def gelu_atol(s, factor, coeffs, fp32: bool):
     """How far two fp32 evaluations of a fitted polynomial may part: four
     fp32 ulps of factor·(0.5 + Σ|c_i|·t^2i), t = min(|s|/R, 1), its largest
@@ -958,25 +1228,34 @@ def randomize_zero_layers(model, gen) -> None:
 
 
 def counters():
-    """Kernel name → the wrapper whose `.launches` counts its launches."""
+    """Kernel name → (wrapper, attribute) whose count is its launches; the
+    long kernels count their kv-bias launches (the ring's fallback) apart."""
     from video_diffusion_speedrun_tpu_torch.ops import fused_adamw as fw
     from video_diffusion_speedrun_tpu_torch.ops import fused_adaln as fad
     from video_diffusion_speedrun_tpu_torch.ops import fused_attention as fa
     from video_diffusion_speedrun_tpu_torch.ops import fused_gelu as fg
 
-    return {"short_attention_fwd<rope>": fa.qkv_rope_flash_forward,
-            "short_attention_fwd<norope>": fa.cross_flash_forward,
-            "adaln_rms_modulate_fwd": fad.adaln_rms_modulate,
-            "short_attention_bwd<rope>": fa.qkv_rope_flash_backward,
-            "short_attention_bwd<norope>": fa.cross_flash_backward,
-            "adaln_rms_modulate_bwd": fad.adaln_rms_modulate_bwd,
-            "adamw_multi_tensor": fw.MultiTensorAdamW,
-            "long_attention_fwd": fa.long_attention_forward,
-            "long_attention_bwd": fa.long_attention_backward,
-            "gated_residual_adaln_fwd": fad.gated_residual_adaln,
-            "gated_residual_adaln_bwd": fad.gated_residual_adaln_bwd,
-            "bias_gelu_fwd": fg.bias_gelu_forward,
-            "bias_gelu_bwd": fg.bias_gelu_backward}
+    fns = {"short_attention_fwd<rope>": fa.qkv_rope_flash_forward,
+           "short_attention_fwd<norope>": fa.cross_flash_forward,
+           "adaln_rms_modulate_fwd": fad.adaln_rms_modulate,
+           "short_attention_bwd<rope>": fa.qkv_rope_flash_backward,
+           "short_attention_bwd<norope>": fa.cross_flash_backward,
+           "adaln_rms_modulate_bwd": fad.adaln_rms_modulate_bwd,
+           "adamw_multi_tensor": fw.MultiTensorAdamW,
+           "long_attention_fwd": fa.long_attention_forward,
+           "long_attention_bwd": fa.long_attention_backward,
+           "gated_residual_adaln_fwd": fad.gated_residual_adaln,
+           "gated_residual_adaln_bwd": fad.gated_residual_adaln_bwd,
+           "bias_gelu_fwd": fg.bias_gelu_forward,
+           "bias_gelu_bwd": fg.bias_gelu_backward,
+           "ring_attention_fwd": fa.ring_chunk_forward,
+           "ring_attention_bwd": fa.ring_chunk_backward}
+    out = {name: (fn, "launches") for name, fn in fns.items()}
+    out["long_attention_fwd<bias>"] = (fa.long_attention_forward,
+                                       "bias_launches")
+    out["long_attention_bwd<bias>"] = (fa.long_attention_backward,
+                                       "bias_launches")
+    return out
 
 
 # rows 8–9 are functions of the row 6/7 launches: their counts are those
@@ -985,12 +1264,13 @@ COUNTED_AS = {"long_attention_fwd<split>": "long_attention_fwd",
 
 
 def reset_counters() -> None:
-    for fn in counters().values():
-        fn.launches = 0
+    for fn, attr in counters().values():
+        setattr(fn, attr, 0)
 
 
 def read_counters():
-    return {name: fn.launches for name, fn in counters().items()}
+    return {name: getattr(fn, attr)
+            for name, (fn, attr) in counters().items()}
 
 
 def build_demo(dev, **overrides):
@@ -1015,11 +1295,11 @@ def build_demo(dev, **overrides):
 
 
 def phase_serve(dev, model, context, px: int, frames: int, steps: int,
-                seeds, tag: str):
-    """Sample one request per seed through `generate_latents` with the
-    launch counters set to 0 just before and read just after; check the
-    counts per Euler step and the latents; profile one Euler step. Returns
-    the counts."""
+                seeds, tag: str, ring=None):
+    """Sample one request per seed through `generate_latents` (over `ring`
+    if given) with the launch counters set to 0 just before and read just
+    after; check the counts per Euler step and the latents; profile one
+    Euler step. Returns the counts and the latents."""
     from video_diffusion_speedrun_tpu_torch.core.config import SamplingConfig
     from video_diffusion_speedrun_tpu_torch.ops import fused_attention as fa
     from video_diffusion_speedrun_tpu_torch.sampling.euler import (
@@ -1036,7 +1316,8 @@ def phase_serve(dev, model, context, px: int, frames: int, steps: int,
                                   num_latent_frames=frames, seed=seed)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        lat = generate_latents(model, context, sampling)
+        lat = generate_latents(model, context, sampling,
+                               context_parallel=ring)
         torch.cuda.synchronize()
         step_ms.append(1e3 * (time.perf_counter() - t0) / steps)
         outs.append(lat)
@@ -1044,24 +1325,36 @@ def phase_serve(dev, model, context, px: int, frames: int, steps: int,
     peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
 
     # sampling runs no backward and no optimizer; self-attention takes the
-    # short kernel up to SHORT_MAX_KV tokens and the long one past it; with
-    # fused_residual the norms after self- and cross-attention run in the
-    # two gated-residual joins of each block
-    self_attn = ("short_attention_fwd<rope>" if l <= fa.SHORT_MAX_KV
-                 else "long_attention_fwd")
+    # short kernel up to SHORT_MAX_KV tokens and the long one past it, or
+    # over a ring cp² chunk forwards (row 10 up to its 4096 kv rows, the
+    # long kernel with the kv-bias above); with fused_residual the norms
+    # after self- and cross-attention run in the two gated-residual joins
+    # of each block
+    if ring is None:
+        self_attn, per_layer = ("short_attention_fwd<rope>"
+                                if l <= fa.SHORT_MAX_KV
+                                else "long_attention_fwd"), 1
+    else:
+        chunk, _ = fa.ring_layout(l, ring.size)
+        self_attn = ("ring_attention_fwd" if chunk <= fa._RING_FULLK_MAX_FWD
+                     else "long_attention_fwd<bias>")
+        per_layer = ring.size ** 2
     fused_residual = model.cfg.fused_residual
     n = len(seeds) * steps
     want = dict.fromkeys(launches, 0)
-    want.update({self_attn: n * DEPTH,
+    want.update({self_attn: n * DEPTH * per_layer,
                  "short_attention_fwd<norope>": n * DEPTH,
                  "adaln_rms_modulate_fwd": n * (
                      DEPTH + 1 if fused_residual else ADALN_PER_FORWARD),
                  "gated_residual_adaln_fwd": n * 2 * DEPTH * fused_residual,
                  "bias_gelu_fwd": n * DEPTH})
+    where = "" if ring is None else (
+        f", tokens over LocalRing({ring.size}): every rank's work on this "
+        f"one card")
     for i, (seed, lat, ms) in enumerate(zip(seeds, outs, step_ms)):
         log(f"[{tag}] request {i} seed {seed}: latents {tuple(lat.shape)} "
             f"std {lat.std().item():.4f}, {ms:.2f} ms per Euler step "
-            f"(one forward at batch 2, L={l})")
+            f"(one forward at batch 2, L={l}{where})")
     log(f"[{tag}] peak memory {peak_gb:.2f} GB; launches {launches}, "
         f"expected {want}")
     expect_shape = (1, 16, frames, px // 8, px // 8)
@@ -1082,27 +1375,28 @@ def phase_serve(dev, model, context, px: int, frames: int, steps: int,
     if launches != want:
         raise AssertionError(f"launch counts {launches} != {want}")
 
-    profile_step(model, context, outs[-1], tag + "-profile")
-    return launches
+    profile_step(model, context, outs[-1], tag + "-profile", ring)
+    return launches, outs
 
 
-def profile_step(model, context, lat, tag: str):
+def profile_step(model, context, lat, tag: str, ring=None):
     """Device time by kernel over one Euler step (one batch-2 forward)."""
     ckv = model.precompute_context_kv(torch.cat([context,
                                                  torch.zeros_like(context)]))
     x2 = torch.cat([lat, lat]).bfloat16()
     t2 = torch.full((2,), 0.5, device=lat.device)
     with torch.no_grad():
-        model(x2, None, t2, context_kv=ckv)
-        profile_device(lambda: model(x2, None, t2, context_kv=ckv),
+        model(x2, None, t2, context_kv=ckv, context_parallel=ring)
+        profile_device(lambda: model(x2, None, t2, context_kv=ckv,
+                                     context_parallel=ring),
                        "one forward", tag)
 
 
 # profile rows grouped by kernel name: (kind, substrings), first match wins
 KERNEL_KINDS = (
-    ("attention kernels (csrc/{short,long}_attention_*.cu)",
-     ("short_attention", "long_attention", "bwd_dkdv", "bwd_dq", "prep_q",
-      "prep_k", "rope_rotate")),
+    ("attention kernels (csrc/{short,long,ring}_attention_*.cu)",
+     ("short_attention", "long_attention", "attention_fwd_kernel",
+      "bwd_dkdv", "bwd_dq", "prep_q", "prep_k", "rope_rotate")),
     ("AdaLN kernels (Triton)", ("adaln_rms_modulate",)),
     ("gated-residual AdaLN kernels (Triton)", ("gated_residual_adaln",)),
     ("bias+GELU kernels (Triton)", ("bias_gelu",)),
@@ -1150,11 +1444,13 @@ def profile_device(fn, what: str, tag: str, rows: int = 14) -> None:
             f"{kind}")
 
 
-def phase_parity(dev, frames: int, tag: str, **overrides):
+def phase_parity(dev, frames: int, tag: str, cp: int = 0, **overrides):
     """Depth 2, full width: 2 Euler steps on the card (bf16, kernels)
     against the CPU (fp32, the fused ops' twins), same weights and noise,
-    at 256×256 with `frames` latent frames; `overrides` of the config on
-    both sides."""
+    at 256×256 with `frames` latent frames, over `LocalRing(cp)` on both
+    sides if cp; `overrides` of the config on both sides."""
+    from video_diffusion_speedrun_tpu_torch.parallel.ring import LocalRing
+
     from video_diffusion_speedrun_tpu_torch.sample import demo_config
     from video_diffusion_speedrun_tpu_torch.sampling.euler import (
         euler_cfg_sample,
@@ -1178,16 +1474,19 @@ def phase_parity(dev, frames: int, tag: str, **overrides):
     noise = torch.from_numpy(rng.standard_normal(shape, np.float32)).bfloat16()
     ctx = torch.from_numpy(
         rng.standard_normal((1, CTX_LEN, CTX_DIM), np.float32) * 0.05)
+    ring = LocalRing(cp) if cp else None
     t0 = time.perf_counter()
     cpu = euler_cfg_sample(cpu_model, noise.float(), ctx, num_steps=2,
-                           cfg_scale=6.0)
+                           cfg_scale=6.0, context_parallel=ring)
     cpu_s = time.perf_counter() - t0
     card = euler_cfg_sample(card_model, noise.to(dev), ctx.to(dev).bfloat16(),
-                            num_steps=2, cfg_scale=6.0).cpu()
+                            num_steps=2, cfg_scale=6.0,
+                            context_parallel=ring).cpu()
     d_cpu, d_card = cpu - noise.float(), card - noise.float()
     rel = ((d_card - d_cpu).norm() / d_cpu.norm()).item()
     ok = rel <= PARITY_REL_L2 and bool(torch.isfinite(card).all())
-    log(f"[{tag}] depth 2, width {WIDTH}, L={l}, 2 steps: relative L2 of the "
+    log(f"[{tag}] depth 2, width {WIDTH}, L={l}"
+        f"{f', LocalRing({cp})' if cp else ''}, 2 steps: relative L2 of the "
         f"latent update, card vs CPU {rel:.3e} (tol {PARITY_REL_L2}; CPU "
         f"run {cpu_s:.1f} s) {'ok' if ok else 'FAIL'}")
     if not ok:
@@ -1222,12 +1521,51 @@ def latent_len(latent) -> int:
     return (t // 2) * (hh // 2) * (ww // 2) + 16
 
 
+def first_step_grads(trainer, cfg, ring):
+    """The gradient of the loss on the Trainer's first batch with the
+    draws of the first timed step (a generator seeded as `phase_train`'s),
+    name → fp32 tensor on the host; the model's gradients are left unset."""
+    from video_diffusion_speedrun_tpu_torch.train.step import _loss
+
+    gen = torch.Generator(device=trainer.device).manual_seed(cfg.seed + 1)
+    loss, _ = _loss(trainer.model, next(trainer.batches("train")), gen, cfg,
+                    ring)
+    loss.backward()
+    grads = {name: p.grad.float().cpu()
+             for name, p in trainer.model.named_parameters()
+             if p.grad is not None}
+    trainer.model.zero_grad(set_to_none=True)
+    return grads
+
+
+def grad_rel_l2(grads, ref):
+    """The whole gradient's relative L2 against `ref`, and the worst
+    tensor's (name, relative L2). A tensor's error is held against the
+    larger of its own norm and 1e-4 of the whole gradient's: the whole
+    norm is dominated by the output and modulation layers, so a fault in
+    the attention's gradients hides in it, and a tensor with next to no
+    gradient would turn rounding noise into a large ratio."""
+    if grads.keys() != ref.keys():
+        raise AssertionError(f"gradients of other parameters: "
+                             f"{sorted(grads.keys() ^ ref.keys())}")
+    whole = torch.stack([r.norm() for r in ref.values()]).norm()
+    diff = {n: (grads[n] - r).norm() for n, r in ref.items()}
+    rel = (torch.stack(list(diff.values())).norm() / whole).item()
+    worst = max(ref, key=lambda n: diff[n] / max(ref[n].norm(), 1e-4 * whole))
+    return rel, (worst, (diff[worst] / max(ref[worst].norm(), 1e-4 * whole))
+                 .item())
+
+
 def phase_train(dev, batch: int, latent, steps: int, extra, tag: str,
-                evaluate: bool, **overrides):
+                evaluate: bool, ring=None, probe: bool = False, **overrides):
     """The canonical DiT (its config with `overrides`) through the port's
-    Trainer: `steps` timed steps of `train_step` with the launch counters
-    set to 0 just before and read just after, optionally one evaluation,
-    one profiled step. Returns the counts."""
+    Trainer (over `ring` if given): `steps` timed steps of `train_step`
+    with the launch counters set to 0 just before and read just after,
+    optionally one evaluation, one profiled step. With `probe` the
+    zero-initialised layers are made random, so that the loss and every
+    gradient go through attention, and the first step's gradients are
+    taken before the timed steps (`first_step_grads`). Returns the counts,
+    the losses and those gradients (None without `probe`)."""
     from video_diffusion_speedrun_tpu_torch.ops import fused_attention as fa
     from video_diffusion_speedrun_tpu_torch.train.__main__ import (
         build_config,
@@ -1237,7 +1575,7 @@ def phase_train(dev, batch: int, latent, steps: int, extra, tag: str,
     from video_diffusion_speedrun_tpu_torch.train.step import train_step
     from video_diffusion_speedrun_tpu_torch.utils.flops import (
         dit_train_flops,
-        peak_flops_for,
+        mfu,
     )
 
     cfg = build_config(parse_args(train_argv(T_DEPTH, batch=batch,
@@ -1247,7 +1585,10 @@ def phase_train(dev, batch: int, latent, steps: int, extra, tag: str,
                                   cfg.data, synthetic_shape=tuple(latent)))
     l = latent_len(latent)
     t0 = time.perf_counter()
-    trainer = Trainer(cfg, device=dev)
+    trainer = Trainer(cfg, device=dev, context_parallel=ring)
+    if probe:
+        randomize_zero_layers(trainer.model,
+                              torch.Generator(device=dev).manual_seed(1))
     n_leaves = len(trainer.opt.params)
     torch.cuda.synchronize()
     moments = cfg.optimizer.moments_dtype or "fp32"
@@ -1255,7 +1596,11 @@ def phase_train(dev, batch: int, latent, steps: int, extra, tag: str,
         f"{n_leaves} leaves, built in {time.perf_counter() - t0:.1f} s; "
         f"batch {batch}, latent {tuple(latent)} → L={l}, remat "
         f"{cfg.model.remat}, moments {moments}, lr {T_LR}, "
-        f"{cfg.optimizer.scheduler} schedule; {overrides or 'default config'}")
+        f"{cfg.optimizer.scheduler} schedule; {overrides or 'default config'}"
+        + ("; zero-initialised layers made random" if probe else "")
+        + ("" if ring is None else f"; tokens over LocalRing({ring.size}), "
+           "every rank's work on this one card"))
+    grads = first_step_grads(trainer, cfg, ring) if probe else None
     gen = torch.Generator(device=dev).manual_seed(cfg.seed + 1)
     loader = trainer.batches("train")
     torch.cuda.reset_peak_memory_stats(dev)
@@ -1265,7 +1610,7 @@ def phase_train(dev, batch: int, latent, steps: int, extra, tag: str,
         batch_t = next(loader)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        m = train_step(trainer.model, trainer.opt, batch_t, gen, cfg)
+        m = train_step(trainer.model, trainer.opt, batch_t, gen, cfg, ring)
         torch.cuda.synchronize()
         step_ms.append(1e3 * (time.perf_counter() - t0))
         losses.append(float(m["loss"]))
@@ -1277,17 +1622,29 @@ def phase_train(dev, batch: int, latent, steps: int, extra, tag: str,
     # AdaLN norms per block: 3, or only norm1 beside 2 gated-residual joins
     fr = cfg.model.fused_residual
     norms, joins = (1, 2) if fr else (3, 0)
+    # self-attention: the short or long kernels, or over a ring cp² chunk
+    # calls a layer, each kernel up to its ceiling (forward 4096, backward
+    # 2048 kv rows) and the long kernel with the kv-bias above
+    fwd_k, bwd_k, per_layer = ("short_attention_fwd<rope>" if short
+                               else "long_attention_fwd",
+                               "short_attention_bwd<rope>" if short
+                               else "long_attention_bwd", 1)
+    if ring is not None:
+        chunk, _ = fa.ring_layout(l, ring.size)
+        fwd_k = ("ring_attention_fwd" if chunk <= fa._RING_FULLK_MAX_FWD
+                 else "long_attention_fwd<bias>")
+        bwd_k = ("ring_attention_bwd" if chunk <= fa._RING_FULLK_MAX_BWD
+                 else "long_attention_bwd<bias>")
+        per_layer = ring.size ** 2
     per_step = dict.fromkeys(launches, 0)
     per_step.update({
         # forward + remat recompute; the final layer's AdaLN runs once
-        "short_attention_fwd<rope>" if short else "long_attention_fwd":
-            2 * T_DEPTH,
+        fwd_k: 2 * T_DEPTH * per_layer,
         "short_attention_fwd<norope>": 2 * T_DEPTH,
         "adaln_rms_modulate_fwd": 2 * norms * T_DEPTH + 1,
         "gated_residual_adaln_fwd": 2 * joins * T_DEPTH,
         "bias_gelu_fwd": 2 * T_DEPTH,
-        "short_attention_bwd<rope>" if short else "long_attention_bwd":
-            T_DEPTH,
+        bwd_k: T_DEPTH * per_layer,
         "short_attention_bwd<norope>": T_DEPTH,
         "adaln_rms_modulate_bwd": norms * T_DEPTH + 1,
         "gated_residual_adaln_bwd": joins * T_DEPTH,
@@ -1297,11 +1654,11 @@ def phase_train(dev, batch: int, latent, steps: int, extra, tag: str,
     skip = 2 if steps >= 6 else 1  # warm-up steps (cuBLAS, Triton, caches)
     steady = float(np.median(step_ms[skip:]))
     flops = dit_train_flops(cfg.model, batch, *latent[1:])
-    peak = peak_flops_for(torch.cuda.get_device_name(0))
     log(f"[{tag}] steady state {steady:.2f} ms per step (median of steps "
         f"{skip}–{steps - 1}), {flops / 1e12:.2f} useful TFLOP "
-        f"per step → MFU {flops / (steady / 1e3) / peak:.4f} at "
-        f"{peak / 1e12:.0f} TFLOP/s; peak memory {peak_gb:.2f} GB")
+        f"per step → MFU "
+        f"{mfu(flops, steady / 1e3, torch.cuda.get_device_name(0)):.4f} of "
+        f"one card; peak memory {peak_gb:.2f} GB")
     log(f"[{tag}] launches {launches}, expected {want}")
     if not all(np.isfinite(losses)):
         raise AssertionError(f"non-finite training loss {losses}")
@@ -1314,18 +1671,21 @@ def phase_train(dev, batch: int, latent, steps: int, extra, tag: str,
             raise AssertionError("non-finite evaluation loss")
     batch_t = next(loader)
     profile_device(lambda: train_step(trainer.model, trainer.opt, batch_t,
-                                      gen, cfg), "one train step",
+                                      gen, cfg, ring), "one train step",
                    tag + "-profile", rows=16)
     del trainer, loader
     torch.cuda.empty_cache()
-    return launches
+    return launches, losses, grads
 
 
 def phase_train_parity(dev, width: int, latent, b: int, tag: str,
-                       **overrides):
+                       cp: int = 0, **overrides):
     """Depth 2: 3 steps on the card (bf16 compute, kernels) against the
-    CPU (fp32, twins), same weights and injected batches; `overrides` of
-    the config on both sides."""
+    CPU (fp32, twins), same weights and injected batches, over
+    `LocalRing(cp)` on both sides if cp; `overrides` of the config on both
+    sides."""
+    from video_diffusion_speedrun_tpu_torch.parallel.ring import LocalRing
+
     from video_diffusion_speedrun_tpu_torch.core.config import (
         OptimizerConfig,
         TrainConfig,
@@ -1355,6 +1715,8 @@ def phase_train_parity(dev, width: int, latent, b: int, tag: str,
         noise=rng.standard_normal((b, c, t // 2 * 2, hh, ww), np.float32),
         rope_offsets=rng.integers(0, 100, 3)) for _ in range(steps)]
 
+    ring = LocalRing(cp) if cp else None
+
     def run(model, device):
         opt_cfg = OptimizerConfig(learning_rate=T_LR, scheduler="linear",
                                   warmup_steps=0)
@@ -1366,13 +1728,14 @@ def phase_train_parity(dev, width: int, latent, b: int, tag: str,
         loss, _ = rectified_flow_loss(
             model, first["latent"], first["context"], None,
             caption_dropout=0.0, timesteps=first["timesteps"],
-            noise=first["noise"], rope_offsets=first["rope_offsets"])
+            noise=first["noise"], rope_offsets=first["rope_offsets"],
+            context_parallel=ring)
         loss.backward()
         grads = torch.cat([p.grad.float().flatten().cpu()
                            for p in model.parameters() if p.grad is not None])
         model.zero_grad(set_to_none=True)
         opt = MupAdamW(model.named_parameters(), T_LR, steps, opt_cfg)
-        losses = [float(train_step(model, opt, bt, None, cfg)["loss"])
+        losses = [float(train_step(model, opt, bt, None, cfg, ring)["loss"])
                   for bt in batches]
         return losses, grads
 
@@ -1383,13 +1746,154 @@ def phase_train_parity(dev, width: int, latent, b: int, tag: str,
     loss_rel = [abs(a / w - 1) for a, w in zip(card_losses, cpu_losses)]
     grad_rel = ((card_grads - cpu_grads).norm() / cpu_grads.norm()).item()
     log(f"[{tag}] depth 2, width {width}, batch {b}, latent {tuple(latent)} "
-        f"→ L={latent_len(latent)}, 3 steps: losses card {card_losses} vs "
+        f"→ L={latent_len(latent)}{f', LocalRing({cp})' if cp else ''}, "
+        f"3 steps: losses card {card_losses} vs "
         f"CPU {cpu_losses} (CPU run {cpu_s:.1f} s); relative loss difference "
         f"{max(loss_rel):.3e} (tol {TRAIN_LOSS_REL}); step-1 gradient "
         f"relative L2 {grad_rel:.3e} (tol {TRAIN_GRAD_REL_L2})")
     if max(loss_rel) > TRAIN_LOSS_REL or grad_rel > TRAIN_GRAD_REL_L2 \
             or not all(np.isfinite(card_losses)):
         raise AssertionError("card and CPU training disagree")
+
+
+def phase_serve_cp(dev, model, context):
+    """The demo DiT at the sampling CLI's default 512×512×16 (L = 8208)
+    over `LocalRing(cp)` for cp in CP_SERVE: one request of CP_STEPS Euler
+    steps each, counters per step, against the same request without a
+    ring. Returns each run's counts."""
+    from video_diffusion_speedrun_tpu_torch.core.config import SamplingConfig
+    from video_diffusion_speedrun_tpu_torch.parallel.ring import LocalRing
+    from video_diffusion_speedrun_tpu_torch.sampling.euler import (
+        generate_latents,
+    )
+
+    sampling = SamplingConfig(inference_steps=CP_STEPS, cfg_scale=6.0,
+                              height=LONG_PX, width=LONG_PX,
+                              num_latent_frames=LONG_FRAMES, seed=SEEDS[0])
+    ref = generate_latents(model, context, sampling)
+    noise = torch.randn(ref.shape, device=dev, generator=torch.Generator(
+        device=dev).manual_seed(SEEDS[0])).bfloat16().float()
+    runs = []
+    for cp in CP_SERVE:
+        tag = f"serve-cp{cp}"
+        launches, (lat,) = phase_serve(dev, model, context, LONG_PX,
+                                       LONG_FRAMES, CP_STEPS, SEEDS[:1], tag,
+                                       ring=LocalRing(cp))
+        rel = ((lat - ref).norm() / (ref - noise).norm()).item()
+        ok = rel <= CP_REL_L2
+        log(f"[{tag}] {CP_STEPS} steps at L={LONG_L}: relative L2 of the "
+            f"latent update against the run without a ring {rel:.3e} (tol "
+            f"{CP_REL_L2}: the ring merges each chunk's bf16 o and rounds "
+            f"again, through {DEPTH} blocks) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError("the ring and the one-card path disagree")
+        runs.append(launches)
+    return runs
+
+
+def phase_train_cp(dev):
+    """The canonical DiT at batch 2, L = 8208 (the train-long run's
+    config) with its zero-initialised layers made random, so that the loss
+    and every gradient go through attention: CP_TRAIN_STEPS steps without
+    a ring, then over `LocalRing(cp)` for cp in CP_TRAIN, through Trainer
+    and train_step on the same batches and draws; each ring run's losses
+    and first-step gradients against the run without a ring. Returns each
+    ring run's counts."""
+    from video_diffusion_speedrun_tpu_torch.parallel.ring import LocalRing
+
+    extra = ("--moments_dtype", "bf16")
+    _, ref_losses, ref_grads = phase_train(
+        dev, TL_BATCH, TL_LATENT, CP_TRAIN_STEPS, extra, "train-cp-ref",
+        evaluate=False, probe=True)
+    runs = []
+    for cp in CP_TRAIN:
+        tag = f"train-cp{cp}"
+        launches, losses, grads = phase_train(
+            dev, TL_BATCH, TL_LATENT, CP_TRAIN_STEPS, extra, tag,
+            evaluate=False, ring=LocalRing(cp), probe=True)
+        rel = max(abs(a / w - 1) for a, w in zip(losses, ref_losses))
+        grad_rel, (worst, worst_rel) = grad_rel_l2(grads, ref_grads)
+        ok = (rel <= TRAIN_LOSS_REL and grad_rel <= TRAIN_GRAD_REL_L2
+              and worst_rel <= TRAIN_GRAD_REL_L2)
+        log(f"[{tag}] losses {losses} against {ref_losses} without a ring: "
+            f"relative difference {rel:.3e} (tol {TRAIN_LOSS_REL}); "
+            f"first-step gradient relative L2 {grad_rel:.3e}, worst tensor "
+            f"{worst} {worst_rel:.3e} (tol {TRAIN_GRAD_REL_L2} each) "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError("ring training and one-card training "
+                                 "disagree")
+        runs.append(launches)
+    return runs
+
+
+def _nccl_ring_worker(rank: int, port: int, inputs, out_path: str) -> None:
+    """One rank of `phase_nccl_ring`: `cp_rope_flash_attention` over a
+    `DistRing` of 2 processes on NCCL, rank r on card r."""
+    import torch.distributed as dist
+
+    from video_diffusion_speedrun_tpu_torch.ops import fused_attention as fa
+    from video_diffusion_speedrun_tpu_torch.parallel.ring import DistRing
+
+    torch.cuda.set_device(rank)
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}",
+                            world_size=2, rank=rank)
+    try:
+        q, k, v, cos, sin = (t.to(f"cuda:{rank}") for t in inputs)
+        out = fa.cp_rope_flash_attention(q, k, v, cos, sin,
+                                         WIDTH // HEAD_DIM,
+                                         DistRing(dist.group.WORLD))
+        if rank == 0:
+            torch.save(out.cpu(), out_path)
+    finally:
+        dist.destroy_process_group()
+
+
+def phase_nccl_ring(dev):
+    """`DistRing` over NCCL between 2 processes and cards against
+    `LocalRing(2)` on one card, at the serve shape (B=2, H=16, L = 8208),
+    where the machine has 2 cards; otherwise one line says why not."""
+    import socket
+    import tempfile
+
+    import torch.multiprocessing as mp
+
+    from video_diffusion_speedrun_tpu_torch.models.rope import rope_cos_sin
+    from video_diffusion_speedrun_tpu_torch.ops import fused_attention as fa
+    from video_diffusion_speedrun_tpu_torch.parallel.ring import LocalRing
+
+    n = torch.cuda.device_count()
+    if n < 2:
+        log(f"[nccl-ring] not run: this machine has {n} CUDA card; the "
+            f"NCCL ring needs 2 (the CPU tests run DistRing over gloo)")
+        return
+    gen = torch.Generator(device=dev).manual_seed(16)
+    hd = WIDTH
+    q, k, v = (torch.randn(2, LONG_L, hd, generator=gen, device=dev)
+               .bfloat16() for _ in range(3))
+    grid = (LONG_FRAMES // 2, LONG_PX // 16, LONG_PX // 16)
+    cos, sin = rope_cos_sin(HEAD_DIM, *grid, torch.tensor([3, 5, 7],
+                                                          device=dev),
+                            num_registers=16)
+    want = fa.cp_rope_flash_attention(q, k, v, cos, sin, WIDTH // HEAD_DIM,
+                                      LocalRing(2)).cpu()
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    with tempfile.TemporaryDirectory() as tmp:
+        path = str(Path(tmp) / "out.pt")
+        mp.start_processes(_nccl_ring_worker, args=(
+            port, [t.cpu() for t in (q, k, v, cos, sin)], path), nprocs=2,
+            start_method="spawn")
+        got = torch.load(path)
+    err = (got.float() - want.float()).abs().max().item()
+    tol = LONG_FWD_REL * want.float().abs().max().item()
+    ok = err <= tol
+    log(f"[nccl-ring] DistRing over 2 cards (NCCL) against LocalRing(2): "
+        f"max_abs_err {err:.3e} (tol {tol:.3e}: two bf16 ulps of the largest "
+        f"|o|) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("the NCCL ring and LocalRing disagree")
 
 
 def main() -> int:
@@ -1416,38 +1920,48 @@ def main() -> int:
     rows = timed("kernels", phase_kernels, dev)
     rows.update(timed("long kernels", long_attention_rows, dev))
     rows.update(timed("epilogue kernels", epilogue_rows, dev))
+    rows.update(timed("ring kernels", ring_attention_rows, dev))
     runs = []  # the counts of each main-path run
     model, context = build_demo(dev)
     runs.append(timed("serve", phase_serve, dev, model, context, HEIGHT,
-                      FRAMES, STEPS, SEEDS, "serve"))
+                      FRAMES, STEPS, SEEDS, "serve")[0])
     runs.append(timed("serve-long", phase_serve, dev, model, context,
                       LONG_PX, LONG_FRAMES, LONG_STEPS, SEEDS[:1],
-                      "serve-long"))
+                      "serve-long")[0])
+    runs += timed("serve-cp", phase_serve_cp, dev, model, context)
     del model
     torch.cuda.empty_cache()
     model, context = build_demo(dev, fused_residual=True)
     runs.append(timed("serve-fr", phase_serve, dev, model, context, HEIGHT,
-                      FRAMES, STEPS, SEEDS, "serve-fr"))
+                      FRAMES, STEPS, SEEDS, "serve-fr")[0])
     del model
     torch.cuda.empty_cache()
     timed("parity", phase_parity, dev, FRAMES, "parity")
     timed("long-parity", phase_parity, dev, LP_FRAMES, "long-parity")
     timed("parity-fr", phase_parity, dev, FRAMES, "parity-fr",
           fused_residual=True)
+    timed("cp-parity", phase_parity, dev, LP_FRAMES, "cp-parity",
+          cp=CP_PARITY)
     runs.append(timed("train", phase_train, dev, T_BATCH, T_LATENT, T_STEPS,
-                      (), "train", evaluate=True))
+                      (), "train", evaluate=True)[0])
     runs.append(timed("train-long", phase_train, dev, TL_BATCH, TL_LATENT,
                       TL_STEPS, ("--moments_dtype", "bf16"), "train-long",
-                      evaluate=False))
+                      evaluate=False)[0])
+    runs += timed("train-cp", phase_train_cp, dev)
     runs.append(timed("train-fr", phase_train, dev, T_BATCH, T_LATENT,
                       FR_STEPS, (), "train-fr", evaluate=False,
-                      fused_residual=True))
+                      fused_residual=True)[0])
     timed("train-parity", phase_train_parity, dev, T_WIDTH, T_LATENT, 4,
           "train-parity")
     timed("long-train-parity", phase_train_parity, dev, T_WIDTH, LP_LATENT,
           2, "long-train-parity")
     timed("train-parity-fr", phase_train_parity, dev, T_WIDTH, T_LATENT, 4,
           "train-parity-fr", fused_residual=True)
+    timed("cp-train-parity", phase_train_parity, dev, T_WIDTH, T_LATENT, 4,
+          "cp-train-parity", cp=CP_PARITY)
+    timed("cp-long-train-parity", phase_train_parity, dev, T_WIDTH,
+          LP_LATENT, 2, "cp-long-train-parity", cp=CP_PARITY)
+    timed("nccl-ring", phase_nccl_ring, dev)
 
     launches = {name: sum(r[name] for r in runs) for name in runs[0]}
     kernels = [dict(rows[name], launches=launches[COUNTED_AS.get(name, name)])

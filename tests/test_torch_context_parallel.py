@@ -1,0 +1,225 @@
+"""Context parallelism of the PyTorch port on the CPU: the DiT over a ring
+against the JAX `dit_forward(token_sharding=…)`, `DistRing` over gloo in
+spawned processes against `LocalRing` and the one-process run, CP and
+replica training against the one-process trajectory, and the mesh
+configuration's refusals.
+
+Tolerances, fp32 on every side:
+- the DiT forward over `LocalRing(4)` against JAX's ring on the 8-device
+  CPU mesh: atol 2e-4, rtol 1e-3, as tests/test_torch_dit.py;
+- `DistRing` against `LocalRing` of the same size: 1e-6 absolute (the same
+  chunk ops and merges in the same order; measured exactly equal);
+  against the one-process attention (no ring): 1e-5 of max |want| (the
+  merge sums the softmax in another order);
+- training over the meshes against one process: the losses of 3 steps to
+  1e-5 relative and the step-1 gradients to 1e-5 relative L2 (the ring's
+  merge order and the all-reduce's summation order; measured ≤ 3e-7).
+
+The workers live in `tests/_torch_cp_workers.py`, which imports no JAX;
+they run in one subprocess per world size that spawns its ranks.
+"""
+
+import socket
+import subprocess
+import sys
+from pathlib import Path
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import _torch_cp_workers as workers
+from video_diffusion_speedrun_tpu.core.config import DiTConfig as JCfg
+from video_diffusion_speedrun_tpu.models.dit import dit_forward, init_dit
+from video_diffusion_speedrun_tpu_torch.core.config import (
+    DiTConfig as TCfg,
+    MeshConfig,
+)
+from video_diffusion_speedrun_tpu_torch.models.convert import (
+    state_dict_from_jax_params,
+)
+from video_diffusion_speedrun_tpu_torch.models.dit import DiT
+from video_diffusion_speedrun_tpu_torch.ops import fused_attention as tfa
+from video_diffusion_speedrun_tpu_torch.parallel import mesh as pmesh
+from video_diffusion_speedrun_tpu_torch.parallel.ring import LocalRing
+from video_diffusion_speedrun_tpu_torch.train.loop import Trainer
+
+ROOT = Path(__file__).resolve().parent.parent
+TINY = dict(in_channels=4, patch_size=2, time_patch_size=2, hidden_size=64,
+            depth=2, num_heads=2, mlp_ratio=4.0, cross_attn_input_size=32,
+            residual_v=True, train_bias_and_rms=True)
+
+
+def _jax_params(jcfg):
+    """init_dit with the zero-initialised AdaLN and output layers given
+    small random values (else the output is exactly 0)."""
+    params = init_dit(jax.random.PRNGKey(1), jcfg, init_std_factor=0.5)
+    r = np.random.default_rng(2)
+    for path in (("blocks", "adaLN_modulation"), ("final_modulation",),
+                 ("final_proj",)):
+        leaf = params
+        for key in path:
+            leaf = leaf[key]
+        for name in ("weight", "bias"):
+            leaf[name] = jnp.asarray(
+                r.normal(size=leaf[name].shape).astype(np.float32) * 0.05)
+    return params
+
+
+# x [B, C, T, H, W]: 80 tokens (chunk 32 at cp = 4, the last 48 rows
+# padding) and 29 (chunk 16: chunks 2 and 3 are all padding)
+@pytest.mark.parametrize("shape", [(2, 4, 4, 16, 8), (2, 4, 2, 2, 26)])
+def test_dit_forward_over_local_ring_matches_jax(shape):
+    from jax.sharding import NamedSharding
+
+    from video_diffusion_speedrun_tpu.core.config import MeshConfig as JMesh
+    from video_diffusion_speedrun_tpu.parallel.mesh import (
+        build_mesh,
+        token_pspec,
+    )
+
+    jcfg = JCfg(**TINY, attention_impl="pallas", fused_adaln="off",
+                compute_dtype=jnp.float32, remat=False)
+    tcfg = TCfg(**TINY, attention_impl="fused", fused_adaln="off",
+                compute_dtype=torch.float32)
+    params = _jax_params(jcfg)
+    mesh = build_mesh(JMesh(replica=1, fsdp=2, context=4, tensor=1))
+    tok = NamedSharding(mesh, token_pspec())
+    r = np.random.default_rng(4)
+    x = r.normal(size=shape).astype(np.float32)
+    ctx = r.normal(size=(2, 5, 32)).astype(np.float32)
+    ts = np.asarray([0.5, 0.8], np.float32)
+    off = np.asarray([1, 2, 3], np.int32)
+    want = jax.jit(lambda p, x, c, t: dit_forward(
+        p, jcfg, x, c, t, rope_offsets=jnp.asarray(off),
+        token_sharding=tok))(params, x, ctx, ts)
+    model = DiT(tcfg, device="cpu")
+    model.load_state_dict(state_dict_from_jax_params(
+        jax.tree.map(np.asarray, params), tcfg), strict=True)
+    with torch.no_grad():
+        got = model(torch.from_numpy(x), torch.from_numpy(ctx),
+                    torch.from_numpy(ts), rope_offsets=torch.from_numpy(off),
+                    context_parallel=LocalRing(4))
+    assert float(np.abs(np.asarray(want)).max()) > 1e-2
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=2e-4,
+                               rtol=1e-3)
+
+
+@pytest.fixture(scope="module")
+def inputs(tmp_path_factory):
+    path = tmp_path_factory.mktemp("cp") / "inputs.npz"
+    data = workers.make_inputs()
+    np.savez(path, **data)
+    return path, data
+
+
+@pytest.fixture(scope="module", params=sorted(workers.MESHES))
+def spawned(request, inputs):
+    """One subprocess per world size; it spawns the ranks over gloo."""
+    world = request.param
+    path, data = inputs
+    out = path.parent / f"out{world}.npz"
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    run = subprocess.run(
+        [sys.executable, str(ROOT / "tests" / "_torch_cp_workers.py"),
+         str(world), str(port), str(path), str(out)],
+        capture_output=True, text=True, timeout=300, cwd=ROOT)
+    assert run.returncode == 0, run.stderr[-4000:]
+    return world, data, dict(np.load(out))
+
+
+def test_dist_ring_matches_local_ring_and_one_process(spawned):
+    world, data, res = spawned
+    local = workers.attention(data, LocalRing(world))
+    for name, got, want in zip(("out", "dq", "dk", "dv"),
+                               [res[n] for n in ("out", "dq", "dk", "dv")],
+                               local):
+        np.testing.assert_allclose(got, want, rtol=0, atol=1e-6,
+                                   err_msg=name)
+    ts = [torch.from_numpy(data[n]).requires_grad_() for n in "qkv"]
+    one = tfa.rope_flash_attention(*ts, torch.from_numpy(data["cos"]),
+                                   torch.from_numpy(data["sin"]),
+                                   workers.HEADS)
+    one.backward(torch.from_numpy(data["do"]))
+    for name, want in zip(("out", "dq", "dk", "dv"),
+                          [one.detach()] + [t.grad for t in ts]):
+        want = want.numpy()
+        assert np.abs(res[name] - want).max() <= 1e-5 * np.abs(want).max(), \
+            name
+
+
+def test_mesh_training_matches_one_process(spawned):
+    """3 steps at `--mesh_context 2` (2 processes) and at `--mesh_replica 2
+    --mesh_context 2` (4 processes) against the one-process trajectory on
+    the same injected global batches."""
+    world, data, res = spawned
+    assert float(res["avg_rank"]) == (world - 1) / 2  # the host collectives
+    losses, grads = workers.train(data, Trainer(workers.train_config(),
+                                                device="cpu"))
+    np.testing.assert_allclose(res["losses"], losses, rtol=1e-5)
+    rel = np.linalg.norm(res["grads"] - grads) / np.linalg.norm(grads)
+    assert rel < 1e-5, rel
+    assert np.isfinite(losses).all() and losses[0] != losses[-1]
+
+
+def test_mfu_holds_a_step_against_every_card_of_the_group(spawned):
+    """MFU reads the world size: one card's peak of work in one second is
+    1 in a world of one and 1/world across `world` processes."""
+    from video_diffusion_speedrun_tpu_torch.utils.flops import PEAK_FLOPS, mfu
+
+    world, _, res = spawned
+    card = "NVIDIA H100 80GB HBM3"
+    assert mfu(PEAK_FLOPS[card], 1.0, card) == 1.0
+    assert float(res["mfu_one_card"]) == pytest.approx(1 / world)
+
+
+def test_mesh_config_resolve_and_refusals():
+    assert MeshConfig(replica=2, context=2).resolve(4) == MeshConfig(
+        replica=2, fsdp=1, context=2, tensor=1)
+    assert MeshConfig(fsdp=1, context=-1).resolve(4).context == 4
+    with pytest.raises(ValueError, match="devices"):
+        MeshConfig(fsdp=1, context=4).resolve(2)
+    with pytest.raises(ValueError, match="at most one"):
+        MeshConfig(replica=-1, context=-1).resolve(4)
+    with pytest.raises(ValueError, match="divisible"):
+        MeshConfig(context=3).resolve(4)
+    with pytest.raises(ValueError):
+        MeshConfig(context=0)
+    for kw in (dict(fsdp=2), dict(tensor=2)):
+        with pytest.raises(NotImplementedError, match="ROADMAP A8"):
+            MeshConfig(**kw)
+    # fsdp's −1 taking the rest of the world is FSDP too
+    with pytest.raises(NotImplementedError, match="ROADMAP A8"):
+        MeshConfig(context=2).resolve(4)
+
+
+def test_one_process_mesh_takes_no_ring_and_refuses_a_context_axis():
+    """A world of one has no process group and no mesh; the Trainer then
+    takes no ring unless one is passed (a `LocalRing` is never chosen for
+    the caller), and a context axis > 1 without a launcher raises, in the
+    library and in both CLIs."""
+    from video_diffusion_speedrun_tpu_torch import sample
+    from video_diffusion_speedrun_tpu_torch.train import __main__ as cli
+
+    from video_diffusion_speedrun_tpu_torch.parallel import collectives
+
+    assert pmesh.build_mesh(MeshConfig(), "cpu") is None
+    assert collectives.avg_scalar_across_hosts(3) == 3.0
+    collectives.barrier()  # a no-op in a world of one
+    assert pmesh.local_batch_slice(None, 4) == 4
+    trainer = Trainer(workers.train_config(), device="cpu")
+    assert trainer.context_parallel is None and trainer.data_group is None
+    ring = LocalRing(2)
+    assert Trainer(workers.train_config(), device="cpu",
+                   context_parallel=ring).context_parallel is ring
+    with pytest.raises(ValueError, match="devices"):
+        pmesh.build_mesh(MeshConfig(fsdp=1, context=2), "cpu")
+    with pytest.raises(ValueError):
+        cli.main(["--device", "cpu", "--mesh_context", "2", "--model_width",
+                  "64", "--model_depth", "1", "--model_head_dim", "32"])
+    with pytest.raises(ValueError):
+        sample.main(["--device", "cpu", "--mesh_context", "2"])

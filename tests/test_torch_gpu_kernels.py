@@ -461,3 +461,146 @@ def test_mlp_gelu_autograd_saturates_and_refuses(dev):
         tfg.bias_gelu(h.detach().transpose(1, 2))
     with pytest.raises(ValueError):  # bias of another width
         tfg.bias_gelu(h.detach(), torch.zeros(8, device=dev).bfloat16())
+
+
+def _ring_inputs(dev, gen, b, lq, lk, h, d, pad, q_row0=0, k_row0=0):
+    """bf16 q [B, Lq, H·D] and k, v [B, Lk, H·D] strided out of qkv-laid-out
+    tensors, the table rows of q's and k's chunks (slices of one table at
+    row offsets `q_row0` and `k_row0`) and the chunk's kv-bias: 0, or
+    −1e30 on the last `pad` kv rows."""
+    hd = h * d
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen, device=dev).bfloat16()
+
+    q = randn(b, lq, 3 * hd)[..., :hd]
+    kv = randn(b, lk, 3 * hd)
+    k, v = kv[..., hd:2 * hd], kv[..., 2 * hd:]
+    rows = max(q_row0 + lq, k_row0 + lk)
+    ang = torch.arange(rows * (d // 2), dtype=torch.float32, device=dev)
+    ang = ang.reshape(rows, d // 2) * 0.003
+    cos, sin = ang.cos(), ang.sin()
+    tabs = (cos[q_row0:q_row0 + lq], sin[q_row0:q_row0 + lq],
+            cos[k_row0:k_row0 + lk], sin[k_row0:k_row0 + lk])
+    kbias = torch.zeros(lk, device=dev)
+    if pad:
+        kbias[lk - pad:] = -1e30
+    return q, k, v, tabs, kbias
+
+
+@pytest.mark.parametrize("b,lq,lk,h,d,pad", [(2, 2064, 2064, 16, 128, 48),
+                                             (2, 1040, 1040, 4, 128, 112),
+                                             (2, 333, 2000, 4, 128, 7),
+                                             (1, 100, 3000, 2, 64, 0),
+                                             (2, 96, 160, 2, 128, 160)])
+def test_ring_kernels_match_twins(dev, b, lq, lk, h, d, pad):
+    """Rows 10–11 against their twins on bf16 inputs: separate q and k table
+    rows (the k chunk's tables at another offset of the table), the kv-bias
+    of a padded tail, ragged Lq ≠ Lk, kv past the short limit (forward up
+    to 4096), and a chunk that is all padding (pad = Lk): its o is finite
+    and its lse ≈ −1e30. o within two bf16 ulps of its largest value, the
+    gradients as the short kernels'; the backward
+    takes the forward's o and lse, which for a single chunk are the merged
+    ones."""
+    gen = torch.Generator(device=dev).manual_seed(12)
+    q, k, v, tabs, kbias = _ring_inputs(dev, gen, b, lq, lk, h, d, pad,
+                                        q_row0=64, k_row0=3 * lq)
+    scale = d ** -0.5
+    o, lse = tfa.ring_attention_cuda(q, k, v, *tabs, kbias, h, scale)
+    po, plse = tfa.ring_chunk_plain(q, k, v, *tabs, kbias, h, scale)
+    torch.cuda.synchronize()
+    assert o.shape == (b, lq, h * d) and lse.shape == (b, h, lq)
+    assert torch.isfinite(o.float()).all() and torch.isfinite(lse).all()
+    # two bf16 ulps of the largest |o|: over thousands of keys |o| is
+    # of order Lk^-1/2, so an absolute bound of 2e-2 would see nothing
+    assert (o.float() - po.float()).abs().max().item() \
+        <= 2 ** -6 * po.float().abs().max().item()
+    if pad == lk:
+        assert lse.max().item() < -1e29
+        assert (lse / plse - 1).abs().max().item() < 1e-6
+    else:
+        assert (lse - plse).abs().max().item() < 1e-3
+    if lk > tfa._RING_FULLK_MAX_BWD:
+        return
+    do = torch.randn(o.shape, generator=gen, device=dev).bfloat16()
+    got = tfa.ring_attention_bwd_cuda(q, k, v, *tabs, kbias, o, lse, do, h,
+                                      scale)
+    want = tfa.ring_chunk_bwd_plain(q, k, v, *tabs, kbias, o, lse, do, h,
+                                    scale)
+    torch.cuda.synchronize()
+    for name, x, y in zip(("dq", "dk", "dv"), got, want):
+        assert x.shape == y.shape and x.dtype == torch.bfloat16, name
+        assert torch.isfinite(x.float()).all(), name
+        if pad < lk:
+            assert _rel_err(x, y) < 2e-2, name
+
+
+@pytest.mark.parametrize("b,l,h,pad", [(2, 4112, 4, 16), (2, 2064, 4, 48),
+                                       (1, 2100, 2, 52)])
+def test_long_kernels_take_the_kv_bias(dev, b, l, h, pad):
+    """Rows 6–7 with the kv-bias operand against their twins over
+    pre-rotated q/k (the ring's fallback at chunk 4112, cp = 2, and the
+    backward's at chunk 2064, cp = 4), counted apart from the no-bias
+    launches."""
+    gen = torch.Generator(device=dev).manual_seed(13)
+    d = 128
+    q, k, v, _, kbias = _ring_inputs(dev, gen, b, l, l, h, d, pad)
+    scale = d ** -0.5
+    before = (tfa.long_attention_forward.launches,
+              tfa.long_attention_forward.bias_launches)
+    o, lse = tfa.long_attention_forward(q, k, v, h, scale, kbias)
+    po, plse = tfa.long_attention_plain(q, k, v, h, scale, kbias)
+    torch.cuda.synchronize()
+    assert (tfa.long_attention_forward.launches,
+            tfa.long_attention_forward.bias_launches) == (before[0],
+                                                          before[1] + 1)
+    assert (o.float() - po.float()).abs().max().item() \
+        < 2 ** -6 * po.float().abs().max().item() + 1e-3
+    assert (lse - plse).abs().max().item() < 1e-3
+    do = torch.randn(o.shape, generator=gen, device=dev).bfloat16()
+    before = tfa.long_attention_backward.bias_launches
+    got = tfa.long_attention_backward(q, k, v, o, lse, do, h, scale, kbias)
+    want = tfa.long_attention_bwd_plain(q, k, v, o, lse, do, h, scale, kbias)
+    torch.cuda.synchronize()
+    assert tfa.long_attention_backward.bias_launches == before + 1
+    for name, x, y in zip(("dq", "dk", "dv"), got, want):
+        assert _rel_err(x, y) < 2e-2, name
+    # the padded kv rows get no gradient
+    assert not got[1][:, l - pad:].any() and not got[2][:, l - pad:].any()
+
+
+def test_ring_dispatch_and_refusals(dev):
+    """`ring_chunk_forward`/`_backward` launch row 10/11 up to their
+    ceilings and the long kernels with the bias above; the ring wrappers
+    refuse a missing bias, short tables and kv past their ceilings."""
+    gen = torch.Generator(device=dev).manual_seed(14)
+    h, d = 2, 128
+    for lk, fwd, bwd in ((2048, "ring", "ring"), (2064, "ring", "long"),
+                         (4112, "long", "long")):
+        q, k, v, tabs, kbias = _ring_inputs(dev, gen, 1, 64, lk, h, d, 16)
+        counts = (tfa.ring_chunk_forward.launches,
+                  tfa.long_attention_forward.bias_launches,
+                  tfa.ring_chunk_backward.launches,
+                  tfa.long_attention_backward.bias_launches)
+        o, lse = tfa.ring_chunk_forward(q, k, v, *tabs, kbias, h, d ** -0.5)
+        tfa.ring_chunk_backward(q, k, v, *tabs, kbias, o, lse, o, h,
+                                d ** -0.5)
+        torch.cuda.synchronize()
+        got = [a - b for a, b in zip(
+            (tfa.ring_chunk_forward.launches,
+             tfa.long_attention_forward.bias_launches,
+             tfa.ring_chunk_backward.launches,
+             tfa.long_attention_backward.bias_launches), counts)]
+        assert got == [fwd == "ring", fwd == "long", bwd == "ring",
+                       bwd == "long"], lk
+    q, k, v, tabs, kbias = _ring_inputs(dev, gen, 1, 64, 64, h, d, 0)
+    with pytest.raises(ValueError):  # the ring kernels take a bias row
+        tfa.ring_attention_cuda(q, k, v, *tabs, None, h, 1.0)
+    with pytest.raises(ValueError):  # k's table shorter than the chunk
+        tfa.ring_attention_cuda(q, k, v, tabs[0], tabs[1], tabs[2][:32],
+                                tabs[3][:32], kbias, h, 1.0)
+    big = torch.zeros(1, tfa._RING_FULLK_MAX_FWD + 16, h * d, device=dev,
+                      dtype=torch.bfloat16)
+    with pytest.raises(ValueError):
+        tfa.ring_attention_cuda(q, big, big, tabs[0], tabs[1], tabs[0],
+                                tabs[1], kbias, h, 1.0)

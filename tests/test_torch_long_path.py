@@ -211,9 +211,9 @@ def test_entry_point_trains_on_three_lengths(monkeypatch):
     seen = []
     step = tloop.train_step
 
-    def spy(model, opt, batch, gen, cfg):
+    def spy(model, opt, batch, gen, cfg, *parallel):
         seen.append(tuple(batch["latent"].shape))
-        return step(model, opt, batch, gen, cfg)
+        return step(model, opt, batch, gen, cfg, *parallel)
 
     monkeypatch.setattr(tloop, "train_step", spy)
     out = cli.main(["--device", "cpu", "--max_steps", "6", "--batch_size",

@@ -1,7 +1,7 @@
 """Configuration dataclasses (port of `video_diffusion_speedrun_tpu/core/config.py`).
 
-The model, sampler, optimizer and training configs, and the synthetic
-fields of the data config; the mesh config comes with the multi-GPU slice.
+The model, sampler, optimizer, mesh and training configs, and the
+synthetic fields of the data config.
 Dtypes are torch dtypes. Options of later slices raise where they are set.
 
 Kernel dispatch (`attention_impl`, `fused_adaln`):
@@ -172,12 +172,70 @@ class OptimizerConfig:
 
 
 @dataclass(frozen=True)
+class MeshConfig:
+    """Device-mesh axes (the JAX `MeshConfig`, `core/config.py:123-165`):
+    replica — pure data-parallel replicas; fsdp — parameter sharding;
+    context — the token axis split over a ring (context parallelism);
+    tensor — heads / MLP hidden. Their product must equal the number of
+    processes; -1 for at most one axis takes the rest. FSDP and tensor
+    parallelism come with a later slice (ROADMAP A8): sizes above 1 raise
+    `NotImplementedError`."""
+
+    replica: int = 1
+    fsdp: int = -1
+    context: int = 1
+    tensor: int = 1
+
+    def __post_init__(self):
+        for axis in ("replica", "fsdp", "context", "tensor"):
+            size = getattr(self, axis)
+            if size == 0 or size < -1:
+                raise ValueError(f"mesh axis {axis} has size {size}")
+        self._refuse_later_axes()
+
+    def _refuse_later_axes(self):
+        for axis in ("fsdp", "tensor"):
+            if getattr(self, axis) > 1:
+                raise NotImplementedError(
+                    f"not ported yet: mesh {axis} > 1 (FSDP and tensor "
+                    "parallelism come with the FSDP/TP slice, ROADMAP A8); "
+                    "the replica and context axes are ported")
+
+    def resolve(self, n_devices: int) -> "MeshConfig":
+        """Sizes with the -1 axis filled in; raises when they do not
+        multiply to `n_devices`."""
+        sizes = {"replica": self.replica, "fsdp": self.fsdp,
+                 "context": self.context, "tensor": self.tensor}
+        unknown = [k for k, v in sizes.items() if v == -1]
+        if len(unknown) > 1:
+            raise ValueError("at most one mesh axis may be -1")
+        if unknown:
+            known = 1
+            for v in sizes.values():
+                if v != -1:
+                    known *= v
+            if n_devices % known != 0:
+                raise ValueError(
+                    f"cannot infer {unknown[0]}: {n_devices} devices not "
+                    f"divisible by {known}")
+            sizes[unknown[0]] = n_devices // known
+        total = (sizes["replica"] * sizes["fsdp"] * sizes["context"]
+                 * sizes["tensor"])
+        if total != n_devices:
+            raise ValueError(
+                f"mesh {sizes} = {total} devices != available {n_devices}")
+        return MeshConfig(**sizes)
+
+
+@dataclass(frozen=True)
 class TrainConfig:
-    """Training config: the single-device fields of the JAX `TrainConfig`."""
+    """Training config: the fields of the JAX `TrainConfig` that the port
+    has."""
 
     model: DiTConfig = field(default_factory=DiTConfig)
     data: DataConfig = field(default_factory=DataConfig)
     optimizer: OptimizerConfig = field(default_factory=OptimizerConfig)
+    mesh: MeshConfig = field(default_factory=MeshConfig)
 
     num_epochs: int = 2
     batch_size: int = 64

@@ -1,12 +1,16 @@
-// The attention backward passes shared by the short and long paths, for
-// Hopper (sm_90a): header-only, instantiated by `short_attention_bwd.cu`
-// (ROPE on or off) and `long_attention_bwd.cu` (pre-rotated q/k, ROPE off).
+// The attention backward passes shared by the short, long and ring paths,
+// for Hopper (sm_90a): header-only, instantiated by `short_attention_bwd.cu`
+// (ROPE on or off), `long_attention_bwd.cu` (pre-rotated q/k, ROPE off,
+// with or without the kv-bias) and `ring_attention_bwd.cu` (ROPE on with
+// separate q and k tables, the kv-bias, the given merged o and lse).
 //
 // What they compute, per (b, h), with the TPU kernels' rounding points
 // (`_bwd_short_kernel` and `_bwd_dkv_kernel` / `_bwd_dq_kernel` round alike):
-//   q, k rotated in fp32 (ROPE), then qs = bf16(q·scale·log2e),
-//   qd = bf16(q·scale), kc = bf16(k), kd = bf16(k·scale);
-//   p = exp2(qs·kcᵀ − lse) in fp32 (lse is the forward's exp2-domain one),
+//   q, k rotated in fp32 by their own tables (ROPE), then
+//   qs = bf16(q·scale·log2e), qd = bf16(q·scale), kc = bf16(k),
+//   kd = bf16(k·scale); p = exp2(qs·kcᵀ + bias − lse) in fp32 (BIAS: the
+//   fp32 kv row; lse is the exp2-domain one the caller gives, the forward's
+//   or, on the ring, the merged one over all chunks),
 //   δ = rowsum(do ⊙ o) in fp32, dv = bf16(p)ᵀ·do, dp = do·vᵀ,
 //   ds = bf16(p·(dp − δ)), dq = ds·kd, dk = dsᵀ·qd, both accumulated in
 //   fp32 and rotated back by Rᵀ (x1·c − x2·s, x1·s + x2·c) when ROPE,
@@ -32,9 +36,9 @@
 // A prologue rotates and rounds q and k once (as the forward's
 // `rope_rotate_kernel`) into head-major scratch [B, H, L, D] and computes δ,
 // so the passes stream ready bf16 tiles (cp.async, double-buffered) and
-// never touch cos/sin until the final Rᵀ. Ragged q/kv edges are zero-filled
-// on load; p is forced to 0 past Lq (dk/dv pass) or Lk (dq pass), and rows
-// past the edge are not stored.
+// never touch cos/sin until the final Rᵀ (dq by the q table, dk by the k
+// table). Ragged q/kv edges are zero-filled on load; p is forced to 0 past
+// Lq (dk/dv pass) or Lk (dq pass), and rows past the edge are not stored.
 #pragma once
 
 #include "mma_utils.cuh"
@@ -191,8 +195,8 @@ __device__ __forceinline__ void store_rows(float (*acc)[4], bf16* base,
 // shared memory; qs, qd, do, lse and δ stream in tiles of BS q rows. Each
 // warp owns 16 kv rows and computes the transposed products sᵀ = kc·qsᵀ and
 // dpᵀ = v·doᵀ, so pᵀ and dsᵀ come out as A fragments of dv += pᵀ·do and
-// dk += dsᵀ·qd.
-template <int D, bool ROPE>
+// dk += dsᵀ·qd. With BIAS each kv row's kbias joins its logits.
+template <int D, bool ROPE, bool BIAS>
 __global__ void __launch_bounds__(NT)
     bwd_dkdv_kernel(const bf16* __restrict__ qs, const bf16* __restrict__ qd,
                     const bf16* __restrict__ kc, const bf16* __restrict__ v,
@@ -201,7 +205,8 @@ __global__ void __launch_bounds__(NT)
                     long long do_sl, const float* __restrict__ lse,
                     const float* __restrict__ delta,
                     const float* __restrict__ cos_t,
-                    const float* __restrict__ sin_t, bf16* __restrict__ dk,
+                    const float* __restrict__ sin_t,
+                    const float* __restrict__ kbias, bf16* __restrict__ dk,
                     long long dk_sb, long long dk_sl, bf16* __restrict__ dv,
                     long long dv_sb, long long dv_sl, int H, int Lq, int Lk) {
   constexpr int LD = D + 8;  // padded row: conflict-free ldmatrix
@@ -261,6 +266,16 @@ __global__ void __launch_bounds__(NT)
   const int nq = (Lq + BS - 1) / BS;
   load_q(0, 0);  // one group: the resident k/v tile and q tile 0
 
+  // the bias of this thread's two kv rows (g, g + 8 of the warp's 16)
+  float row_kb[2] = {0.f, 0.f};
+  if (BIAS) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = n0 + warp * 16 + g + 8 * r;
+      row_kb[r] = row < Lk ? kbias[row] : 0.f;
+    }
+  }
+
   float adk[D / 8][4], adv[D / 8][4];
 #pragma unroll
   for (int i = 0; i < D / 8; ++i)
@@ -307,13 +322,15 @@ __global__ void __launch_bounds__(NT)
       }
     }
 
-    // pᵀ = exp2(sᵀ − lse[col]), 0 past Lq; dsᵀ = pᵀ·(dpᵀ − δ[col])
+    // pᵀ = exp2(sᵀ (+ bias[row]) − lse[col]), 0 past Lq;
+    // dsᵀ = pᵀ·(dpᵀ − δ[col])
 #pragma unroll
     for (int i = 0; i < BS / 8; ++i)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int col = i * 8 + 2 * t + (e & 1);
-        const float p = m0 + col < Lq ? exp2f(s[i][e] - t_lse[col]) : 0.f;
+        const float sb = BIAS ? s[i][e] + row_kb[e >> 1] : s[i][e];
+        const float p = m0 + col < Lq ? exp2f(sb - t_lse[col]) : 0.f;
         s[i][e] = p;
         dp[i][e] = p * (dp[i][e] - t_dl[col]);
       }
@@ -353,8 +370,8 @@ __global__ void __launch_bounds__(NT)
 
 // dq pass: block (q tile, h, b). qs and do of its 64 q rows stay in shared
 // memory; kc, kd and v stream in tiles of BS kv rows. Each warp owns 16 q
-// rows: s = qs·kcᵀ, dp = do·vᵀ, ds = bf16(p·(dp − δ)), dq += ds·kd.
-template <int D, bool ROPE>
+// rows: s = qs·kcᵀ (+ bias), dp = do·vᵀ, ds = bf16(p·(dp − δ)), dq += ds·kd.
+template <int D, bool ROPE, bool BIAS>
 __global__ void __launch_bounds__(NT)
     bwd_dq_kernel(const bf16* __restrict__ qs, const bf16* __restrict__ kc,
                   const bf16* __restrict__ kd, const bf16* __restrict__ v,
@@ -363,7 +380,8 @@ __global__ void __launch_bounds__(NT)
                   long long do_sl, const float* __restrict__ lse,
                   const float* __restrict__ delta,
                   const float* __restrict__ cos_t,
-                  const float* __restrict__ sin_t, bf16* __restrict__ dq,
+                  const float* __restrict__ sin_t,
+                  const float* __restrict__ kbias, bf16* __restrict__ dq,
                   long long dq_sb, long long dq_sl, int H, int Lq, int Lk) {
   constexpr int LD = D + 8;
   constexpr int CH = D / 8;
@@ -465,14 +483,17 @@ __global__ void __launch_bounds__(NT)
       }
     }
 
-    // p = exp2(s − lse[row]), 0 past Lk; ds = p·(dp − δ[row]) into dp
+    // p = exp2(s (+ bias[col]) − lse[row]), 0 past Lk; ds = p·(dp − δ[row])
+    // into dp
 #pragma unroll
     for (int i = 0; i < BS / 8; ++i)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int col = n0 + i * 8 + 2 * t + (e & 1);
         const int r = e >> 1;
-        const float p = col < Lk ? exp2f(s[i][e] - row_lse[r]) : 0.f;
+        const float p =
+            col < Lk ? exp2f((BIAS ? s[i][e] + kbias[col] : s[i][e]) - row_lse[r])
+                     : 0.f;
         dp[i][e] = p * (dp[i][e] - row_dl[r]);
       }
 
@@ -499,24 +520,31 @@ __global__ void __launch_bounds__(NT)
                       cos_t, sin_t, g, t);
 }
 
-template <int D, bool ROPE>
+// q rotates by cos_q/sin_q [Lq, D/2] and k by cos_k/sin_k [Lk, D/2]
+// (ROPE); kbias [Lk] fp32 (BIAS).
+template <int D, bool ROPE, bool BIAS>
 cudaError_t launch_attention_bwd(const void* q, const void* k, const void* v,
                                  const void* o, const void* dout,
-                                 const void* lse, const void* cos_t,
-                                 const void* sin_t, void* qs, void* qd,
+                                 const void* lse, const void* cos_q,
+                                 const void* sin_q, const void* cos_k,
+                                 const void* sin_k, const void* kbias,
+                                 void* qs, void* qd,
                                  void* kc, void* kd, void* delta, void* dq,
                                  void* dk, void* dv, int B, int H, int Lq,
                                  int Lk, const long long* st, float scale,
                                  float q_mul, cudaStream_t stream) {
   // st: q, k, v, o, do, dq, dk, dv — (batch, row) stride pairs in elements
   const int threads = 256;
-  const float* cs = static_cast<const float*>(cos_t);
-  const float* sn = static_cast<const float*>(sin_t);
+  const float* cq = static_cast<const float*>(cos_q);
+  const float* sq = static_cast<const float*>(sin_q);
+  const float* ck = static_cast<const float*>(cos_k);
+  const float* sk = static_cast<const float*>(sin_k);
+  const float* kb = static_cast<const float*>(kbias);
   const long long tq = static_cast<long long>(B) * Lq * H * (D / 16);
   prep_q_kernel<D, ROPE><<<static_cast<unsigned>((tq + threads - 1) / threads),
                            threads, 0, stream>>>(
       static_cast<const bf16*>(q), st[0], st[1], static_cast<const bf16*>(dout),
-      st[8], st[9], static_cast<const bf16*>(o), st[6], st[7], cs, sn,
+      st[8], st[9], static_cast<const bf16*>(o), st[6], st[7], cq, sq,
       static_cast<bf16*>(qs), static_cast<bf16*>(qd),
       static_cast<float*>(delta), H, Lq, q_mul, scale, tq);
   cudaError_t err = cudaGetLastError();
@@ -524,7 +552,7 @@ cudaError_t launch_attention_bwd(const void* q, const void* k, const void* v,
   const long long tk = static_cast<long long>(B) * Lk * H * (D / 16);
   prep_k_kernel<D, ROPE><<<static_cast<unsigned>((tk + threads - 1) / threads),
                            threads, 0, stream>>>(
-      static_cast<const bf16*>(k), st[2], st[3], cs, sn, static_cast<bf16*>(kc),
+      static_cast<const bf16*>(k), st[2], st[3], ck, sk, static_cast<bf16*>(kc),
       static_cast<bf16*>(kd), H, Lk, scale, tk);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
@@ -532,8 +560,8 @@ cudaError_t launch_attention_bwd(const void* q, const void* k, const void* v,
   constexpr int LD = D + 8;
   constexpr int smem_dkdv = (2 * BR + 6 * BS) * LD * 2 + 4 * BS * 4;
   constexpr int smem_dq = (2 * BR + 6 * BS) * LD * 2;
-  auto dkdv = bwd_dkdv_kernel<D, ROPE>;
-  auto dqk = bwd_dq_kernel<D, ROPE>;
+  auto dkdv = bwd_dkdv_kernel<D, ROPE, BIAS>;
+  auto dqk = bwd_dq_kernel<D, ROPE, BIAS>;
   err = cudaFuncSetAttribute(dkdv, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              smem_dkdv);
   if (err != cudaSuccess) return err;
@@ -545,7 +573,7 @@ cudaError_t launch_attention_bwd(const void* q, const void* k, const void* v,
   dkdv<<<dim3((Lk + BR - 1) / BR, H, B), NT, smem_dkdv, stream>>>(
       static_cast<const bf16*>(qs), static_cast<const bf16*>(qd),
       static_cast<const bf16*>(kc), static_cast<const bf16*>(v), st[4], st[5],
-      static_cast<const bf16*>(dout), st[8], st[9], l, dl, cs, sn,
+      static_cast<const bf16*>(dout), st[8], st[9], l, dl, ck, sk, kb,
       static_cast<bf16*>(dk), st[12], st[13], static_cast<bf16*>(dv), st[14],
       st[15], H, Lq, Lk);
   err = cudaGetLastError();
@@ -553,7 +581,7 @@ cudaError_t launch_attention_bwd(const void* q, const void* k, const void* v,
   dqk<<<dim3((Lq + BR - 1) / BR, H, B), NT, smem_dq, stream>>>(
       static_cast<const bf16*>(qs), static_cast<const bf16*>(kc),
       static_cast<const bf16*>(kd), static_cast<const bf16*>(v), st[4], st[5],
-      static_cast<const bf16*>(dout), st[8], st[9], l, dl, cs, sn,
+      static_cast<const bf16*>(dout), st[8], st[9], l, dl, cq, sq, kb,
       static_cast<bf16*>(dq), st[10], st[11], H, Lq, Lk);
   return cudaGetLastError();
 }

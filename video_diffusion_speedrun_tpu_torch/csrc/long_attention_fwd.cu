@@ -1,11 +1,14 @@
 // Long-path attention forward over pre-rotated q/k, for Hopper (sm_90a).
 //
 // Replaces the Pallas function `_forward`
-// (video_diffusion_speedrun_tpu/ops/fused_attention.py:251) on the arity
-// the long path takes (`_preroted_flash`, :1812): q and k arrive rotated
-// (`_rotate_flat`, :85), no kv-bias — kernels `_fwd_kernel_noro` (:124) and
-// `_fwd_kernel_noro2` (:135), body `_fwd_kernel` (:188-248). The kv-bias
-// arity belongs to the ring path (`_ring_chunk_fwd`) and comes with it.
+// (video_diffusion_speedrun_tpu/ops/fused_attention.py:251) on the arities
+// the port takes: q and k arrive rotated (`_rotate_flat`, :85; the long
+// path's `_preroted_flash`, :1812 — kernels `_fwd_kernel_noro` (:124) and
+// `_fwd_kernel_noro2` (:135), body `_fwd_kernel` (:188-248)), with or
+// without the additive kv-bias row (`has_bias`, :214-215, 296-302), which
+// the ring path's fallback for chunks above 4096 kv rows passes
+// (`_ring_chunk_fwd`, :1189-1193). The bias joins the scaled logits before
+// the ragged-tile mask, as on the TPU.
 //
 // In the same launch it computes what the TPU splits off at lengths such
 // as 8208 = 16 + 8·1024 that do not tile into its 1024-row blocks:
@@ -46,11 +49,13 @@ constexpr int BM = 16 * NWARPS;  // q rows per block
 constexpr int NT = NWARPS * 32;
 constexpr int BN = 64;           // kv rows per tile
 
-template <int D>
+// With BIAS, kbias [Lk] fp32 is added to each row's scaled logits.
+template <int D, bool BIAS>
 __global__ void __launch_bounds__(NT)
     long_attention_fwd_kernel(const bf16* __restrict__ q,
                               const bf16* __restrict__ k,
                               const bf16* __restrict__ v,
+                              const float* __restrict__ kbias,
                               bf16* __restrict__ o, float* __restrict__ lse,
                               int H, int Lq, int Lk, long long q_sb,
                               long long q_sl, long long k_sb, long long k_sl,
@@ -146,6 +151,19 @@ __global__ void __launch_bounds__(NT)
 #pragma unroll
       for (int e = 0; e < 4; ++e) s[i][e] *= s_mul;
 
+    if (BIAS) {  // the additive kv row, before the ragged mask
+#pragma unroll
+      for (int i = 0; i < BN / 8; ++i) {
+        const int col = n0 + i * 8 + 2 * t;
+        const float b0 = col < Lk ? kbias[col] : 0.f;
+        const float b1 = col + 1 < Lk ? kbias[col + 1] : 0.f;
+        s[i][0] += b0;
+        s[i][2] += b0;
+        s[i][1] += b1;
+        s[i][3] += b1;
+      }
+    }
+
     if (n0 + BN > Lk) {  // ragged kv edge
 #pragma unroll
       for (int i = 0; i < BN / 8; ++i) {
@@ -217,22 +235,23 @@ __global__ void __launch_bounds__(NT)
   }
 }
 
-template <int D>
-cudaError_t launch(const void* q, const void* k, const void* v, void* o,
-                   void* lse, int B, int H, int Lq, int Lk, long long q_sb,
+template <int D, bool BIAS>
+cudaError_t launch(const void* q, const void* k, const void* v,
+                   const void* kbias, void* o, void* lse, int B, int H,
+                   int Lq, int Lk, long long q_sb,
                    long long q_sl, long long k_sb, long long k_sl,
                    long long v_sb, long long v_sl, float s_mul,
                    cudaStream_t stream) {
   constexpr int smem = 4 * BN * (D + 8) * sizeof(bf16);
-  auto kernel = long_attention_fwd_kernel<D>;
+  auto kernel = long_attention_fwd_kernel<D, BIAS>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   dim3 grid((Lq + BM - 1) / BM, H, B);
   kernel<<<grid, NT, smem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<bf16*>(o),
-      static_cast<float*>(lse), H, Lq, Lk, q_sb, q_sl, k_sb, k_sl, v_sb, v_sl,
+      static_cast<const bf16*>(v), static_cast<const float*>(kbias),
+      static_cast<bf16*>(o), static_cast<float*>(lse), H, Lq, Lk, q_sb, q_sl, k_sb, k_sl, v_sb, v_sl,
       s_mul);
   return cudaGetLastError();
 }
@@ -241,22 +260,28 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
 
 // q [B, Lq, H·D], k/v [B, Lk, H·D] bf16, q and k already rotated, with unit
 // column stride and the given batch/row strides (in elements); any Lq, Lk.
-// o [B, Lq, H·D] bf16 and lse [B, H, Lq] fp32 contiguous. s_mul =
+// kbias [Lk] fp32 added to the scaled logits, or null for none. o
+// [B, Lq, H·D] bf16 and lse [B, H, Lq] fp32 contiguous. s_mul =
 // scale·log2e, applied to the fp32 logits. Returns the cudaError_t of the
 // launch.
 extern "C" int long_attention_fwd(const void* q, const void* k, const void* v,
-                                  void* o, void* lse, int B, int H, int Lq,
-                                  int Lk, int D, long long q_sb,
-                                  long long q_sl, long long k_sb,
-                                  long long k_sl, long long v_sb,
-                                  long long v_sl, float s_mul, void* stream) {
+                                  const void* kbias, void* o, void* lse,
+                                  int B, int H, int Lq, int Lk, int D,
+                                  long long q_sb, long long q_sl,
+                                  long long k_sb, long long k_sl,
+                                  long long v_sb, long long v_sl, float s_mul,
+                                  void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (D == 128)
-    return static_cast<int>(launch<128>(q, k, v, o, lse, B, H, Lq, Lk, q_sb,
-                                        q_sl, k_sb, k_sl, v_sb, v_sl, s_mul, s));
-  if (D == 64)
-    return static_cast<int>(launch<64>(q, k, v, o, lse, B, H, Lq, Lk, q_sb,
-                                       q_sl, k_sb, k_sl, v_sb, v_sl, s_mul, s));
+#define VDS_LAUNCH(DD, BB)                                                  \
+  if (D == DD && (kbias != nullptr) == BB)                                  \
+  return static_cast<int>(launch<DD, BB>(q, k, v, kbias, o, lse, B, H, Lq, \
+                                         Lk, q_sb, q_sl, k_sb, k_sl, v_sb, \
+                                         v_sl, s_mul, s))
+  VDS_LAUNCH(128, false);
+  VDS_LAUNCH(128, true);
+  VDS_LAUNCH(64, false);
+  VDS_LAUNCH(64, true);
+#undef VDS_LAUNCH
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

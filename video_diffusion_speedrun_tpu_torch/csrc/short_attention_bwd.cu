@@ -8,10 +8,10 @@
 //
 // What it computes, what bounds it and how the prologue, the dk/dv pass
 // and the dq pass are laid out: `attention_bwd.cuh`, which holds them and
-// which the long path's `long_attention_bwd.cu` shares. This file is the
-// entry point for the short path: ROPE on (self-attention, q/k strided out
-// of qkv) or off (cross-attention), kv ≤ SHORT_MAX_KV as the dispatch gives
-// it.
+// which `long_attention_bwd.cu` and `ring_attention_bwd.cu` share. This
+// file is the entry point for the short path: ROPE on (self-attention, q/k
+// strided out of qkv, one table for both) or off (cross-attention), no
+// kv-bias, kv ≤ SHORT_MAX_KV as the dispatch gives it.
 
 #include "attention_bwd.cuh"
 
@@ -34,9 +34,9 @@ extern "C" int short_attention_bwd(const void* q, const void* k, const void* v,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define VDS_LAUNCH(DD, RR)                                               \
   if (D == DD && (rope != 0) == RR)                                      \
-  return static_cast<int>(launch_attention_bwd<DD, RR>(                  \
-      q, k, v, o, dout, lse, cos_t, sin_t, qs, qd, kc, kd, delta, dq, dk, \
-      dv, B, H, Lq, Lk, strides, scale, q_mul, s))
+  return static_cast<int>(launch_attention_bwd<DD, RR, false>(           \
+      q, k, v, o, dout, lse, cos_t, sin_t, cos_t, sin_t, nullptr, qs, qd, \
+      kc, kd, delta, dq, dk, dv, B, H, Lq, Lk, strides, scale, q_mul, s))
   VDS_LAUNCH(128, true);
   VDS_LAUNCH(128, false);
   VDS_LAUNCH(64, true);

@@ -10,6 +10,8 @@ same seed they emit the JAX package's batch shapes in its order.
 `device_batches` copies each collated batch from pinned host memory with
 `non_blocking=True` (the JAX `device_prefetch`), so the copy queues behind
 the running step. Worker threads come with the real-data loader.
+Across data-parallel replicas every process draws the same global batches
+and `replica_rows` keeps its replica's rows (`local_batch_slice`).
 """
 
 from __future__ import annotations
@@ -147,3 +149,12 @@ def device_batches(batches: Iterator[Dict[str, Any]], device
                 val = t.to(device, non_blocking=pin)
             out[key] = val
         yield out
+
+
+def replica_rows(batches: Iterator[Dict[str, Any]], rank: int, local: int
+                 ) -> Iterator[Dict[str, Any]]:
+    """Rows [rank·local, (rank+1)·local) of each global batch: arrays and
+    lists alike; one replica (local = the batch) keeps them all."""
+    lo, hi = rank * local, (rank + 1) * local
+    for batch in batches:
+        yield {k: v[lo:hi] for k, v in batch.items()}

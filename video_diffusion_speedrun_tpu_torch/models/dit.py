@@ -12,7 +12,13 @@ package) op for op, including where it dispatches to the fused ops
 (`DiTConfig.attention_impl`, `DiTConfig.fused_adaln`): self-attention
 takes the short kernel reading q/k from qkv up to SHORT_MAX_KV tokens and
 the long path (`rope_flash_attention`) beyond, as `dit.py:287-299` does;
-a no-RoPE model goes through `norope_flash_attention`. Where the fused
+a no-RoPE model goes through `norope_flash_attention`. Under context
+parallelism (`context_parallel`, a ring of `parallel/ring.py`; JAX's
+`token_sharding`) the tokens are padded to the ring's layout, each rank
+keeps its chunk, self-attention is the ring (`ring_flash_attention`, on
+every dispatch: the tokens are really split) and everything else stays
+per token; the output is gathered over the ring after the final
+projection. Where the fused
 AdaLN runs, the MLP's bias + Φ-poly GELU after the fc1 product is the
 bias+GELU kernel (`mlp_bias_gelu`, the JAX fc1 epilogue at
 `dit.py:383-385`), and with `cfg.fused_residual` the joins after self- and
@@ -56,6 +62,9 @@ from video_diffusion_speedrun_tpu_torch.ops.fused_attention import (
     cross_flash_attention,
     norope_flash_attention,
     qkv_rope_flash_attention,
+    ring_flash_attention,
+    ring_kbias,
+    ring_layout,
     rope_flash_attention,
 )
 from video_diffusion_speedrun_tpu_torch.ops.fused_gelu import mlp_bias_gelu
@@ -133,10 +142,14 @@ class DiTBlock(nn.Module):
     def forward(self, x: torch.Tensor, context: Optional[torch.Tensor],
                 t_emb: torch.Tensor, cos: Optional[torch.Tensor],
                 sin: Optional[torch.Tensor], v0: Optional[torch.Tensor],
-                context_kv: Optional[torch.Tensor] = None
+                context_kv: Optional[torch.Tensor] = None,
+                context_parallel=None, kbias: Optional[torch.Tensor] = None
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
         """Returns (x, v): v is the (value-residual-mixed) self-attention
-        value; the model keeps block 0's as v0. v0 is None in block 0."""
+        value; the model keeps block 0's as v0. v0 is None in block 0.
+        With `context_parallel` (a ring), x holds the ring's local tokens of
+        the padded axis, cos/sin [lp, D/2] and `kbias` [lp] cover all of
+        it, and self-attention runs over the ring."""
         cfg = self.cfg
         nh, hd = cfg.num_heads, cfg.head_dim
         b, l, d = x.shape
@@ -153,7 +166,10 @@ class DiTBlock(nn.Module):
             lam = self.lambda_param.to(x.dtype)
             v = lam * v + (1 - lam) * v0
 
-        if _use_fused_attention(cfg, x):
+        if context_parallel is not None:
+            attn = ring_flash_attention(qkv[..., :d], qkv[..., d:2 * d], v,
+                                        cos, sin, kbias, nh, context_parallel)
+        elif _use_fused_attention(cfg, x):
             q, k = qkv[..., :d], qkv[..., d:2 * d]
             if cos is None:  # no-RoPE model
                 attn = norope_flash_attention(q, k, v, nh)
@@ -314,10 +330,14 @@ class DiT(nn.Module):
     def forward(self, x: torch.Tensor, context: Optional[torch.Tensor],
                 timesteps: torch.Tensor,
                 rope_offsets: Optional[torch.Tensor] = None,
-                context_kv: Optional[torch.Tensor] = None) -> torch.Tensor:
+                context_kv: Optional[torch.Tensor] = None,
+                context_parallel=None) -> torch.Tensor:
         """x [B, C, T, H, W], context [B, Lc, ctx_dim] (or None with
         `context_kv` [depth, B, Lc, 2D]), timesteps [B] → [B, C, T, H, W].
-        `rope_offsets` [3] ints; zeros by default."""
+        `rope_offsets` [3] ints; zeros by default. `context_parallel`: the
+        ring (`LocalRing` or `DistRing`) whose ranks split the token axis;
+        every rank of it passes the same inputs and gets the whole
+        output."""
         cfg = self.cfg
         cdt = cfg.compute_dtype
         b = x.shape[0]
@@ -348,11 +368,26 @@ class DiT(nn.Module):
         t_emb = _dense(self.time_embed[2],
                        F.silu(_dense(self.time_embed[0], t_emb)))
 
+        ring, kbias, l_all = context_parallel, None, tokens.shape[1]
+        if ring is not None:
+            if cos is None:
+                raise NotImplementedError(
+                    "context parallelism of a no-RoPE model (JAX sends it to "
+                    "XLA attention over GSPMD-sharded tokens) is not ported "
+                    "(ROADMAP A9)")
+            # pad to cp·chunk rows (the tail masked by the kv-bias) and keep
+            # this rank's chunk; the tables and the bias stay whole
+            _, lp = ring_layout(l_all, ring.size)
+            tokens = ring.local(F.pad(tokens, (0, 0, 0, lp - l_all)))
+            cos, sin = (F.pad(t, (0, 0, 0, lp - l_all)) for t in (cos, sin))
+            kbias = ring_kbias(l_all, lp, x.device)
+
         remat = cfg.remat and torch.is_grad_enabled()
         v0 = None
         for i, blk in enumerate(self.blocks):
             args = (tokens, context, t_emb, cos, sin, v0,
-                    None if context_kv is None else context_kv[i])
+                    None if context_kv is None else context_kv[i], ring,
+                    kbias)
             if remat:
                 tokens, v = checkpoint(blk, *args, use_reentrant=False)
             else:
@@ -360,11 +395,14 @@ class DiT(nn.Module):
             if i == 0:
                 v0 = v
 
-        tokens = tokens[:, r:, :]
+        if ring is None:
+            tokens = tokens[:, r:, :]
         fmod = _dense(self.final_modulation[1], F.silu(t_emb))
         final_shift, final_scale = fmod.chunk(2, dim=-1)  # shift first
         tokens = _norm_modulate(cfg, tokens, self.final_norm, final_shift,
                                 final_scale)
         tokens = _dense(self.final_proj, tokens)
+        if ring is not None:  # every rank gets the whole output
+            tokens = ring.gather(tokens)[:, r:l_all]
         return unpatchify(tokens, gt, gh, gw, cfg.time_patch_size,
                           cfg.patch_size, cfg.out_channels)

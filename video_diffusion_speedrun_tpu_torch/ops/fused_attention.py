@@ -1,6 +1,7 @@
 """Fused RoPE + flash attention over the flat [B, L, H·D] layout.
 
-Port of `ops/fused_attention.py`, short and long paths.
+Port of `ops/fused_attention.py`: the short, long and ring (context-
+parallel) paths.
 
 Short path (kv ≤ SHORT_MAX_KV): `_forward_short_qkv` (self-attention, q/k
 read from the fused qkv projection, RoPE in the kernel) and `_forward_short`
@@ -29,6 +30,19 @@ The public entries are `torch.autograd.Function`s and dispatch as JAX does:
 long), `cross_flash_attention` (short only; it raises past it). On a CUDA
 tensor each launches its kernel or raises; on a CPU tensor it runs the twin.
 
+Ring path (context parallelism, `cp_rope_flash_attention`): the token
+axis is split into cp chunks of ⌈L/(cp·16)⌉·16 rows, padded at the tail and
+masked there by an additive fp32 kv-bias (0 / −1e30). `_RingFlash` runs cp
+ring steps: each rank's q attends the kv chunk at hand
+(`ring_chunk_forward`: `csrc/ring_attention_fwd.cu` up to
+_RING_FULLK_MAX_FWD kv rows, else the long kernel with the bias; twin
+`ring_chunk_plain`), merges it into the running result (`online_merge`),
+and hands its chunk on (`ring.shift`, `parallel/ring.py`). The backward
+runs the ring again from the merged o and lse (`ring_chunk_backward`:
+`csrc/ring_attention_bwd.cu` up to _RING_FULLK_MAX_BWD, else the long
+backward with the bias; twin `ring_chunk_bwd_plain`); dk/dv travel with
+their chunk in fp32 and come home after one last shift.
+
 Head h of q, k and v lives in columns [h·D, (h+1)·D). The self-attention
 entry reads q at column h·D and k at column (H+h)·D of qkv through strides;
 the cross entry reads k/v as strided column views of the (2, h, d)-laid-out
@@ -38,9 +52,10 @@ context projection. Neither copies a slice.
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Tuple
+from typing import List, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 
 from video_diffusion_speedrun_tpu_torch.ops import _build
 
@@ -52,6 +67,8 @@ _LIB = "short_attention_fwd"
 _LIB_BWD = "short_attention_bwd"
 _LIB_LONG = "long_attention_fwd"
 _LIB_LONG_BWD = "long_attention_bwd"
+_LIB_RING = "ring_attention_fwd"
+_LIB_RING_BWD = "ring_attention_bwd"
 
 # the JAX long path's tiling, which decides where it splits off a prefix
 DEFAULT_BLOCK = 1024  # DEFAULT_BLOCK_Q == DEFAULT_BLOCK_K
@@ -59,6 +76,16 @@ _SPLIT_MAX_PFX = 768
 _ALIGN = 16
 _TAIL_MAX = 128
 _MAX_DQ_PARTIALS = 16
+# ring chunks with more kv rows than these take the long kernels with the
+# kv-bias (`_RING_FULLK_MAX_FWD` / `_BWD`, fused_attention.py:1181-1182).
+# On the TPU they are a VMEM limit (the whole chunk's k/v, and the fp32
+# dk/dv scratch, stay resident); the H100 kernels stream kv and have no
+# such limit, but the ceilings decide where the port rounds as the long
+# path instead of the ring kernels, so they stay JAX's (unifying them is a
+# later option, ROADMAP A9)
+_RING_FULLK_MAX_FWD = 4096
+_RING_FULLK_MAX_BWD = SHORT_MAX_KV
+_NEG_INF = -1e30  # the kv-bias of padded ring rows, as JAX's
 # q rows per chunk of the long twins: a [B, H, rows, Lk] fp32 logits tile
 # at a time (1 GB at B=2, H=16, Lk=8208) instead of the whole [Lq, Lk]
 _TWIN_ROWS = 1024
@@ -110,27 +137,36 @@ def _flat(t: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     return t.to(dtype).transpose(1, 2).reshape(b, l, h * d)
 
 
-def short_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                          cos: Optional[torch.Tensor],
-                          sin: Optional[torch.Tensor], num_heads: int,
-                          scale: float) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The kernel's plain twin. q [B, Lq, H·D], k/v [B, Lk, H·D] (strided
-    views allowed), cos/sin [L, D/2] fp32 or None for no RoPE.
+def ring_chunk_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     cos_q: Optional[torch.Tensor],
+                     sin_q: Optional[torch.Tensor],
+                     cos_k: Optional[torch.Tensor],
+                     sin_k: Optional[torch.Tensor],
+                     kbias: Optional[torch.Tensor], num_heads: int,
+                     scale: float) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The forward kernels' plain twin (`_ring_fwd_kernel`, and
+    `_fwd_short_kernel` with one table and no bias). q [B, Lq, H·D], k/v
+    [B, Lk, H·D] (strided views allowed); q rotates by cos_q/sin_q
+    [≥ Lq, D/2] and k by cos_k/sin_k [≥ Lk, D/2] (None: no RoPE); kbias
+    [Lk] fp32 joins the logits (None: no bias).
 
     Returns o [B, Lq, H·D] in v's dtype and the exp2-domain lse [B, H, Lq]
     fp32. q and k rotate in fp32, q takes scale·log2e, both round to v's
-    dtype; logits and the row sum are fp32, p rounds to v's dtype for PV."""
-    b, lq, hd = q.shape
-    lk = k.shape[1]
+    dtype; logits and the row sum are fp32, p rounds to v's dtype for PV. A
+    row whose every logit carries the −1e30 bias gets lse ≈ −1e30 and a
+    finite o."""
+    lq, lk = q.shape[1], k.shape[1]
     h = num_heads
     dt = v.dtype
     qh, kh, vh = _heads(q, h), _heads(k, h), _heads(v, h)
-    if cos is not None:
-        qh = _rope_rotate(qh, cos[:lq], sin[:lq])
-        kh = _rope_rotate(kh, cos[:lk], sin[:lk])
+    if cos_q is not None:
+        qh = _rope_rotate(qh, cos_q[:lq], sin_q[:lq])
+        kh = _rope_rotate(kh, cos_k[:lk], sin_k[:lk])
     qh = (qh * (scale * _LOG2E)).to(dt).float()
     kh = kh.to(dt).float()
     s = torch.matmul(qh, kh.transpose(-1, -2))
+    if kbias is not None:
+        s = s + kbias
     m = s.amax(dim=-1, keepdim=True)
     p = torch.exp2(s - m)
     l = p.sum(dim=-1, keepdim=True)
@@ -138,41 +174,64 @@ def short_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return _flat(acc / l, dt), (m + torch.log2(l)).squeeze(-1)
 
 
-def short_attention_bwd_plain(q, k, v, cos, sin, o, lse, do, num_heads: int,
-                              scale: float):
-    """The backward kernel's plain twin: (dq, dk, dv) in the dtypes of q, k
-    and v, from the forward's o [B, Lq, H·D] and exp2-domain lse [B, H, Lq]
-    and the output gradient do. The rounding points of `_bwd_short_kernel`:
-    rotated q and k round to v's dtype as qs = q·scale·log2e, qd = q·scale,
-    kc = k, kd = k·scale; p and δ = rowsum(do ⊙ o) stay fp32, p rounds for
-    dv = pᵀ·do, ds = p·(dp − δ) rounds for dq = ds·kd and dk = dsᵀ·qd, which
-    rotate back by Rᵀ in fp32."""
+def short_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          cos: Optional[torch.Tensor],
+                          sin: Optional[torch.Tensor], num_heads: int,
+                          scale: float) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The short kernel's plain twin: `ring_chunk_plain` with one table
+    cos/sin [L, D/2] for q and k (None: no RoPE) and no bias."""
+    return ring_chunk_plain(q, k, v, cos, sin, cos, sin, None, num_heads,
+                            scale)
+
+
+def ring_chunk_bwd_plain(q, k, v, cos_q, sin_q, cos_k, sin_k, kbias, o, lse,
+                         do, num_heads: int, scale: float):
+    """The backward kernels' plain twin (`_ring_bwd_kernel`, and
+    `_bwd_short_kernel` with one table and no bias): (dq, dk, dv) in the
+    dtypes of q, k and v, from o [B, Lq, H·D] and the exp2-domain lse
+    [B, H, Lq] — on the ring the MERGED ones — and the output gradient do.
+    Rotated q and k round to v's dtype as qs = q·scale·log2e, qd = q·scale,
+    kc = k, kd = k·scale; p = exp2(qs·kcᵀ + bias − lse) and δ = rowsum(do ⊙
+    o) stay fp32, p rounds for dv = pᵀ·do, ds = p·(dp − δ) rounds for
+    dq = ds·kd and dk = dsᵀ·qd, which rotate back by R_qᵀ and R_kᵀ in fp32."""
     lq, lk = q.shape[1], k.shape[1]
     h = num_heads
     dt = v.dtype
     qh, kh, vh, doh = (_heads(t, h) for t in (q, k, v, do))
-    if cos is not None:
-        qh = _rope_rotate(qh, cos[:lq], sin[:lq])
-        kh = _rope_rotate(kh, cos[:lk], sin[:lk])
+    if cos_q is not None:
+        qh = _rope_rotate(qh, cos_q[:lq], sin_q[:lq])
+        kh = _rope_rotate(kh, cos_k[:lk], sin_k[:lk])
     qs = (qh * (scale * _LOG2E)).to(dt).float()
     qd = (qh * scale).to(dt).float()
     kc = kh.to(dt).float()
     kd = (kh * scale).to(dt).float()
     delta = (doh * _heads(o, h)).sum(dim=-1, keepdim=True)
-    p = torch.exp2(torch.matmul(qs, kc.transpose(-1, -2)) - lse[..., None])
+    s = torch.matmul(qs, kc.transpose(-1, -2))
+    if kbias is not None:
+        s = s + kbias
+    p = torch.exp2(s - lse[..., None])
     dv = torch.matmul(p.to(dt).float().transpose(-1, -2), doh)
     dp = torch.matmul(doh, vh.transpose(-1, -2))
     ds = (p * (dp - delta)).to(dt).float()
     dq = torch.matmul(ds, kd)
     dk = torch.matmul(ds.transpose(-1, -2), qd)
-    if cos is not None:
-        dq = _rope_rotate_t(dq, cos[:lq], sin[:lq])
-        dk = _rope_rotate_t(dk, cos[:lk], sin[:lk])
+    if cos_q is not None:
+        dq = _rope_rotate_t(dq, cos_q[:lq], sin_q[:lq])
+        dk = _rope_rotate_t(dk, cos_k[:lk], sin_k[:lk])
     return _flat(dq, q.dtype), _flat(dk, k.dtype), _flat(dv, dt)
 
 
+def short_attention_bwd_plain(q, k, v, cos, sin, o, lse, do, num_heads: int,
+                              scale: float):
+    """The short backward kernel's plain twin: `ring_chunk_bwd_plain` with
+    one table for q and k (None: no RoPE) and no bias."""
+    return ring_chunk_bwd_plain(q, k, v, cos, sin, cos, sin, None, o, lse, do,
+                                num_heads, scale)
+
+
 def long_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                         num_heads: int, scale: float
+                         num_heads: int, scale: float,
+                         kbias: Optional[torch.Tensor] = None
                          ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The long forward kernel's plain twin over PRE-ROTATED q [B, Lq, H·D]
     and k/v [B, Lk, H·D] (strided views allowed), any lengths. Returns o in
@@ -182,9 +241,10 @@ def long_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     210-213), which differ from the short path's: the logits are
     dot(q, k) of the inputs as they come, in fp32, THEN × scale·log2e (the
     short kernels fold scale·log2e into q before rounding it, so the two
-    differ by about an ulp of the logits in bf16); p rounds to v's dtype for
-    PV, the row sum stays fp32. Runs over chunks of q rows, so the logits of
-    L = 8208 never exist whole."""
+    differ by about an ulp of the logits in bf16); the fp32 kv-bias row
+    [Lk] (the ring's padded tail) joins the scaled logits; p rounds to v's
+    dtype for PV, the row sum stays fp32. Runs over chunks of q rows, so the
+    logits of L = 8208 never exist whole."""
     h = num_heads
     dt = v.dtype
     kh, vh = _heads(k, h), _heads(v, h)
@@ -192,6 +252,8 @@ def long_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     for i in range(0, q.shape[1], _TWIN_ROWS):
         qh = _heads(q[:, i:i + _TWIN_ROWS], h)
         s = torch.matmul(qh, kh.transpose(-1, -2)) * (scale * _LOG2E)
+        if kbias is not None:
+            s = s + kbias
         m = s.amax(dim=-1, keepdim=True)
         p = torch.exp2(s - m)
         l = p.sum(dim=-1, keepdim=True)
@@ -202,7 +264,8 @@ def long_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def long_attention_bwd_plain(q, k, v, o, lse, do, num_heads: int,
-                             scale: float):
+                             scale: float,
+                             kbias: Optional[torch.Tensor] = None):
     """The long backward kernel's plain twin: (dq, dk, dv) over PRE-ROTATED
     q and k, with dq and dk IN ROPED SPACE (the caller rotates them back),
     in the dtypes of q, k and v. The rounding points of `_bwd_dkv_kernel` /
@@ -211,7 +274,8 @@ def long_attention_bwd_plain(q, k, v, o, lse, do, num_heads: int,
     fp32; p rounds for dv = pᵀ·do, ds = p·(dp − δ) rounds for dq = ds·kd and
     dk = dsᵀ·qd. dq accumulates in fp32 over all of kv and rounds once (the
     JAX kernel stores per-kv-block dq partials in the input dtype and sums
-    them). Runs over chunks of q rows, as the forward twin."""
+    them). kbias [Lk] joins the logits before exp2. Runs over chunks of q
+    rows, as the forward twin."""
     h = num_heads
     dt = v.dtype
     kh, vh = _heads(k, h), _heads(v, h)
@@ -225,8 +289,10 @@ def long_attention_bwd_plain(q, k, v, o, lse, do, num_heads: int,
         qs = (qh * (scale * _LOG2E)).to(dt).float()
         qd = (qh * scale).to(dt).float()
         delta = (doh * _heads(o[:, rows], h)).sum(dim=-1, keepdim=True)
-        p = torch.exp2(torch.matmul(qs, kc.transpose(-1, -2))
-                       - lse[:, :, rows, None])
+        s = torch.matmul(qs, kc.transpose(-1, -2))
+        if kbias is not None:
+            s = s + kbias
+        p = torch.exp2(s - lse[:, :, rows, None])
         dv += torch.matmul(p.to(dt).float().transpose(-1, -2), doh)
         dp = torch.matmul(doh, vh.transpose(-1, -2))
         ds = (p * (dp - delta)).to(dt).float()
@@ -257,10 +323,15 @@ def _use_tail(n_pfx: int, bulk: int, block: int) -> bool:
     return n_pfx <= _TAIL_MAX and bulk // block <= _MAX_DQ_PARTIALS
 
 
-def _merge(o1, lse1, o2, lse2, h: int, dtype: torch.dtype):
-    """`_online_merge` / the merge of `_tail_merge_kernel`: the exact
-    combination of two normalised partial attentions (exp2-domain lse
-    [B, H, L]), in fp32, o rounded to `dtype`."""
+def online_merge(o1, lse1, o2, lse2, num_heads: int,
+                 dtype: Optional[torch.dtype] = None):
+    """`_online_merge` (fused_attention.py:1290) and the merge of
+    `_tail_merge_kernel`: the exact combination of two normalised partial
+    attentions o [B, L, H·D] with exp2-domain lse [B, H, L], in fp32, o
+    rounded to `dtype` (default o1's). Two lse of −1e30 (a padded row that
+    saw only padding) merge to a finite −1e30."""
+    h = num_heads
+    dtype = o1.dtype if dtype is None else dtype
     m = torch.maximum(lse1, lse2)
     w1, w2 = torch.exp2(lse1 - m)[..., None], torch.exp2(lse2 - m)[..., None]
     o = (w1 * _heads(o1, h) + w2 * _heads(o2, h)) / (w1 + w2)
@@ -296,7 +367,7 @@ def split_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         lse2 = (m0 + torch.log2(l0)).squeeze(-1)
     else:
         o2, lse2 = long_attention_plain(qm, kp, vp, h, scale)
-    o_m, lse_m = _merge(o1, lse1, o2, lse2, h, dt)
+    o_m, lse_m = online_merge(o1, lse1, o2, lse2, h, dt)
     o_p, lse_p = long_attention_plain(qp, k, v, h, scale)
     return torch.cat([o_p, o_m], dim=1), torch.cat([lse_p, lse_m], dim=2)
 
@@ -362,6 +433,22 @@ def _check_qkv(q, k, v, num_heads: int) -> None:
         _check_operand(name, t, q.device)
 
 
+def _check_table(name: str, t: torch.Tensor, rows: int, d: int,
+                 device) -> None:
+    if (t.device != device or t.dtype != torch.float32
+            or not t.is_contiguous() or t.dim() != 2 or t.shape[0] < rows
+            or t.shape[1] != d // 2):
+        raise ValueError(f"{name} must be contiguous fp32 "
+                         f"[>= {rows}, {d // 2}] on {device}")
+
+
+def _check_kbias(kbias: Optional[torch.Tensor], lk: int, device) -> None:
+    if kbias is not None and (
+            kbias.device != device or kbias.dtype != torch.float32
+            or not kbias.is_contiguous() or tuple(kbias.shape) != (lk,)):
+        raise ValueError(f"kbias must be contiguous fp32 [{lk}] on {device}")
+
+
 def _check_shapes(q, k, v, cos, sin, num_heads: int) -> None:
     """What the short kernels refuse: that of `_check_qkv`, kv beyond the
     short path, and malformed RoPE tables."""
@@ -374,11 +461,7 @@ def _check_shapes(q, k, v, cos, sin, num_heads: int) -> None:
             "longer kv takes the long kernels (long_attention_cuda)")
     if cos is not None:
         for name, t in (("cos", cos), ("sin", sin)):
-            if (t.device != q.device or t.dtype != torch.float32
-                    or not t.is_contiguous() or t.shape[0] < max(lq, lk)
-                    or t.shape[1] != d // 2):
-                raise ValueError(f"{name} must be contiguous fp32 "
-                                 f"[>= {max(lq, lk)}, {d // 2}] on {q.device}")
+            _check_table(name, t, max(lq, lk), d, q.device)
 
 
 def short_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -412,23 +495,62 @@ def short_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return o, lse
 
 
-def long_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                        num_heads: int, scale: float
+def ring_attention_cuda(q, k, v, cos_q, sin_q, cos_k, sin_k,
+                        kbias: torch.Tensor, num_heads: int, scale: float
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Launch `csrc/long_attention_fwd.cu` over pre-rotated q/k, any
-    lengths; same contract as `long_attention_plain`. Raises on anything
-    the kernel does not take."""
+    """Launch `csrc/ring_attention_fwd.cu` (row 10); same contract as
+    `ring_chunk_plain` with RoPE and the bias. kv up to _RING_FULLK_MAX_FWD
+    rows. Raises on anything the kernel does not take."""
     _check_qkv(q, k, v, num_heads)
     b, lq, hd = q.shape
     lk = k.shape[1]
+    d = hd // num_heads
+    if lk > _RING_FULLK_MAX_FWD:
+        raise ValueError(f"kv length {lk} exceeds the ring kernel's "
+                         f"{_RING_FULLK_MAX_FWD}; the long kernel takes it")
+    for name, t, rows in (("cos_q", cos_q, lq), ("sin_q", sin_q, lq),
+                          ("cos_k", cos_k, lk), ("sin_k", sin_k, lk)):
+        _check_table(name, t, rows, d, q.device)
+    if kbias is None:
+        raise ValueError("the ring kernel takes a kv-bias row")
+    _check_kbias(kbias, lk, q.device)
+    o = torch.empty((b, lq, hd), dtype=q.dtype, device=q.device)
+    lse = torch.empty((b, num_heads, lq), dtype=torch.float32, device=q.device)
+    k_rot = torch.empty((b, lk, hd), dtype=k.dtype, device=k.device)
+    lib = _library(_LIB_RING, "ring_attention_fwd",
+                   [_P] * 11 + [_I] * 5 + [_LL] * 6 + [_F, _P])
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = lib.ring_attention_fwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), cos_q.data_ptr(),
+            sin_q.data_ptr(), cos_k.data_ptr(), sin_k.data_ptr(),
+            kbias.data_ptr(), k_rot.data_ptr(), o.data_ptr(), lse.data_ptr(),
+            b, num_heads, lq, lk, d, q.stride(0), q.stride(1), k.stride(0),
+            k.stride(1), v.stride(0), v.stride(1), scale * _LOG2E, stream)
+    _build.check(_LIB_RING, err)
+    return o, lse
+
+
+def long_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        num_heads: int, scale: float,
+                        kbias: Optional[torch.Tensor] = None
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Launch `csrc/long_attention_fwd.cu` over pre-rotated q/k, any
+    lengths, with the kv-bias row [Lk] or without (None); same contract as
+    `long_attention_plain`. Raises on anything the kernel does not take."""
+    _check_qkv(q, k, v, num_heads)
+    b, lq, hd = q.shape
+    lk = k.shape[1]
+    _check_kbias(kbias, lk, q.device)
     o = torch.empty((b, lq, hd), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, num_heads, lq), dtype=torch.float32, device=q.device)
     lib = _library(_LIB_LONG, "long_attention_fwd",
-                   [_P] * 5 + [_I] * 5 + [_LL] * 6 + [_F, _P])
+                   [_P] * 6 + [_I] * 5 + [_LL] * 6 + [_F, _P])
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = lib.long_attention_fwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            None if kbias is None else kbias.data_ptr(), o.data_ptr(),
             lse.data_ptr(), b, num_heads, lq, lk, hd // num_heads,
             q.stride(0), q.stride(1), k.stride(0), k.stride(1), v.stride(0),
             v.stride(1), scale * _LOG2E, stream)
@@ -475,18 +597,49 @@ cross_flash_forward.launches = 0
 
 
 def long_attention_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                           num_heads: int, scale: float
+                           num_heads: int, scale: float,
+                           kbias: Optional[torch.Tensor] = None
                            ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The long forward over pre-rotated q/k: the kernel on CUDA tensors,
-    the twin on CPU tensors. Returns (o, lse)."""
+    """The long forward over pre-rotated q/k (with the ring's kv-bias row,
+    or None): the kernel on CUDA tensors, the twin on CPU tensors. Returns
+    (o, lse). Launches with a bias count apart, in `.bias_launches`."""
     if not q.is_cuda:
-        return long_attention_plain(q, k, v, num_heads, scale)
-    out = long_attention_cuda(q, k, v, num_heads, scale)
-    long_attention_forward.launches += 1
+        return long_attention_plain(q, k, v, num_heads, scale, kbias)
+    out = long_attention_cuda(q, k, v, num_heads, scale, kbias)
+    if kbias is None:
+        long_attention_forward.launches += 1
+    else:
+        long_attention_forward.bias_launches += 1
     return out
 
 
 long_attention_forward.launches = 0
+long_attention_forward.bias_launches = 0
+
+
+def ring_chunk_forward(q, k, v, cos_q, sin_q, cos_k, sin_k, kbias,
+                       num_heads: int, scale: float
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One ring step's partial attention (`_ring_chunk_fwd`, :1185): q
+    [B, Lq, H·D] rotated by cos_q/sin_q against the kv chunk k/v
+    [B, Lk, H·D], k rotated by cos_k/sin_k, the chunk's kv-bias [Lk].
+    Returns (o, lse [B, H, Lq]). Up to _RING_FULLK_MAX_FWD kv rows the ring
+    kernel (`ring_attention_cuda`, or its twin on CPU tensors); above, as
+    JAX, q and k rotate once and the long kernel attends with the bias."""
+    if k.shape[1] > _RING_FULLK_MAX_FWD:
+        q_r = rotate_flat(q, cos_q, sin_q, num_heads)
+        k_r = rotate_flat(k, cos_k, sin_k, num_heads)
+        return long_attention_forward(q_r, k_r, v, num_heads, scale, kbias)
+    if not q.is_cuda:
+        return ring_chunk_plain(q, k, v, cos_q, sin_q, cos_k, sin_k, kbias,
+                                num_heads, scale)
+    out = ring_attention_cuda(q, k, v, cos_q, sin_q, cos_k, sin_k, kbias,
+                              num_heads, scale)
+    ring_chunk_forward.launches += 1
+    return out
+
+
+ring_chunk_forward.launches = 0
 
 
 def _bwd_buffers(q, k, v, o, lse, do, num_heads: int,
@@ -555,24 +708,67 @@ def short_attention_bwd_cuda(q, k, v, cos, sin, o, lse, do, num_heads: int,
     return dq, dk, dv
 
 
+def ring_attention_bwd_cuda(q, k, v, cos_q, sin_q, cos_k, sin_k, kbias, o,
+                            lse, do, num_heads: int, scale: float
+                            ) -> Tuple[torch.Tensor, torch.Tensor,
+                                       torch.Tensor]:
+    """Launch `csrc/ring_attention_bwd.cu` (row 11); same contract as
+    `ring_chunk_bwd_plain` with RoPE and the bias, from the merged o and
+    lse. kv up to _RING_FULLK_MAX_BWD rows. Raises on anything the kernel
+    does not take."""
+    _check_qkv(q, k, v, num_heads)
+    lq, lk = q.shape[1], k.shape[1]
+    d = q.shape[-1] // num_heads
+    if lk > _RING_FULLK_MAX_BWD:
+        raise ValueError(f"kv length {lk} exceeds the ring backward's "
+                         f"{_RING_FULLK_MAX_BWD}; the long kernel takes it")
+    for name, t, rows in (("cos_q", cos_q, lq), ("sin_q", sin_q, lq),
+                          ("cos_k", cos_k, lk), ("sin_k", sin_k, lk)):
+        _check_table(name, t, rows, d, q.device)
+    if kbias is None:
+        raise ValueError("the ring kernel takes a kv-bias row")
+    _check_kbias(kbias, lk, q.device)
+    do, dq, dk, dv, scratch, strides = _bwd_buffers(q, k, v, o, lse, do,
+                                                    num_heads, None, None)
+    lib = _library(_LIB_RING_BWD, "ring_attention_bwd",
+                   [_P] * 19 + [_I] * 5 + [_STRIDES, _F, _F, _P])
+    dev = q.device
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.ring_attention_bwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            do.data_ptr(), lse.data_ptr(), cos_q.data_ptr(), sin_q.data_ptr(),
+            cos_k.data_ptr(), sin_k.data_ptr(), kbias.data_ptr(),
+            *(t.data_ptr() for t in scratch), dq.data_ptr(), dk.data_ptr(),
+            dv.data_ptr(), q.shape[0], num_heads, lq, lk, d, strides, scale,
+            scale * _LOG2E, stream)
+    _build.check(_LIB_RING_BWD, err)
+    return dq, dk, dv
+
+
 def long_attention_bwd_cuda(q, k, v, o, lse, do, num_heads: int,
-                            scale: float
+                            scale: float,
+                            kbias: Optional[torch.Tensor] = None
                             ) -> Tuple[torch.Tensor, torch.Tensor,
                                        torch.Tensor]:
     """Launch `csrc/long_attention_bwd.cu` over pre-rotated q/k, any
-    lengths; same contract as `long_attention_bwd_plain` (dq, dk in roped
-    space). Raises on anything the kernel does not take."""
+    lengths, with the kv-bias row [Lk] or without (None); same contract as
+    `long_attention_bwd_plain` (dq, dk in roped space). Raises on anything
+    the kernel does not take."""
     _check_qkv(q, k, v, num_heads)
+    _check_kbias(kbias, k.shape[1], q.device)
     do, dq, dk, dv, scratch, strides = _bwd_buffers(q, k, v, o, lse, do,
                                                     num_heads, None, None)
     lib = _library(_LIB_LONG_BWD, "long_attention_bwd",
-                   [_P] * 14 + [_I] * 5 + [_STRIDES, _F, _F, _P])
+                   [_P] * 15 + [_I] * 5 + [_STRIDES, _F, _F, _P])
     dev = q.device
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.long_attention_bwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-            do.data_ptr(), lse.data_ptr(), *(t.data_ptr() for t in scratch),
+            do.data_ptr(), lse.data_ptr(),
+            None if kbias is None else kbias.data_ptr(),
+            *(t.data_ptr() for t in scratch),
             dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), q.shape[0],
             num_heads, q.shape[1], k.shape[1], q.shape[-1] // num_heads,
             strides, scale, scale * _LOG2E, stream)
@@ -620,19 +816,53 @@ cross_flash_backward.launches = 0
 
 
 def long_attention_backward(q, k, v, o, lse, do, num_heads: int,
-                            scale: float
+                            scale: float,
+                            kbias: Optional[torch.Tensor] = None
                             ) -> Tuple[torch.Tensor, torch.Tensor,
                                        torch.Tensor]:
-    """Gradients (dq, dk in roped space, dv) of `long_attention_forward`."""
+    """Gradients (dq, dk in roped space, dv) of `long_attention_forward`;
+    bias launches counted apart, in `.bias_launches`."""
     if not q.is_cuda:
         return long_attention_bwd_plain(q, k, v, o, lse, do, num_heads,
-                                        scale)
-    out = long_attention_bwd_cuda(q, k, v, o, lse, do, num_heads, scale)
-    long_attention_backward.launches += 1
+                                        scale, kbias)
+    out = long_attention_bwd_cuda(q, k, v, o, lse, do, num_heads, scale,
+                                  kbias)
+    if kbias is None:
+        long_attention_backward.launches += 1
+    else:
+        long_attention_backward.bias_launches += 1
     return out
 
 
 long_attention_backward.launches = 0
+long_attention_backward.bias_launches = 0
+
+
+def ring_chunk_backward(q, k, v, cos_q, sin_q, cos_k, sin_k, kbias, o, lse,
+                        do, num_heads: int, scale: float
+                        ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One ring step's (dq, dk, dv) (`_ring_chunk_bwd`, :1235) from the
+    merged o and lse [B, H, Lq] of q's rows. Up to _RING_FULLK_MAX_BWD kv
+    rows the ring kernel (`ring_attention_bwd_cuda`, or its twin on CPU
+    tensors); above, as JAX, the long backward with the bias over q and k
+    rotated once, dq and dk rotated back by the transpose."""
+    if k.shape[1] > _RING_FULLK_MAX_BWD:
+        q_r = rotate_flat(q, cos_q, sin_q, num_heads)
+        k_r = rotate_flat(k, cos_k, sin_k, num_heads)
+        dq, dk, dv = long_attention_backward(q_r, k_r, v, o, lse, do,
+                                             num_heads, scale, kbias)
+        return (rotate_flat(dq, cos_q, sin_q, num_heads, transpose=True),
+                rotate_flat(dk, cos_k, sin_k, num_heads, transpose=True), dv)
+    if not q.is_cuda:
+        return ring_chunk_bwd_plain(q, k, v, cos_q, sin_q, cos_k, sin_k,
+                                    kbias, o, lse, do, num_heads, scale)
+    out = ring_attention_bwd_cuda(q, k, v, cos_q, sin_q, cos_k, sin_k, kbias,
+                                  o, lse, do, num_heads, scale)
+    ring_chunk_backward.launches += 1
+    return out
+
+
+ring_chunk_backward.launches = 0
 
 
 class _QKVRopeFlash(torch.autograd.Function):
@@ -749,3 +979,136 @@ def cross_flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f"exceeds short-path limit {SHORT_MAX_KV}")
     scale = (q.shape[-1] // num_heads) ** -0.5
     return _CrossFlash.apply(q, k, v, num_heads, scale)
+
+
+def ring_layout(length: int, cp: int) -> Tuple[int, int]:
+    """(chunk, padded length) of a context-parallel split of `length`
+    tokens over cp ranks: chunk = ⌈length/(cp·16)⌉·16 (fused_attention.py:
+    2025-2026), padded length cp·chunk."""
+    chunk = -(-length // (cp * _ALIGN)) * _ALIGN
+    return chunk, chunk * cp
+
+
+def ring_kbias(length: int, padded: int, device) -> torch.Tensor:
+    """The fp32 kv-bias [padded] of the ring: 0 on the `length` real tokens,
+    −1e30 on the padded tail (:2032)."""
+    pos = torch.arange(padded, device=device)
+    return torch.where(pos < length, 0.0, _NEG_INF).to(torch.float32)
+
+
+def _ring_tables(cos, sin, kbias, chunk: int, i: int, j: int):
+    """The table rows of rank i's q chunk and of kv chunk j, and chunk j's
+    bias: contiguous slices of the full padded tables."""
+    q_rows, k_rows = slice(i * chunk, (i + 1) * chunk), slice(
+        j * chunk, (j + 1) * chunk)
+    return (cos[q_rows], sin[q_rows], cos[k_rows], sin[k_rows],
+            kbias[k_rows])
+
+
+class _RingFlash(torch.autograd.Function):
+    """The JAX `_ring_attention` custom_vjp (:1314-1370) over a ring
+    (`parallel/ring.py`). q, k, v are the ring's local tensors of the
+    padded token axis (`ring.split` cuts them into the chunks of the ranks
+    this process holds); cos/sin [lp, D/2] and kbias [lp] cover the whole
+    padded axis on every rank, so each rank slices the rows of the chunk at
+    hand, j = (rank − r) mod cp at ring step r, instead of receiving them
+    with k/v. The forward runs cp ring steps, merging each chunk's partial
+    into the running (o, lse), and saves the merged ones; the backward runs
+    the ring again: dq accumulates in fp32 at home, the fp32 dk/dv travel
+    with their chunk and come home after one last shift."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, cos, sin, kbias, num_heads, scale, ring):
+        cp = ring.size
+        chunk = cos.shape[0] // cp
+        qs = ring.split(q)
+        carry = list(zip(ring.split(k), ring.split(v)))
+        outs: List[Optional[Tuple[torch.Tensor, torch.Tensor]]] = \
+            [None] * len(qs)
+        for r in range(cp):
+            for i, rank in enumerate(ring.ranks):
+                tabs = _ring_tables(cos, sin, kbias, chunk, rank,
+                                    (rank - r) % cp)
+                part = ring_chunk_forward(qs[i], *carry[i], *tabs, num_heads,
+                                          scale)
+                outs[i] = part if outs[i] is None else online_merge(
+                    *outs[i], *part, num_heads)
+            if r < cp - 1:
+                carry = ring.shift(carry)
+        o = ring.join([o for o, _ in outs])
+        lse = ring.join([lse for _, lse in outs], dim=2)
+        ctx.save_for_backward(q, k, v, cos, sin, kbias, o, lse)
+        ctx.num_heads, ctx.scale, ctx.ring = num_heads, scale, ring
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, cos, sin, kbias, o, lse = ctx.saved_tensors
+        h, scale, ring = ctx.num_heads, ctx.scale, ctx.ring
+        cp = ring.size
+        chunk = cos.shape[0] // cp
+        qs, os_ = ring.split(q), ring.split(o)
+        # made contiguous once, not by each of the cp backward launches
+        dos = [t.contiguous() for t in ring.split(do)]
+        lses = [t.contiguous() for t in ring.split(lse, dim=2)]
+        dq = [torch.zeros(t.shape, dtype=torch.float32, device=t.device)
+              for t in qs]
+        carry = [(kc, vc, torch.zeros(kc.shape, dtype=torch.float32,
+                                      device=kc.device),
+                  torch.zeros(vc.shape, dtype=torch.float32,
+                              device=vc.device))
+                 for kc, vc in zip(ring.split(k), ring.split(v))]
+        for r in range(cp):
+            for i, rank in enumerate(ring.ranks):
+                kc, vc, dkc, dvc = carry[i]
+                tabs = _ring_tables(cos, sin, kbias, chunk, rank,
+                                    (rank - r) % cp)
+                dq_r, dk_r, dv_r = ring_chunk_backward(
+                    qs[i], kc, vc, *tabs, os_[i], lses[i], dos[i], h, scale)
+                dq[i] += dq_r.float()
+                carry[i] = (kc, vc, dkc + dk_r.float(), dvc + dv_r.float())
+            if r < cp - 1:
+                carry = ring.shift(carry)
+        # the chunks sit one hop short of home after cp − 1 shifts
+        home = ring.shift([(dkc, dvc) for _, _, dkc, dvc in carry])
+        return (ring.join(dq).to(q.dtype),
+                ring.join([dk for dk, _ in home]).to(k.dtype),
+                ring.join([dv for _, dv in home]).to(v.dtype),
+                None, None, None, None, None, None)
+
+
+def ring_flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         cos: torch.Tensor, sin: torch.Tensor,
+                         kbias: torch.Tensor, num_heads: int, ring,
+                         scale: Optional[float] = None) -> torch.Tensor:
+    """Differentiable ring attention over tokens already laid out for the
+    ring: q, k, v [B, n·chunk, H·D] are the ring's local tensors (all cp
+    chunks for `LocalRing`, this rank's for `DistRing`), cos/sin [lp, D/2]
+    and kbias [lp] (`ring_kbias`) the whole padded axis. The DiT calls this
+    with its tokens padded once per forward."""
+    scale = (q.shape[-1] // num_heads) ** -0.5 if scale is None else scale
+    return _RingFlash.apply(q, k, v, cos.float(), sin.float(), kbias,
+                            num_heads, scale, ring)
+
+
+def cp_rope_flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                            cos: torch.Tensor, sin: torch.Tensor,
+                            num_heads: int, ring,
+                            scale: Optional[float] = None) -> torch.Tensor:
+    """Context-parallel RoPE attention (`cp_rope_flash_attention`, :1992)
+    over whole-sequence q, k, v [B, L, H·D] and cos/sin [L, D/2]: pads the
+    token axis to lp = cp·chunk, masks the tail with the kv-bias, keeps the
+    ring's local chunks, runs `ring_flash_attention`, gathers the chunks
+    back (`ring.gather`; its backward keeps this rank's rows) and drops the
+    pad. Returns [B, L, H·D]."""
+    lq = q.shape[1]
+    _, lp = ring_layout(lq, ring.size)
+    kbias = ring_kbias(lq, lp, q.device)
+
+    def pad(t):
+        return F.pad(t, (0, 0, 0, lp - lq))
+
+    cos, sin = pad(cos.float()), pad(sin.float())
+    o = ring_flash_attention(*(ring.local(pad(t)) for t in (q, k, v)), cos,
+                             sin, kbias, num_heads, ring, scale)
+    return ring.gather(o)[:, :lq]

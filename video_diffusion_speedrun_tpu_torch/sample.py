@@ -10,6 +10,16 @@ cuda`, which raises when no card is present); `--device cpu` runs on the
 CPU. Prints the shape and std of the sampled latents. Prompt encoding (T5)
 and the Cosmos decode come with later slices, so the context is seeded
 random noise.
+
+Context parallelism splits the tokens of one video over N cards (a ring
+over `torch.distributed`; JAX's `--mesh_context`):
+
+    torchrun --nproc_per_node 4 -m video_diffusion_speedrun_tpu_torch.sample \
+        --mesh_context 4
+
+Each process runs on the card `LOCAL_RANK` and all of them sample the same
+request; rank 0 prints. `--mesh_context` must equal the number of
+processes (`WORLD_SIZE`): N > 1 without a launcher raises.
 """
 
 from __future__ import annotations
@@ -22,10 +32,13 @@ import torch
 
 from video_diffusion_speedrun_tpu_torch.core.config import (
     DiTConfig,
+    MeshConfig,
     SamplingConfig,
     resolve_device,
 )
 from video_diffusion_speedrun_tpu_torch.models.dit import DiT
+from video_diffusion_speedrun_tpu_torch.parallel import mesh as pmesh
+from video_diffusion_speedrun_tpu_torch.parallel.ring import DistRing
 from video_diffusion_speedrun_tpu_torch.sampling.euler import generate_latents
 
 
@@ -44,6 +57,9 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
                    default="matched")
     p.add_argument("--context_dim", type=int, default=4096)
     p.add_argument("--device", default="cuda")
+    p.add_argument("--mesh_context", type=int, default=1,
+                   help="cards the tokens of one video are split over "
+                        "(one process each, under torchrun)")
     return p.parse_args(argv)
 
 
@@ -61,7 +77,12 @@ def demo_config(model_width: int, model_depth: int, model_head_dim: int,
 
 def main(argv: Optional[List[str]] = None) -> torch.Tensor:
     args = parse_args(argv)
-    device = resolve_device(args.device)
+    device = pmesh.init_distributed(resolve_device(args.device))
+    mesh = pmesh.build_mesh(MeshConfig(fsdp=1, context=args.mesh_context),
+                            device.type)
+    group = pmesh.context_group(mesh)
+    ring = None if group is None else DistRing(group)
+    say = print if pmesh.global_rank() == 0 else (lambda *a, **k: None)
     model_cfg = demo_config(args.model_width, args.model_depth,
                             args.model_head_dim, args.context_dim,
                             args.rope_order)
@@ -70,19 +91,22 @@ def main(argv: Optional[List[str]] = None) -> torch.Tensor:
         height=args.height, width=args.width,
         num_latent_frames=args.num_latent_frames, seed=args.seed)
 
-    print("using RANDOM weights (smoke mode)")
+    say("using RANDOM weights (smoke mode)")
     model = DiT(model_cfg, device=device, init_std_factor=0.1, seed=0)
     gen = torch.Generator(device=device).manual_seed(1)
     context = torch.randn(1, 512, args.context_dim, generator=gen,
                           device=device).to(torch.bfloat16) * 0.05
 
-    print(f"sampling {args.inference_steps} steps, cfg {args.cfg_scale} ...")
+    say(f"sampling {args.inference_steps} steps, cfg {args.cfg_scale}"
+        f"{f', tokens split over {ring.size} ranks' if ring else ''} ...")
     t0 = time.perf_counter()
-    latents = generate_latents(model, context, sampling)
+    latents = generate_latents(model, context, sampling,
+                               context_parallel=ring)
     if device.type == "cuda":
         torch.cuda.synchronize(device)
-    print(f"latents {tuple(latents.shape)}, std {float(latents.std()):.3f} "
-          f"({time.perf_counter() - t0:.2f} s on {device})")
+    say(f"latents {tuple(latents.shape)}, std {float(latents.std()):.3f} "
+        f"({time.perf_counter() - t0:.2f} s on {device})")
+    pmesh.shutdown()
     return latents
 
 

@@ -5,6 +5,12 @@ Timesteps i = N…1 with the α shift on both t and t_next; guidance
 cond and uncond run as one forward at batch 2B (cond first); the
 accumulator is fp32 and each step's model input is `acc` cast to the
 latents' dtype. The context K/V is projected once per trajectory.
+
+Under context parallelism (`context_parallel`, a ring of
+`parallel/ring.py`; JAX's `token_sharding`, `euler.py:63-113`) every rank
+of the ring runs the same trajectory on the same noise and context: each
+forward splits the tokens over the ring and gathers the output, so every
+rank holds the whole latents after every step.
 """
 
 from __future__ import annotations
@@ -41,7 +47,8 @@ def schedule(num_steps: int, alpha: float) -> Tuple[torch.Tensor, torch.Tensor]:
 def euler_cfg_sample(model: DiT, latents: torch.Tensor,
                      context: torch.Tensor, *, num_steps: int = 50,
                      cfg_scale: float = 6.0,
-                     alpha: float = 8.0) -> torch.Tensor:
+                     alpha: float = 8.0,
+                     context_parallel=None) -> torch.Tensor:
     """Run the Euler trajectory; returns the fp32 accumulator.
 
     `latents` [B, C, T, h, w], `context` [B, Lc, ctx_dim] (the conditional
@@ -60,22 +67,23 @@ def euler_cfg_sample(model: DiT, latents: torch.Tensor,
         tvec = torch.full((b,), t, dtype=torch.float32, device=acc.device)
         if do_cfg:
             out2 = model(torch.cat([lat, lat]), None, torch.cat([tvec, tvec]),
-                         context_kv=ckv)
+                         context_kv=ckv, context_parallel=context_parallel)
             cond, uncond = out2.float().chunk(2)
             out = uncond + cfg_scale * (cond - uncond)
         else:
-            out = model(lat, None, tvec, context_kv=ckv).float()
+            out = model(lat, None, tvec, context_kv=ckv,
+                        context_parallel=context_parallel).float()
         acc = acc + dt * out
     return acc
 
 
 def generate_latents(model: DiT, context: torch.Tensor,
                      sampling: SamplingConfig,
-                     generator: Optional[torch.Generator] = None
-                     ) -> torch.Tensor:
+                     generator: Optional[torch.Generator] = None,
+                     context_parallel=None) -> torch.Tensor:
     """Seeded initial noise → sampled fp32 latents. The noise comes from
     `generator`, by default one on the model's device seeded with
-    `sampling.seed`."""
+    `sampling.seed` (the same noise on every rank of a context ring)."""
     if generator is None:
         device = next(model.parameters()).device
         generator = torch.Generator(device=device).manual_seed(sampling.seed)
@@ -84,4 +92,5 @@ def generate_latents(model: DiT, context: torch.Tensor,
     return euler_cfg_sample(model, latents, context,
                             num_steps=sampling.inference_steps,
                             cfg_scale=sampling.cfg_scale,
-                            alpha=sampling.time_shift_alpha)
+                            alpha=sampling.time_shift_alpha,
+                            context_parallel=context_parallel)

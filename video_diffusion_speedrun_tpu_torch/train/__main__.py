@@ -12,7 +12,15 @@ present); `--device cpu` runs on the CPU. `--synthetic_t_choices 5,9,17`
 mixes clips of 5, 9 and 17 latent frames (L = 528, 1040 and 2064 at the
 default 32×32 latents) in shape-uniform batches; L > 2048 takes the long
 attention path. Flags of later slices (real data, checkpoints, T5,
-optimizer-in-backward, meshes, wandb) raise.
+optimizer-in-backward, FSDP and tensor parallelism, wandb) raise.
+
+Across cards, one process per card under `torchrun`: `--mesh_replica R`
+data-parallel replicas, each of `--mesh_context C` cards that split the
+tokens of their clips over a ring (context parallelism); R·C must equal
+the number of processes, and the global `--batch_size` must divide by R:
+
+    torchrun --nproc_per_node 4 -m video_diffusion_speedrun_tpu_torch.train \
+        --mesh_context 4 --batch_size 2 --moments_dtype bf16 ...
 """
 
 from __future__ import annotations
@@ -26,6 +34,7 @@ import torch
 from video_diffusion_speedrun_tpu_torch.core.config import (
     DataConfig,
     DiTConfig,
+    MeshConfig,
     OptimizerConfig,
     TrainConfig,
 )
@@ -76,6 +85,7 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     add("--use_t5", type=_bool, default=False)
     add("--optimizer_in_backward", type=_bool, default=False)
     add("--wandb", type=_bool, default=False)
+    # the mesh (core/config.py:MeshConfig); fsdp and tensor > 1 raise
     for axis in ("replica", "fsdp", "context", "tensor"):
         add(f"--mesh_{axis}", type=int, default=-1 if axis == "fsdp" else 1)
     return p.parse_args(argv)
@@ -88,10 +98,6 @@ def build_config(args: argparse.Namespace) -> TrainConfig:
         "--use_t5 (T5 slice)": args.use_t5,
         "--optimizer_in_backward (ROADMAP A10)": args.optimizer_in_backward,
         "--wandb (logging)": args.wandb,
-        # one device: every axis 1 (fsdp's -1 takes the remaining one)
-        "--mesh_* other than 1 (multi-GPU slice)": any(
-            getattr(args, f"mesh_{a}") not in (1, -1 if a == "fsdp" else 1)
-            for a in ("replica", "fsdp", "context", "tensor")),
         "--dataset cosmos_openvid (real-data slice)":
             args.dataset != "synthetic",
     }
@@ -122,6 +128,8 @@ def build_config(args: argparse.Namespace) -> TrainConfig:
             synthetic_t_choices=tuple(
                 int(t) for t in args.synthetic_t_choices.split(",") if t),
             bucket_by_shape=bool(args.synthetic_t_choices)),
+        mesh=MeshConfig(replica=args.mesh_replica, fsdp=args.mesh_fsdp,
+                        context=args.mesh_context, tensor=args.mesh_tensor),
         optimizer=OptimizerConfig(
             learning_rate=args.learning_rate,
             scheduler=args.lr_scheduler_type,
@@ -139,7 +147,11 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, float]:
     logging.basicConfig(level=logging.INFO, format="%(message)s")
     from video_diffusion_speedrun_tpu_torch.train.loop import Trainer
 
-    return Trainer(cfg, device=args.device).train()
+    from video_diffusion_speedrun_tpu_torch.parallel.mesh import shutdown
+
+    out = Trainer(cfg, device=args.device).train()
+    shutdown()
+    return out
 
 
 if __name__ == "__main__":

@@ -1,4 +1,4 @@
-"""Single-device training loop (port of `train/loop.py`).
+"""Training loop (port of `train/loop.py`).
 
 Keeps the JAX loop's semantics: an epoch × step loop bounded by
 `max_steps`; metrics every `log_every` steps, read back one log interval
@@ -10,6 +10,16 @@ mixed lengths), test rows seeded 1, and the context drawn on the device
 inside the step. With `bucket_by_shape` both splits go through the
 coordinated shape-bucketing collate, as `loop.py:100-110,164-180` of the
 JAX package. Checkpoints come with the next slice.
+
+Across processes (started by `torchrun`: NCCL on `cuda:{LOCAL_RANK}`,
+gloo with `--device cpu`) the Trainer builds the mesh of `cfg.mesh`
+(`parallel/mesh.py`). Every process draws the same global batch and keeps
+its replica's `local_batch_slice` of the rows; the ranks of one context
+ring keep the same rows and split their tokens (`DistRing`). Generators
+are seeded per replica, so the ranks of a ring draw the same timesteps,
+noise and context and replicas draw their own. Rank 0 logs. A `LocalRing`
+(all ranks of a ring in one process) is taken only when the caller passes
+it.
 """
 
 from __future__ import annotations
@@ -31,28 +41,47 @@ from video_diffusion_speedrun_tpu_torch.data.loader import (
     default_collate,
     device_batches,
     host_batches,
+    replica_rows,
 )
 from video_diffusion_speedrun_tpu_torch.data.synthetic import (
     SyntheticLatentDataset,
 )
 from video_diffusion_speedrun_tpu_torch.models.dit import DiT
+from video_diffusion_speedrun_tpu_torch.parallel import mesh as pmesh
+from video_diffusion_speedrun_tpu_torch.parallel.collectives import (
+    all_reduce_,
+)
+from video_diffusion_speedrun_tpu_torch.parallel.ring import DistRing
 from video_diffusion_speedrun_tpu_torch.train.optim import MupAdamW
 from video_diffusion_speedrun_tpu_torch.train.step import eval_step, train_step
 
 logger = logging.getLogger("video_diffusion_speedrun_tpu_torch.train")
 
+# the seed of replica r's generators is the replica-0 seed + r·this
+REPLICA_SEED_STRIDE = 1_000_003
+
 
 class Trainer:
-    def __init__(self, cfg: TrainConfig, device="cuda"):
+    def __init__(self, cfg: TrainConfig, device="cuda",
+                 context_parallel=None):
         self.cfg = cfg
-        self.device = resolve_device(device)
+        self.device = pmesh.init_distributed(resolve_device(device))
+        self.mesh = pmesh.build_mesh(cfg.mesh, self.device.type)
+        group = pmesh.context_group(self.mesh)
+        if group is not None and context_parallel is not None:
+            raise ValueError("the mesh has a context axis; pass no ring")
+        self.context_parallel = (context_parallel if group is None
+                                 else DistRing(group))
+        self.data_group = pmesh.data_group(self.mesh)
+        self.data_rank = pmesh.data_rank(self.mesh)
+        self.main = pmesh.global_rank() == 0
         self.model = DiT(cfg.model, device=self.device,
                          init_std_factor=cfg.init_std_factor, seed=cfg.seed)
         self.opt = MupAdamW(self.model.named_parameters(),
                             cfg.optimizer.learning_rate, cfg.max_steps,
                             cfg.optimizer)
         self.n_params = sum(p.numel() for p in self.model.parameters())
-        logger.info("param_count: %.2fM", self.n_params / 1e6)
+        self._log("param_count: %.2fM", self.n_params / 1e6)
         dcfg = cfg.data
         self.datasets = {
             split: SyntheticLatentDataset(
@@ -62,9 +91,18 @@ class Trainer:
                                       ("test", dcfg.test_rows, 1))}
         self.step = 0
 
+    def _log(self, *args) -> None:
+        if self.main:
+            logger.info(*args)
+
+    def _generator(self, seed: int) -> torch.Generator:
+        return torch.Generator(device=self.device).manual_seed(
+            seed + REPLICA_SEED_STRIDE * self.data_rank)
+
     def batches(self, split: str) -> Iterator[Dict[str, torch.Tensor]]:
-        """The split's batches as device tensors (captions dropped: the
-        context is drawn on the device), epoch after epoch."""
+        """This replica's rows of the split's global batches as device
+        tensors (captions dropped: the context is drawn on the device),
+        epoch after epoch."""
         ds = self.datasets[split]
         batch = self.cfg.batch_size
         if split != "train":
@@ -79,26 +117,31 @@ class Trainer:
                        CoordinatedShapeBucketingCollate(
                            batch, shapes,
                            seed=self.cfg.data.shuffle_seed + 101))
-        for batch in device_batches(host_batches(ds, sampler, epochs,
-                                                 collate), self.device):
+        local = pmesh.local_batch_slice(self.mesh, batch)
+        rows = replica_rows(host_batches(ds, sampler, epochs, collate),
+                            self.data_rank, local)
+        for batch in device_batches(rows, self.device):
             yield {k: v for k, v in batch.items()
                    if isinstance(v, torch.Tensor)}
 
     def evaluate(self) -> Dict[str, float]:
         """Mean test loss and per-decile losses, with a fixed-seed
         generator (the reference's seeded eval)."""
-        gen = torch.Generator(device=self.device).manual_seed(
-            self.cfg.seed + 1000)
+        gen = self._generator(self.cfg.seed + 1000)
         losses, sums, counts = [], 0.0, 0.0
         for idx, batch in enumerate(self.batches("test")):
-            m = eval_step(self.model, batch, gen, self.cfg)
+            m = eval_step(self.model, batch, gen, self.cfg,
+                          self.context_parallel)
             losses.append(m["loss"])
             sums = sums + m["bin_sums"]
             counts = counts + m["bin_counts"]
             if idx + 1 >= self.cfg.eval_batches:
                 break
+        loss = torch.stack(losses).mean()
+        all_reduce_([loss], self.data_group, mean=True)
+        all_reduce_([sums, counts], self.data_group)
         bins = (sums / counts.clamp(min=1)).tolist()
-        out = {"test/total_loss": float(torch.stack(losses).mean())}
+        out = {"test/total_loss": float(loss)}
         out.update({f"test_binning/{k}": bins[k] for k in range(10)})
         return out
 
@@ -112,23 +155,24 @@ class Trainer:
         rec.update({f"train_binning/{k}": bins[k] for k in range(10)})
         if avg_ms is not None:
             rec["train/avg_step_ms"] = avg_ms
-        logger.info("step %d/%d loss %.4f%s", step, self.cfg.max_steps,
-                    rec["train/total_loss"],
-                    f" avg_step {avg_ms:.1f}ms" if avg_ms else "")
+        self._log("step %d/%d loss %.4f%s", step, self.cfg.max_steps,
+                  rec["train/total_loss"],
+                  f" avg_step {avg_ms:.1f}ms" if avg_ms else "")
         return rec
 
     def train(self) -> Dict[str, float]:
         """Train to `max_steps`; returns the last logged record merged with
         the last evaluation."""
         cfg = self.cfg
-        gen = torch.Generator(device=self.device).manual_seed(cfg.seed + 1)
+        gen = self._generator(cfg.seed + 1)
         last: Dict[str, float] = {}
         pending = None  # (metrics, step) read back one interval late
         t_tick, ticks = time.perf_counter(), 0
         for batch in self.batches("train"):
             if self.step >= cfg.max_steps:
                 break
-            m = train_step(self.model, self.opt, batch, gen, cfg)
+            m = train_step(self.model, self.opt, batch, gen, cfg,
+                           self.context_parallel, self.data_group)
             ticks += 1
             if self.step % cfg.log_every == 0:
                 now = time.perf_counter()
@@ -140,7 +184,7 @@ class Trainer:
             self.step += 1
             if self.step % cfg.evaluate_every == 1:
                 ev = self.evaluate()
-                logger.info("eval @%d: %.4f", self.step, ev["test/total_loss"])
+                self._log("eval @%d: %.4f", self.step, ev["test/total_loss"])
                 last.update(ev)
         if pending is not None:
             last.update(self._record(*pending, None))

@@ -10,7 +10,10 @@
 
 Randomness comes from one `torch.Generator`, drawn in the JAX order
 (timesteps, noise, dropout, rope offsets); `timesteps`, `noise` and
-`rope_offsets` may be injected for parity tests, as in JAX.
+`rope_offsets` may be injected for parity tests, as in JAX. Under context
+parallelism (`context_parallel`, a ring) every rank of the ring draws the
+same numbers from a generator seeded alike and computes the same loss
+from the gathered model output.
 """
 
 from __future__ import annotations
@@ -47,6 +50,7 @@ def rectified_flow_loss(
     timesteps: Optional[torch.Tensor] = None,
     noise: Optional[torch.Tensor] = None,
     rope_offsets: Optional[torch.Tensor] = None,
+    context_parallel=None,
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Returns (loss, aux) with aux `loss_per_sample`, `timesteps`,
     `bin_sums` and `bin_counts` ([10] fp32). `generator` may be None when
@@ -88,7 +92,8 @@ def rectified_flow_loss(
     z_t = latent * (1 - tr) + noise * tr
     v_objective = latent - noise
 
-    out = model(z_t, context, timesteps, rope_offsets=rope_offsets)
+    out = model(z_t, context, timesteps, rope_offsets=rope_offsets,
+                context_parallel=context_parallel)
 
     err = v_objective.float() - out.float()
     loss_per_sample = err.square().mean(dim=(1, 2, 3, 4))

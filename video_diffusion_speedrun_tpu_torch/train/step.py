@@ -1,4 +1,4 @@
-"""Single-device train and eval steps (port of `train/step.py`).
+"""Train and eval steps (port of `train/step.py`).
 
 `train_step` runs the loss forward, its backward (remat recomputes each
 block) and one muP-AdamW update, and returns the step's metrics as device
@@ -9,6 +9,13 @@ and losses are averaged and whose bins are summed (`accumulate_grads`,
 batch) and `rope_offsets` (shared); a batch with no `context` gets
 0.05·N(0, 1) [b, caption_tokens, context_dim] drawn on the device in the
 compute dtype (`step.py:132-141`).
+
+Across processes (`parallel/mesh.py`) the step reduces what GSPMD reduces
+in JAX, after `backward`: the gradients are summed over the context ring's
+group (each rank's backward holds its own tokens' share of every
+gradient), then averaged over the data-parallel group; grad_norm is taken
+after that, the loss averaged and the decile bins summed over the data
+group. `LocalRing` (all ranks in one process) needs no reduction.
 """
 
 from __future__ import annotations
@@ -19,6 +26,9 @@ import torch
 
 from video_diffusion_speedrun_tpu_torch.core.config import TrainConfig
 from video_diffusion_speedrun_tpu_torch.models.dit import DiT
+from video_diffusion_speedrun_tpu_torch.parallel.collectives import (
+    all_reduce_,
+)
 from video_diffusion_speedrun_tpu_torch.train.loss import rectified_flow_loss
 from video_diffusion_speedrun_tpu_torch.train.optim import MupAdamW
 
@@ -26,7 +36,7 @@ _SPLIT = ("latent", "context", "timesteps", "noise")
 
 
 def _loss(model: DiT, batch: Dict, generator: Optional[torch.Generator],
-          cfg: TrainConfig):
+          cfg: TrainConfig, context_parallel):
     mcfg = model.cfg
     latent = batch["latent"]
     context = batch.get("context")
@@ -39,7 +49,8 @@ def _loss(model: DiT, batch: Dict, generator: Optional[torch.Generator],
         model, latent, context, generator, alpha=cfg.time_shift_alpha,
         caption_dropout=cfg.caption_dropout,
         timesteps=batch.get("timesteps"), noise=batch.get("noise"),
-        rope_offsets=batch.get("rope_offsets"))
+        rope_offsets=batch.get("rope_offsets"),
+        context_parallel=context_parallel)
 
 
 def _microbatches(batch: Dict, n: int):
@@ -52,15 +63,19 @@ def _microbatches(batch: Dict, n: int):
 
 
 def train_step(model: DiT, opt: MupAdamW, batch: Dict,
-               generator: Optional[torch.Generator],
-               cfg: TrainConfig) -> Dict[str, torch.Tensor]:
-    """One optimizer step. Returns {loss, lr_scale, bin_sums, bin_counts
-    [, grad_norm]}; lr_scale is λ of this update (the count before it)."""
+               generator: Optional[torch.Generator], cfg: TrainConfig,
+               context_parallel=None, data_group=None
+               ) -> Dict[str, torch.Tensor]:
+    """One optimizer step on this replica's `batch`. Returns {loss,
+    lr_scale, bin_sums, bin_counts [, grad_norm]}; lr_scale is λ of this
+    update (the count before it). `context_parallel`: the ring that splits
+    the tokens; `data_group`: the process group of the replicas (None:
+    one)."""
     accum = cfg.grad_accum
     loss_sum = 0.0
     bin_sums = bin_counts = 0.0
     for mb in _microbatches(batch, accum):
-        loss, aux = _loss(model, mb, generator, cfg)
+        loss, aux = _loss(model, mb, generator, cfg, context_parallel)
         loss.backward()
         loss_sum = loss_sum + loss.detach()
         bin_sums = bin_sums + aux["bin_sums"]
@@ -70,9 +85,13 @@ def train_step(model: DiT, opt: MupAdamW, batch: Dict,
         for g in grads:
             if g is not None:
                 g.mul_(1.0 / accum)
-    metrics = {"loss": loss_sum / accum if accum > 1 else loss_sum,
-               "lr_scale": opt.lr_scale(), "bin_sums": bin_sums,
-               "bin_counts": bin_counts}
+    all_reduce_(grads, getattr(context_parallel, "group", None))
+    all_reduce_(grads, data_group, mean=True)
+    loss = loss_sum / accum if accum > 1 else loss_sum
+    all_reduce_([loss], data_group, mean=True)
+    all_reduce_([bin_sums, bin_counts], data_group)
+    metrics = {"loss": loss, "lr_scale": opt.lr_scale(),
+               "bin_sums": bin_sums, "bin_counts": bin_counts}
     if cfg.log_grad_norm:
         metrics["grad_norm"] = torch.sqrt(sum(
             g.float().square().sum() for g in grads if g is not None))
@@ -84,9 +103,10 @@ def train_step(model: DiT, opt: MupAdamW, batch: Dict,
 
 @torch.no_grad()
 def eval_step(model: DiT, batch: Dict, generator: torch.Generator,
-              cfg: TrainConfig) -> Dict[str, torch.Tensor]:
+              cfg: TrainConfig, context_parallel=None
+              ) -> Dict[str, torch.Tensor]:
     """The loss on one batch without gradients: {loss, bin_sums,
     bin_counts}."""
-    loss, aux = _loss(model, batch, generator, cfg)
+    loss, aux = _loss(model, batch, generator, cfg, context_parallel)
     return {"loss": loss, "bin_sums": aux["bin_sums"],
             "bin_counts": aux["bin_counts"]}

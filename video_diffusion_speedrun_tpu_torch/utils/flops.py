@@ -3,12 +3,15 @@
 Counts are useful model FLOPs (train ≈ 3× forward); remat recompute counts
 as overhead, so MFU is conservative. Peaks are dense bf16 tensor-core
 rates by CUDA device name; an unknown card raises rather than borrowing
-another card's peak.
+another card's peak. MFU holds a step against the peak of every card of
+the process group (`parallel.mesh.world_size()`, 1 without one): a step
+split over n cards by data or context parallelism has n cards' peak.
 """
 
 from __future__ import annotations
 
 from video_diffusion_speedrun_tpu_torch.core.config import DiTConfig
+from video_diffusion_speedrun_tpu_torch.parallel.mesh import world_size
 
 # dense bf16 FLOP/s, NVIDIA data sheets
 PEAK_FLOPS = {
@@ -23,6 +26,13 @@ def peak_flops_for(device_name: str) -> float:
     except KeyError:
         raise KeyError(f"no bf16 peak known for {device_name!r}; add it to "
                        "utils/flops.py:PEAK_FLOPS") from None
+
+
+def mfu(flops: float, seconds: float, device_name: str) -> float:
+    """Model FLOPs utilisation of a step of `flops` (the whole global
+    batch's) done in `seconds` on the process group's cards, each named
+    `device_name`."""
+    return flops / seconds / (world_size() * peak_flops_for(device_name))
 
 
 def dit_forward_flops(cfg: DiTConfig, batch: int, t: int, h: int, w: int,
