@@ -2,7 +2,10 @@
 """Chip smoke test of the PyTorch port on one CUDA card.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --ab TREE_A TREE_B [PAIRS [TRAIN_PAIRS]]
 
+The second form times the attention backward rows and the train steps of
+two checkouts' packages in alternating processes on one card (`main_ab`).
 Run from the root of a checkout. Phases, each of which raises on failure:
 
 1. build   — compile the CUDA kernels from `video_diffusion_speedrun_tpu_torch/
@@ -98,6 +101,7 @@ exits non-zero before printing any result.
 import dataclasses
 
 import json
+import re
 import subprocess
 import sys
 import time
@@ -393,9 +397,23 @@ def check_close(name: str, what: str, got, want, rtol: float, atol: float,
     return err.max().item()
 
 
+def check_deterministic(name: str, what: str, fn, got) -> None:
+    """Raise unless a second launch of `fn` gives the same bits as `got`
+    (dq, dk, dv): the dq partials add in a fixed order."""
+    again = fn()
+    torch.cuda.synchronize()
+    same = all(torch.equal(a, b) for a, b in zip(got, again))
+    log(f"[kernels] {name} {what}: a second launch gives "
+        f"{'the same bits' if same else 'OTHER BITS'} in dq, dk, dv "
+        f"{'ok' if same else 'FAIL'}")
+    if not same:
+        raise AssertionError(f"{name} is not deterministic ({what})")
+
+
 def attention_bwd_rows(dev):
-    """Rows 4–5: the backward kernel against its twin at the training
-    shapes and a ragged one; times at the training shapes."""
+    """Rows 4–5: the backward kernel against its twin, and against a second
+    launch bit for bit, at the training shapes and the ragged Lq = 333
+    against Lk = 333 and 77; times at the training shapes."""
     import torch.nn.functional as F
 
     from video_diffusion_speedrun_tpu_torch.models.rope import rope_cos_sin
@@ -413,15 +431,19 @@ def attention_bwd_rows(dev):
                            (False, "fused_attention.py:1042")):
         name = f"short_attention_bwd<{'rope' if rope else 'norope'}>"
         for b, lq, lk in ((T_BATCH, T_L, T_L if rope else CTX_LEN),
-                          (2, 333, 333 if rope else 77)):
+                          (2, 333, 333), (2, 333, 77)):
             qkv = randn(b, lq, 3 * hd)
             q = qkv[..., :hd]
-            if rope:
+            if rope and lk == lq:
                 k, v = qkv[..., hd:2 * hd], randn(b, lq, hd)
+            if rope:
                 grid = (2, 16, 16) if lq == T_L else (1, 1, lq - 16)
                 cos, sin = rope_cos_sin(d, *grid, torch.tensor(
                     [3, 5, 7], device=dev), num_registers=16)
-            else:
+            if rope and lk != lq:  # k/v of their own, the q table's rows
+                kv = randn(b, lk, 3 * hd)
+                k, v = kv[..., hd:2 * hd], kv[..., 2 * hd:]
+            elif not rope:
                 ckv = randn(b, lk, 2 * hd)
                 k, v = ckv[..., :hd], ckv[..., hd:]
                 cos = sin = None
@@ -438,6 +460,10 @@ def attention_bwd_rows(dev):
                 "2% of the largest |grad|: bf16 p/ds rounding flips under "
                 "another summation order")
                 for gname, x, y in zip(("dq", "dk", "dv"), got, want))
+            check_deterministic(name, f"B={b} Lq={lq} Lk={lk}",
+                                lambda: fa.short_attention_bwd_cuda(
+                                    q, k, v, cos, sin, o, lse, do, h, scale),
+                                got)
             if lq != T_L:
                 continue
             ms = cuda_ms(lambda: fa.short_attention_bwd_cuda(
@@ -728,6 +754,8 @@ def long_attention_rows(dev):
         got = fa.long_attention_bwd_cuda(*args)
         bwd_check("long_attention_bwd", what, got,
                   fa.long_attention_bwd_plain(*args))
+        check_deterministic("long_attention_bwd", what,
+                            lambda: fa.long_attention_bwd_cuda(*args), got)
         if l != LONG_L:
             continue
         bwd_check("long_attention_bwd<split>", what + f" n_pfx={n_pfx}", got,
@@ -906,6 +934,8 @@ def ring_attention_rows(dev):
         got = fa.ring_attention_bwd_cuda(*args)
         bwd_check("ring_attention_bwd", what, got,
                   fa.ring_chunk_bwd_plain(*args))
+        check_deterministic("ring_attention_bwd", what,
+                            lambda: fa.ring_attention_bwd_cuda(*args), got)
         if not timed:
             continue
         del got
@@ -928,6 +958,33 @@ def ring_attention_rows(dev):
             f"{lib_ms:.4f} ms, bound {bms:.4f} ms ({by}), "
             f"{10 * b * h * q.shape[1] * k.shape[1] * d / ms / 1e9:.1f} "
             f"useful TFLOP/s")
+
+    # row 11 against a kv chunk that is all padding (L = 17 over cp = 4:
+    # chunk 2), from the o and lse of q's own chunk (finite, as the merged
+    # ones are) and from the padding chunk's own (lse ≈ −1e30): p is 0 on
+    # every padded row, so dq, dk and dv are exactly 0, finite either way
+    q, k, v, tabs, kbias = ring_inputs(dev, gen, 2, train_h, 17, 4, 0, 2)
+    own = ring_inputs(dev, gen, 2, train_h, 17, 4, 0, 0)
+    for src_lse, (o, lse) in (
+            ("q's own chunk", fa.ring_attention_cuda(
+                q, own[1], own[2], *own[3], own[4], train_h, scale)),
+            ("the padding chunk", fa.ring_attention_cuda(
+                q, k, v, *tabs, kbias, train_h, scale))):
+        do = torch.randn(o.shape, generator=gen, device=dev).bfloat16()
+        args = (q, k, v, *tabs, kbias, o, lse, do, train_h, scale)
+        got = fa.ring_attention_bwd_cuda(*args)
+        torch.cuda.synchronize()
+        zero = all(not x.any() for x in got)
+        what = (f"a chunk of padding (L=17 cp=4 chunk 0 vs 2), o/lse of "
+                f"{src_lse} (max lse {lse.max().item():.3e})")
+        log(f"[kernels] ring_attention_bwd {what}: dq, dk, dv "
+            f"{'all exactly 0' if zero else 'NOT ZERO'} "
+            f"{'ok' if zero else 'FAIL'}")
+        if not zero:
+            raise AssertionError("ring_attention_bwd: a chunk of padding "
+                                 "gives a non-zero gradient")
+        check_deterministic("ring_attention_bwd", what,
+                            lambda: fa.ring_attention_bwd_cuda(*args), got)
 
     # rows 6–7 with the kv-bias over pre-rotated q/k, as the ring's
     # fallback hands them over: the forward at chunk 4112 of L = 8208 over
@@ -974,6 +1031,8 @@ def ring_attention_rows(dev):
         args = (q, k, v, o, lse, do, h, scale, kbias)
         got = fa.long_attention_bwd_cuda(*args)
         bwd_check(name, what, got, fa.long_attention_bwd_plain(*args))
+        check_deterministic(name, what,
+                            lambda: fa.long_attention_bwd_cuda(*args), got)
         del got
         if cp != 4:
             continue
@@ -1396,7 +1455,8 @@ def profile_step(model, context, lat, tag: str, ring=None):
 KERNEL_KINDS = (
     ("attention kernels (csrc/{short,long,ring}_attention_*.cu)",
      ("short_attention", "long_attention", "attention_fwd_kernel",
-      "bwd_dkdv", "bwd_dq", "prep_q", "prep_k", "rope_rotate")),
+      "bwd_kernel", "dq_store", "dkv_reduce", "prep_q", "prep_k",
+      "rope_rotate")),
     ("AdaLN kernels (Triton)", ("adaln_rms_modulate",)),
     ("gated-residual AdaLN kernels (Triton)", ("gated_residual_adaln",)),
     ("bias+GELU kernels (Triton)", ("bias_gelu",)),
@@ -1896,6 +1956,160 @@ def phase_nccl_ring(dev):
         raise AssertionError("the NCCL ring and LocalRing disagree")
 
 
+# ---- A/B of two checkouts on one card: `python3 chip_smoke.py --ab A B` ----
+
+AB_PAIRS = 10  # alternated pairs of the backward rows (A B, B A, ...)
+AB_TRAIN_PAIRS = 2  # of which the first this many also run the train steps
+
+
+def ab_rows(dev):
+    """The attention backward rows at the main path's shapes, each timed
+    once (`cuda_ms`) through the wrapper of whichever package is first on
+    sys.path, after a check against its twin and a second launch: rows 4
+    and 5 at the training shapes, row 5 at train-long's cross-attention
+    (8208 × 512, B=2), row 7 at L = 8208 and with the kv-bias at the ring
+    fallback's 2064² and 4112², row 11 at the train chunk. Logs
+    `[ab] <row> <ms> ms` lines."""
+    from video_diffusion_speedrun_tpu_torch.models.rope import rope_cos_sin
+    from video_diffusion_speedrun_tpu_torch.ops import fused_attention as fa
+
+    gen = torch.Generator(device=dev).manual_seed(5)
+    h, d = T_WIDTH // T_HEAD_DIM, T_HEAD_DIM
+    hd, scale = h * d, d ** -0.5
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen, device=dev).bfloat16()
+
+    def row(name, fn, plain):
+        got = fn()
+        want = plain()
+        for x, y in zip(got, want):
+            err = (x.float() - y.float()).abs().max().item()
+            if not err <= ATTN_BWD_REL * y.float().abs().max().item():
+                raise AssertionError(f"{name}: |err| {err} against the twin")
+        if not all(torch.equal(a, b) for a, b in zip(got, fn())):
+            raise AssertionError(f"{name}: a second launch gives other bits")
+        del got, want
+        log(f"[ab] {name} {cuda_ms(fn, iters=10, warmup=2):.4f} ms")
+
+    cos, sin = rope_cos_sin(d, 2, 16, 16, torch.tensor([3, 5, 7], device=dev),
+                            num_registers=16)
+    # q and k strided out of qkv (row 4) or of q and a k/v projection
+    for name, b, lq, lk, rope in (("row4", T_BATCH, T_L, T_L, True),
+                                  ("row5", T_BATCH, T_L, CTX_LEN, False),
+                                  ("row5-8208", 2, LONG_L, CTX_LEN, False)):
+        qkv = randn(b, lq, 3 * hd)
+        kv = qkv if rope else randn(b, lk, 3 * hd)
+        q, k, v = qkv[..., :hd], kv[..., hd:2 * hd], kv[..., 2 * hd:]
+        c, s_ = (cos, sin) if rope else (None, None)
+        o, lse = fa.short_attention_cuda(q, k, v, c, s_, h, scale)
+        args = (q, k, v, c, s_, o, lse, randn(b, lq, hd), h, scale)
+        row(name, lambda: fa.short_attention_bwd_cuda(*args),
+            lambda: fa.short_attention_bwd_plain(*args))
+    q, k, v = long_inputs(dev, gen, 2, LONG_L, LONG_L, h)
+    o, lse = fa.long_attention_cuda(q, k, v, h, scale)
+    args = (q, k, v, o, lse, randn(*o.shape), h, scale)
+    row("row7", lambda: fa.long_attention_bwd_cuda(*args),
+        lambda: fa.long_attention_bwd_plain(*args))
+    for cp in (4, 2):
+        q, k, v, tabs, kbias = ring_inputs(dev, gen, 2, h, LONG_L, cp, 0,
+                                           cp - 1)
+        q = fa.rotate_flat(q, tabs[0], tabs[1], h)
+        k = fa.rotate_flat(k, tabs[2], tabs[3], h)
+        o, lse = fa.long_attention_cuda(q, k, v, h, scale, kbias)
+        args = (q, k, v, o, lse, randn(*o.shape), h, scale, kbias)
+        row(f"row7-bias-{q.shape[1]}",
+            lambda: fa.long_attention_bwd_cuda(*args),
+            lambda: fa.long_attention_bwd_plain(*args))
+    q, k, v, tabs, kbias = ring_inputs(dev, gen, 2, h, LONG_L, 8, 0, 7)
+    o, lse = fa.ring_attention_cuda(q, k, v, *tabs, kbias, h, scale)
+    args = (q, k, v, *tabs, kbias, o, lse, randn(*o.shape), h, scale)
+    row("row11", lambda: fa.ring_attention_bwd_cuda(*args),
+        lambda: fa.ring_chunk_bwd_plain(*args))
+
+
+AB_PATTERNS = (
+    (r"\[ab\] (\S+) ([0-9.]+) ms", lambda m: (m[1], float(m[2]))),
+    (r"\[(train|train-long)\] steady state ([0-9.]+) ms",
+     lambda m: (m[1] + " step ms", float(m[2]))),
+    (r"\[(train|train-long)-profile\] one train step: [0-9.]+ ms wall "
+     r"\(profiled\), device busy ([0-9.]+) ms",
+     lambda m: (m[1] + " busy ms", float(m[2]))),
+)
+
+
+def ab_child(tree: str, what: str) -> int:
+    """One turn of the A/B in a process of its own, with the package of
+    `tree` first on sys.path and this file's measurements: `build` its
+    kernels, time the `rows`, or the rows and the `train` steps."""
+    sys.path.insert(0, tree)
+    from video_diffusion_speedrun_tpu_torch.ops import fused_attention as fa
+
+    if not fa.__file__.startswith(tree):
+        raise RuntimeError(f"{fa.__file__} is not under {tree}")
+    dev = torch.device("cuda")
+    phase_build()
+    if what == "build":
+        return 0
+    ab_rows(dev)
+    if what == "train":
+        phase_train(dev, T_BATCH, T_LATENT, T_STEPS, (), "train",
+                    evaluate=False)
+        phase_train(dev, TL_BATCH, TL_LATENT, TL_STEPS,
+                    ("--moments_dtype", "bf16"), "train-long", evaluate=False)
+    return 0
+
+
+def main_ab(argv) -> int:
+    """`--ab TREE_A TREE_B [PAIRS [TRAIN_PAIRS]]`: alternate the two
+    checkouts (A B, B A, A B, ...) for PAIRS pairs (default AB_PAIRS), the
+    first TRAIN_PAIRS (default AB_TRAIN_PAIRS) with the train steps, each
+    turn a process running `ab_child`; print every reading, the medians
+    and how many pairs B won, then the card's name and power limit."""
+    if not 2 <= len(argv) <= 4 or not torch.cuda.is_available():
+        print("usage on a card: chip_smoke.py --ab TREE_A TREE_B [PAIRS "
+              "[TRAIN_PAIRS]]", file=sys.stderr)
+        return 1
+    trees = [str(Path(t).resolve()) for t in argv[:2]]
+    pairs = int(argv[2]) if len(argv) > 2 else AB_PAIRS
+    train_pairs = int(argv[3]) if len(argv) > 3 else AB_TRAIN_PAIRS
+    # build both trees' kernels at once (each into its own build directory)
+    builds = [subprocess.Popen([sys.executable, __file__, "--ab-child", t,
+                                "build"], stdout=subprocess.DEVNULL)
+              for t in trees]
+    if any(p.wait() for p in builds):
+        return 1
+    readings = [dict(), dict()]  # tree → name → [ms per turn]
+    for i in range(pairs):
+        for idx in ((0, 1) if i % 2 == 0 else (1, 0)):
+            cmd = [sys.executable, __file__, "--ab-child", trees[idx],
+                   "train" if i < train_pairs else "rows"]
+            run = subprocess.run(cmd, capture_output=True, text=True)
+            if run.returncode:
+                print(run.stdout[-2000:], run.stderr[-4000:])
+                return 1
+            for line in run.stdout.splitlines():
+                for pat, get in AB_PATTERNS:
+                    m = re.search(pat, line)
+                    if m:
+                        name, ms = get(m)
+                        readings[idx].setdefault(name, []).append(ms)
+                        print(f"[ab pair {i} {'AB'[idx]}] {name} {ms}",
+                              flush=True)
+    for name in readings[0]:
+        a, b = readings[0][name], readings[1].get(name, [])
+        wins = sum(y < x for x, y in zip(a, b))
+        ma, mb = np.median(a), np.median(b)
+        print(f"[ab] {name}: A median {ma:.4f} ({len(a)} runs), B median "
+              f"{mb:.4f}, B/A {mb / ma:.3f}, B faster in {wins} of "
+              f"{min(len(a), len(b))} pairs", flush=True)
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True)
+    print(smi.stdout.strip())
+    return 0
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -1983,4 +2197,8 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--ab"]:
+        sys.exit(main_ab(sys.argv[2:]))
+    if sys.argv[1:2] == ["--ab-child"]:
+        sys.exit(ab_child(sys.argv[2], sys.argv[3]))
     sys.exit(main())

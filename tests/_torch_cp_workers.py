@@ -17,6 +17,14 @@ the environment `torchrun` would set) and, on the CPU:
 3. average their ranks with `avg_scalar_across_hosts` and meet at a
    `barrier`.
 
+    python tests/_torch_cp_workers.py eval PORT OUT.npz
+
+spawns EVAL_REPLICAS processes, each a replica of the tiny DiT at global
+batch EVAL_BATCH, which train one step through `Trainer.train` and so reach
+its first evaluation, where the 40-row test split does not fill the batch:
+rank 0 keeps the Trainer's log lines and the evaluated batch's global
+rows, summed over the replicas.
+
 Rank 0 writes the results to OUT.npz. This module imports no JAX: a
 spawned child runs none of the test suite's JAX set-up, and the test
 process imports it for the helpers that build both sides alike.
@@ -191,9 +199,64 @@ def _worker(rank: int, world: int, port: int, inp: str, out: str) -> None:
     pmesh.shutdown()
 
 
+EVAL_REPLICAS = 3
+EVAL_BATCH = 48
+
+
+def _eval_worker(rank: int, port: int, out: str) -> None:
+    import dataclasses
+    import logging
+
+    import torch.distributed as dist
+
+    os.environ.update(WORLD_SIZE=str(EVAL_REPLICAS), RANK=str(rank),
+                      LOCAL_RANK=str(rank), MASTER_ADDR="localhost",
+                      MASTER_PORT=str(port))
+    from video_diffusion_speedrun_tpu_torch.parallel import mesh as pmesh
+    from video_diffusion_speedrun_tpu_torch.train.loop import Trainer, logger
+
+    torch.set_num_threads(1)
+    lines = []
+
+    class Keep(logging.Handler):
+        def emit(self, record):
+            lines.append(record.getMessage())
+
+    logger.addHandler(Keep())
+    logger.setLevel(logging.INFO)
+    base = train_config(replica=EVAL_REPLICAS)
+    cfg = dataclasses.replace(
+        base, batch_size=EVAL_BATCH, max_steps=1,
+        eval_batches=1, log_every=1,
+        data=dataclasses.replace(base.data, synthetic_rows=EVAL_BATCH,
+                                 test_rows=40, synthetic_shape=LATENT[1:]))
+    trainer = Trainer(cfg, device="cpu")
+    rows = []
+    batches = trainer.batches
+
+    def counted(split):
+        for batch in batches(split):
+            if split == "test":
+                rows.append(batch["latent"].shape[0])
+            yield batch
+
+    trainer.batches = counted
+    last = trainer.train()
+    seen = torch.tensor(rows[:1], dtype=torch.float64)
+    dist.all_reduce(seen)
+    if rank == 0:
+        np.savez(out, eval_rows=seen.numpy(), lines=np.asarray(lines),
+                 loss=np.asarray(last["test/total_loss"]))
+    pmesh.shutdown()
+
+
 def main(argv) -> None:
     import torch.multiprocessing as mp
 
+    if argv[0] == "eval":
+        mp.start_processes(_eval_worker, args=(int(argv[1]), argv[2]),
+                           nprocs=EVAL_REPLICAS, start_method="spawn")
+        return
     world, port, inp, out = int(argv[0]), int(argv[1]), argv[2], argv[3]
     mp.start_processes(_worker, args=(world, port, inp, out), nprocs=world,
                        start_method="spawn")

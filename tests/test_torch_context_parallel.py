@@ -19,6 +19,7 @@ The workers live in `tests/_torch_cp_workers.py`, which imports no JAX;
 they run in one subprocess per world size that spawns its ranks.
 """
 
+import dataclasses
 import socket
 import subprocess
 import sys
@@ -39,6 +40,9 @@ from video_diffusion_speedrun_tpu_torch.core.config import (
 )
 from video_diffusion_speedrun_tpu_torch.models.convert import (
     state_dict_from_jax_params,
+)
+from video_diffusion_speedrun_tpu_torch.data.synthetic import (
+    SyntheticLatentDataset,
 )
 from video_diffusion_speedrun_tpu_torch.models.dit import DiT
 from video_diffusion_speedrun_tpu_torch.ops import fused_attention as tfa
@@ -223,3 +227,35 @@ def test_one_process_mesh_takes_no_ring_and_refuses_a_context_axis():
                   "64", "--model_depth", "1", "--model_head_dim", "32"])
     with pytest.raises(ValueError):
         sample.main(["--device", "cpu", "--mesh_context", "2"])
+
+
+def test_eval_batch_clamps_to_the_replicas(tmp_path):
+    """At `--mesh_replica 3` and batch 48 the first evaluation (after step
+    1) clamps the global batch to 39, the largest multiple of the 3 data
+    shards that the 40-row test split fills, and logs it, as JAX's
+    `_loader` (`train/loop.py:132-157`)."""
+    out = tmp_path / "eval.npz"
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    run = subprocess.run(
+        [sys.executable, str(ROOT / "tests" / "_torch_cp_workers.py"),
+         "eval", str(port), str(out)],
+        capture_output=True, text=True, timeout=300, cwd=ROOT)
+    assert run.returncode == 0, run.stderr[-4000:]
+    res = dict(np.load(out))
+    assert float(res["eval_rows"][0]) == 39
+    assert "eval batch clamped 48 -> 39 (test split has 40 rows)" in list(
+        res["lines"])
+    assert np.isfinite(res["loss"])
+
+
+def test_eval_batch_raises_when_the_split_cannot_fill_the_shards(
+        monkeypatch):
+    trainer = Trainer(dataclasses.replace(workers.train_config(),
+                                          batch_size=4), device="cpu")
+    trainer.datasets["test"] = SyntheticLatentDataset(
+        num_rows=2, latent_shape=workers.LATENT[1:], seed=1)
+    monkeypatch.setattr(pmesh, "data_shards", lambda mesh: 3)
+    with pytest.raises(ValueError, match="cannot fill one batch slice"):
+        next(trainer.batches("test"))

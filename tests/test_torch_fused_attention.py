@@ -153,3 +153,20 @@ def test_backward_twin_equals_autograd_of_forward_twin():
                                             lse.detach(), do, H, D ** -0.5)
         for a, b in zip(got, want):
             torch.testing.assert_close(a, b, atol=2e-5, rtol=1e-4)
+
+
+@pytest.mark.parametrize("what,b,h,lq,lk,want", [
+    ("train self-attention, row 4", 64, 4, 528, 528, 1),
+    ("train cross-attention, row 5", 64, 4, 528, 512, 1),
+    ("train-long cross-attention", 2, 4, 8208, 512, 4),
+    ("train-long self-attention, row 7", 2, 4, 8208, 8208, 1),
+    ("ring fallback at cp 4, row 7 with the bias", 2, 4, 2064, 2064, 3),
+    ("ring fallback at cp 2", 2, 4, 4112, 4112, 1),
+    ("ring train chunk at cp 8, row 11", 2, 4, 1040, 1040, 3),
+])
+def test_backward_split_on_an_h100(what, b, h, lq, lk, want):
+    """The backward kernel splits each 128-row kv block's q tiles over
+    blocks only where the kv blocks alone leave the card's 132 SMs idle;
+    these are the splits that PERF.md §6 measured against no split."""
+    n_blocks = -(-lk // tfa._BWD_BN) * b * h
+    assert tfa._bwd_splits(n_blocks, -(-lq // tfa._BWD_BQ), 132) == want, what

@@ -533,6 +533,8 @@ def test_ring_kernels_match_twins(dev, b, lq, lk, h, d, pad):
         assert torch.isfinite(x.float()).all(), name
         if pad < lk:
             assert _rel_err(x, y) < 2e-2, name
+        else:  # every kv row masked: p is 0 whatever the lse (≈ −1e30 here)
+            assert not x.any(), name
 
 
 @pytest.mark.parametrize("b,l,h,pad", [(2, 4112, 4, 16), (2, 2064, 4, 48),
@@ -604,3 +606,120 @@ def test_ring_dispatch_and_refusals(dev):
     with pytest.raises(ValueError):
         tfa.ring_attention_cuda(q, big, big, tabs[0], tabs[1], tabs[0],
                                 tabs[1], kbias, h, 1.0)
+
+
+def _bwd_cases(dev, gen, kind):
+    """(launch, twin) of one backward kernel on bf16 inputs at a ragged
+    shape: rows 4–5 (short, with and without RoPE; `short-many` with more
+    (b, h) than the card has SMs, where the blocks take their tickets (b, h)
+    major), row 7 (long, with and without the kv-bias) and row 11 (ring)."""
+    h, d = 2, 128
+    scale = d ** -0.5
+    if kind == "short-many":
+        h = 4
+        q, k, v, tabs, _ = _ring_inputs(dev, gen, 48, 333, 300, h, d, 0)
+        o, lse = tfa.short_attention_cuda(q, k, v, tabs[0], tabs[1], h, scale)
+        args = (q, k, v, tabs[0], tabs[1], o, lse, torch.randn_like(o), h,
+                scale)
+        return (lambda: tfa.short_attention_bwd_cuda(*args),
+                lambda: tfa.short_attention_bwd_plain(*args))
+    if kind in ("short-rope", "short-norope"):
+        q, k, v, tabs, _ = _ring_inputs(dev, gen, 2, 333, 77, h, d, 0)
+        cos, sin = (tabs[0], tabs[1]) if kind == "short-rope" else (None, None)
+        o, lse = tfa.short_attention_cuda(q, k, v, cos, sin, h, scale)
+        args = (q, k, v, cos, sin, o, lse, torch.randn_like(o), h, scale)
+        return (lambda: tfa.short_attention_bwd_cuda(*args),
+                lambda: tfa.short_attention_bwd_plain(*args))
+    if kind in ("long", "long-bias"):
+        q, k, v, _, kbias = _ring_inputs(dev, gen, 1, 2100, 2100, h, d, 52)
+        kbias = kbias if kind == "long-bias" else None
+        o, lse = tfa.long_attention_cuda(q, k, v, h, scale, kbias)
+        args = (q, k, v, o, lse, torch.randn_like(o), h, scale, kbias)
+        return (lambda: tfa.long_attention_bwd_cuda(*args),
+                lambda: tfa.long_attention_bwd_plain(*args))
+    q, k, v, tabs, kbias = _ring_inputs(dev, gen, 2, 1040, 1040, 4, d, 112,
+                                        q_row0=64, k_row0=3120)
+    o, lse = tfa.ring_attention_cuda(q, k, v, *tabs, kbias, 4, scale)
+    args = (q, k, v, *tabs, kbias, o, lse, torch.randn_like(o), 4, scale)
+    return (lambda: tfa.ring_attention_bwd_cuda(*args),
+            lambda: tfa.ring_chunk_bwd_plain(*args))
+
+
+@pytest.mark.parametrize("kind", ["short-rope", "short-norope", "short-many",
+                                  "long", "long-bias", "ring"])
+def test_backward_kernels_are_deterministic(dev, kind):
+    """Two launches on the same inputs give the same bits in dq, dk and dv:
+    the kv blocks add their dq partials in a fixed order. Both also agree
+    with the twin within 2% of each gradient's largest magnitude."""
+    gen = torch.Generator(device=dev).manual_seed(21)
+    launch, twin = _bwd_cases(dev, gen, kind)
+    first, second = launch(), launch()
+    want = twin()
+    torch.cuda.synchronize()
+    for name, x, y, w in zip(("dq", "dk", "dv"), first, second, want):
+        assert torch.equal(x, y), name
+        assert _rel_err(x, w) < 2e-2, name
+
+
+@pytest.mark.parametrize("lk", [333, 77])
+def test_short_bwd_with_rope_at_ragged_kv(dev, lk):
+    """Row 4's kernel with RoPE on k/v of their own length (Lq = 333
+    against Lk = 333 and 77), both edges ragged against the 64-row q tiles
+    and the 128-row kv blocks."""
+    gen = torch.Generator(device=dev).manual_seed(22)
+    h, d = 4, 128
+    q, k, v, tabs, _ = _ring_inputs(dev, gen, 2, 333, lk, h, d, 0)
+    rows = max(333, lk)
+    ang = torch.arange(rows * (d // 2), dtype=torch.float32, device=dev)
+    ang = ang.reshape(rows, d // 2) * 0.003
+    cos, sin = ang.cos(), ang.sin()
+    scale = d ** -0.5
+    o, lse = tfa.short_attention_cuda(q, k, v, cos, sin, h, scale)
+    args = (q, k, v, cos, sin, o, lse, torch.randn_like(o), h, scale)
+    got = tfa.short_attention_bwd_cuda(*args)
+    want = tfa.short_attention_bwd_plain(*args)
+    torch.cuda.synchronize()
+    for name, x, y in zip(("dq", "dk", "dv"), got, want):
+        assert x.shape == y.shape, name
+        assert _rel_err(x, y) < 2e-2, name
+
+
+def test_long_bwd_at_the_8208_tail(dev):
+    """Row 7 (and row 9, the split-off tail) at L = 8208 = 64·128 + 16: the
+    last kv block holds 16 rows, the last q tile 16."""
+    gen = torch.Generator(device=dev).manual_seed(23)
+    h, d, l = 4, 128, 8208
+    q, k, v, _, _ = _ring_inputs(dev, gen, 1, l, l, h, d, 0)
+    scale = d ** -0.5
+    o, lse = tfa.long_attention_cuda(q, k, v, h, scale)
+    args = (q, k, v, o, lse, torch.randn_like(o), h, scale)
+    got = tfa.long_attention_bwd_cuda(*args)
+    want = tfa.long_attention_bwd_plain(*args)
+    torch.cuda.synchronize()
+    for name, x, y in zip(("dq", "dk", "dv"), got, want):
+        assert _rel_err(x, y) < 2e-2, name
+        assert _rel_err(x[:, -16:], y[:, -16:]) < 2e-2, name + " tail"
+
+
+def test_auto_dispatch_runs_a_head_dim_the_kernels_refuse(dev):
+    """A depth-1 DiT with head_dim 32 (bf16) under "auto" runs its forward
+    on the card through the plain composition, where it would raise in the
+    kernels (the JAX "auto" rule)."""
+    from video_diffusion_speedrun_tpu_torch.core.config import DiTConfig
+    from video_diffusion_speedrun_tpu_torch.models.dit import DiT
+
+    cfg = DiTConfig(in_channels=4, hidden_size=64, depth=1, num_heads=2,
+                    cross_attn_input_size=16, residual_v=True,
+                    compute_dtype=torch.bfloat16, attention_impl="auto")
+    model = DiT(cfg, device=dev, seed=0)
+    gen = torch.Generator(device=dev).manual_seed(24)
+    x = torch.randn(1, 4, 2, 4, 4, generator=gen, device=dev)
+    ctx = torch.randn(1, 3, 16, generator=gen, device=dev)
+    before = (tfa.qkv_rope_flash_forward.launches,
+              tfa.cross_flash_forward.launches)
+    with torch.no_grad():
+        out = model(x, ctx, torch.tensor([0.5], device=dev))
+    torch.cuda.synchronize()
+    assert out.shape == x.shape and torch.isfinite(out.float()).all()
+    assert (tfa.qkv_rope_flash_forward.launches,
+            tfa.cross_flash_forward.launches) == before

@@ -7,7 +7,9 @@ Dtypes are torch dtypes. Options of later slices raise where they are set.
 Kernel dispatch (`attention_impl`, `fused_adaln`):
   "fused" — the port's fused op: on a CUDA tensor it launches the hand-written
             kernel, on a CPU tensor it runs the op's plain twin;
-  "auto"  — "fused" for CUDA tensors, the unfused composition elsewhere;
+  "auto"  — "fused" for CUDA tensors (attention: only those the kernels
+            take, bf16 with head_dim 64 or 128), the unfused composition
+            elsewhere;
   "plain" (attention) / "off" (AdaLN) — the unfused composition.
 """
 

@@ -1,10 +1,15 @@
-// The attention backward passes shared by the short, long and ring paths,
-// for Hopper (sm_90a): header-only, instantiated by `short_attention_bwd.cu`
-// (ROPE on or off), `long_attention_bwd.cu` (pre-rotated q/k, ROPE off,
-// with or without the kv-bias) and `ring_attention_bwd.cu` (ROPE on with
-// separate q and k tables, the kv-bias, the given merged o and lse).
+// The attention backward shared by the short, long and ring paths, for
+// Hopper (sm_90a): header-only, instantiated by `short_attention_bwd.cu`
+// (rows 4–5: ROPE on or off), `long_attention_bwd.cu` (rows 7 and 9:
+// pre-rotated q/k, ROPE off, with or without the kv-bias) and
+// `ring_attention_bwd.cu` (row 11: ROPE on with separate q and k tables,
+// the kv-bias, the given merged o and lse). It replaces the Pallas
+// backward functions of `video_diffusion_speedrun_tpu/ops/fused_attention.py`:
+// `_backward_short_qkv` (:873) and `_backward_short` (:1042), `_backward`
+// (:534) with its split-off tail `_backward_tail` (:1596), and
+// `_ring_chunk_bwd` (:1235).
 //
-// What they compute, per (b, h), with the TPU kernels' rounding points
+// What it computes, per (b, h), with the TPU kernels' rounding points
 // (`_bwd_short_kernel` and `_bwd_dkv_kernel` / `_bwd_dq_kernel` round alike):
 //   q, k rotated in fp32 by their own tables (ROPE), then
 //   qs = bf16(q·scale·log2e), qd = bf16(q·scale), kc = bf16(k),
@@ -19,36 +24,95 @@
 // What bounds it on the card: 10·B·H·Lq·Lk·D useful flops against a few
 // bytes per q/k/v/o element — compute-bound at every shape the model runs
 // (~90 GFLOP over ~100 MB at B=64, H=4, L=528; ~690 GFLOP over ~60 MB at
-// B=2, H=4, L=8208), so every product runs on the tensor cores (mma.sync
-// m16n8k16, bf16 in, fp32 accumulate).
+// B=2, H=4, L=8208). So every product runs on Hopper's warpgroup tensor
+// instruction (wgmma, bf16 in, fp32 accumulate), its operands brought to
+// shared memory by the Tensor Memory Accelerator (TMA), and each product
+// is done once.
 //
-// How it differs from the TPU kernels: the TPU walks the q blocks of one
-// (b, h) in order and carries dk/dv in VMEM scratch across them. Blocks on
-// the H100 run in no order, so nothing carries over: a dk/dv pass (one
-// block per 64 kv rows, looping over every q tile) and a dq pass (one block
-// per 64 q rows, looping over every kv tile) each own their outputs. No
-// atomics, so the result is deterministic. The price is recomputing
-// s and dp in both passes: 14 units of work instead of 10. Neither pass
-// holds anything sized by L, so the same passes serve any length: at
-// L = 8208 each block streams 257 tiles of 32 rows. Every offset that
-// grows with B·L·H·D is 64-bit.
+// The design: one pass, warp-specialised. A block owns BN = 128 kv rows
+// of one (b, h) and runs three warpgroups. In warpgroup 0 one thread loads
+// by TMA — kc, kd and v of the 128 rows once (resident), then per q tile
+// of BM = 64 rows qs and do (and the tile's lse and δ) into a 2-stage ring
+// and qd into one buffer, each guarded by mbarriers — and one thread of
+// warp 1 writes the dq partials (below). Warpgroups 1 and 2 each own 64
+// kv rows (setmaxnreg: 240 registers each, 24 for warpgroup 0). Per q
+// tile each, in two halves of 32 q columns, forms sᵀ = kc·qsᵀ and
+// dpᵀ = v·doᵀ (wgmma, both operands in shared memory, K-major over D) and
+// from them pᵀ and dsᵀ in fp32 registers; accumulates dv += bf16(pᵀ)·do
+// (A from registers, B MN-major); writes bf16(dsᵀ) to a shared tile; then
+// accumulates dk += bf16(dsᵀ)·qd (A from that tile, B MN-major) — dk and
+// dv stay in registers for the whole q loop — and computes its half of
+// the tile's dq partial ds·kd over all 128 kv rows (A and B MN-major): 10
+// units of tensor work where the earlier two-pass design recomputed s and
+// dp for a dq pass (14). Where the kv blocks alone leave SMs idle (a short
+// kv against a long q, or a 137th block), each kv block's q tiles are
+// split over a few blocks (SPLIT), whose fp32 dk, dv partials a last kernel
+// sums in split order.
+//
+// dq across kv blocks, deterministically: each tile's fp32 partial goes to
+// shared memory, and the writer thread adds it to an fp32 accumulator
+// (tiles of 64 q rows) with one bulk copy (kv block 0) or bulk reduce-add
+// (the others). A counter per (b, h, q tile) holds the number of the kv
+// block whose turn it is; the writer waits for its turn, adds, frees the
+// staging buffer once the add has read it, waits for the add to complete
+// and passes the turn on, so the sum order is fixed and two launches give
+// the same bits (the TPU instead stores one partial per
+// kv block and sums them outside). Blocks take their (kv block, b, h) from
+// an atomic ticket when they start, kv block major where the (b, h) are
+// fewer than the SMs (the blocks running at once then share each (b, h)'s
+// q tiles in L2), else (b, h) major (a (b, h)'s few kv blocks run together
+// and read its q tiles once from memory, not once each): either way a
+// block only waits for a smaller ticket, which a block already running
+// holds, so the waits cannot deadlock whatever the grid and the order the
+// hardware starts blocks in. A last kernel rounds the accumulator to bf16 (dq rotated back
+// by the q table when ROPE).
+//
+// Registers: dk and dv alone hold 128 of a consumer thread's 240. ptxas
+// gives the consumers setmaxnreg's 240 only if no trap can be reached in
+// their code (with one it keeps them to the launch's 168, spills dk and dv
+// every tile and serialises every wgmma, C7512), so only the loader's and
+// the writer's waits trap (mbar_wait). What is left (PERF.md §6, PR 6):
+// one block per SM (~226 KB of shared memory), so a block's setup and
+// epilogue do not overlap another's, and a single dq staging buffer.
 //
 // A prologue rotates and rounds q and k once (as the forward's
-// `rope_rotate_kernel`) into head-major scratch [B, H, L, D] and computes δ,
-// so the passes stream ready bf16 tiles (cp.async, double-buffered) and
-// never touch cos/sin until the final Rᵀ (dq by the q table, dk by the k
-// table). Ragged q/kv edges are zero-filled on load; p is forced to 0 past
-// Lq (dk/dv pass) or Lk (dq pass), and rows past the edge are not stored.
+// `rope_rotate_kernel`) into head-major scratch [B, H, L, D], computes δ
+// and copies lse into rows padded to whole q tiles, so the main kernel
+// streams ready bf16 tiles and never touches cos/sin until dk's final Rᵀ.
+// TMA zero-fills the ragged edges, and p and ds are set to 0 past Lq
+// (columns of pᵀ) and past Lk or on a kv row whose bias is −1e30 (its
+// rows), so a padded row adds nothing to dq, dk or dv whatever its lse:
+// exp2(s − 1e30 − lse) is 0 for any finite lse as it is, and this keeps
+// it 0 where lse is itself ≈ −1e30 (a ring chunk of padding against its
+// own lse), where the formula gives 0, 1 or inf by rounding. A wait that
+// spins for ~10 s traps, so a fault ends the launch instead of hanging the
+// card. Every offset that grows with B·L·H·D is 64-bit.
 #pragma once
+
+#include <cuda.h>  // CUtensorMap
 
 #include "mma_utils.cuh"
 
 namespace {
 
-constexpr int NWARPS = 4;        // 16 rows each
-constexpr int BR = 16 * NWARPS;  // rows owned by a block (kv or q)
-constexpr int NT = NWARPS * 32;
-constexpr int BS = 32;           // rows of each streamed tile
+constexpr int BN = 128;  // kv rows owned by a block: 64 per consumer warpgroup
+constexpr int BM = 64;   // q rows of each streamed tile
+constexpr int NT = 384;  // the producer warpgroup and two consumer ones
+constexpr int NSTAGE = 2;
+// a kv-bias at or below this masks its row (the ring's padding is −1e30)
+constexpr float kMaskedBias = -1e29f;
+// The high word of every wgmma descriptor here: stride 1024 bytes between
+// 8-row groups, 128-byte swizzle.
+constexpr uint32_t kDescHi = (1024 >> 4) | (1u << 30);
+
+// The low word of the descriptor of the operand `off` bytes into shared
+// memory from the 1024-aligned base, with leading byte offset `lbo`
+// (K-major: unused, 16; MN-major: the stride of 64-element groups along
+// M/N); a k-step of 16 elements adds 32 bytes (K-major) or 16 rows
+// (MN-major) to off. Added to base >> 4.
+__host__ __device__ constexpr uint32_t desc_lo(uint32_t off, uint32_t lbo) {
+  return (off >> 4) | ((lbo >> 4) << 16);
+}
 
 // In fp32: (x1, x2) ← (x1·c − x2·s, x1·s + x2·c), the transpose of rotate8,
 // for the two accumulator values a thread holds at columns col, col+1.
@@ -64,7 +128,8 @@ __device__ __forceinline__ void rotate_t2(float* x1, float* x2, const float* cs,
 }
 
 // q side, one thread per 8 rotation pairs of one (b, l, h):
-// qs/qd [B, H, L, D] and δ [B, H, L] = Σ_d do·o.
+// qs/qd [B, H, L, D]; rows [B·H, 2, Lp]: δ = Σ_d do·o, then lse copied
+// (Lp = L padded to whole q tiles; the padding is never read as a value).
 template <int D, bool ROPE>
 __global__ void prep_q_kernel(const bf16* __restrict__ q, long long q_sb,
                               long long q_sl, const bf16* __restrict__ dout,
@@ -72,8 +137,9 @@ __global__ void prep_q_kernel(const bf16* __restrict__ q, long long q_sb,
                               const bf16* __restrict__ o, long long o_sb,
                               long long o_sl, const float* __restrict__ cos_t,
                               const float* __restrict__ sin_t,
+                              const float* __restrict__ lse,
                               bf16* __restrict__ qs, bf16* __restrict__ qd,
-                              float* __restrict__ delta, int H, int L,
+                              float* __restrict__ rows, int H, int L, int Lp,
                               float q_mul, float scale, long long total) {
   constexpr int H2 = D / 2;
   constexpr int CH = H2 / 8;  // threads per (b, l, h) row: 8 or 4
@@ -121,7 +187,11 @@ __global__ void prep_q_kernel(const bf16* __restrict__ q, long long q_sb,
 #pragma unroll
   for (int off = CH / 2; off > 0; off >>= 1)
     part += __shfl_xor_sync(0xffffffff, part, off);
-  if (valid && c == 0) delta[(b * H + h) * L + l] = part;
+  if (valid && c == 0) {
+    const long long bh = b * H + h;
+    rows[bh * 2 * Lp + l] = part;
+    rows[bh * 2 * Lp + Lp + l] = lse[bh * L + l];
+  }
 }
 
 // k side: kc = bf16(rot(k)), kd = bf16(rot(k)·scale) into [B, H, L, D].
@@ -160,394 +230,896 @@ __global__ void prep_k_kernel(const bf16* __restrict__ k, long long k_sb,
   *reinterpret_cast<uint4*>(kd + out + H2) = pack8(x2);
 }
 
-// Stores the two fp32 accumulator rows (g, g+8) a thread holds of a 16-row
-// warp tile as bf16, rotated back by Rᵀ first when ROPE; rows past `lim`
-// are dropped. acc[i] holds columns i·8 + 2t, +1; column c < D/2 pairs with
-// c + D/2, i.e. acc[i] with acc[i + D/16], in the same thread.
-template <int D, bool ROPE>
-__device__ __forceinline__ void store_rows(float (*acc)[4], bf16* base,
-                                           long long row_stride, int row0,
-                                           int lim, const float* cos_t,
-                                           const float* sin_t, int g, int t) {
-  constexpr int H2 = D / 2;
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int row = row0 + g + 8 * r;
-    if (row >= lim) continue;
-    if (ROPE) {
-#pragma unroll
-      for (int i = 0; i < D / 16; ++i) {
-        const int c = i * 8 + 2 * t;
-        const float* cs = cos_t + static_cast<long long>(row) * H2 + c;
-        const float* sn = sin_t + static_cast<long long>(row) * H2 + c;
-        rotate_t2(&acc[i][2 * r], &acc[i + D / 16][2 * r], cs, sn);
-      }
-    }
-    bf16* out = base + static_cast<long long>(row) * row_stride;
-#pragma unroll
-    for (int i = 0; i < D / 8; ++i)
-      *reinterpret_cast<uint32_t*>(out + i * 8 + 2 * t) =
-          pack_bf16(acc[i][2 * r], acc[i][2 * r + 1]);
-  }
+// Operand lists of the accumulator: n floats d[b .. b + n).
+#define VDS_D8(b)                                                   \
+  "+f"(d[b]), "+f"(d[b + 1]), "+f"(d[b + 2]), "+f"(d[b + 3]),       \
+      "+f"(d[b + 4]), "+f"(d[b + 5]), "+f"(d[b + 6]), "+f"(d[b + 7])
+#define VDS_D32(b) VDS_D8(b), VDS_D8(b + 8), VDS_D8(b + 16), VDS_D8(b + 24)
+#define VDS_D64(b) VDS_D32(b), VDS_D32(b + 32)
+
+// wgmma.mma_async m64nNk16, bf16 × bf16 → fp32, one warpgroup: d[N/2] per
+// thread (rows 16·warp + g and + 8, columns 8i + 2t and + 1 in
+// d[4i .. 4i + 3], the m16n8k16 accumulator layout repeated over N/8).
+// ss: A and B from shared memory; rs: A from registers (each warp's 16 rows
+// as an m16n8k16 A fragment). An operand in shared memory is given by the
+// low word of its descriptor (desc_lo); the high word, the same for every
+// operand here, is joined inside the asm, so a descriptor occupies no
+// registers between k-steps. TA / TB = 1: MN-major. scale_d = 0
+// overwrites d, 1 accumulates.
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_ss_n32(float* d, uint32_t a_lo,
+                                             uint32_t b_lo, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n.reg .b64 da, db;\n"
+      "mov.b64 da, {%16, %18};\nmov.b64 db, {%17, %18};\n"
+      "setp.ne.b32 p, %19, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      " %8, %9, %10, %11, %12, %13, %14, %15}"
+      ", da, db, p, 1, 1, %20, %21;\n}\n"
+      : VDS_D8(0), VDS_D8(8)
+      : "r"(a_lo), "r"(b_lo), "r"(kDescHi), "r"(scale_d), "n"(TA), "n"(TB));
 }
 
-// dk/dv pass: block (kv tile, h, b). kc and v of its 64 kv rows stay in
-// shared memory; qs, qd, do, lse and δ stream in tiles of BS q rows. Each
-// warp owns 16 kv rows and computes the transposed products sᵀ = kc·qsᵀ and
-// dpᵀ = v·doᵀ, so pᵀ and dsᵀ come out as A fragments of dv += pᵀ·do and
-// dk += dsᵀ·qd. With BIAS each kv row's kbias joins its logits.
-template <int D, bool ROPE, bool BIAS>
-__global__ void __launch_bounds__(NT)
-    bwd_dkdv_kernel(const bf16* __restrict__ qs, const bf16* __restrict__ qd,
-                    const bf16* __restrict__ kc, const bf16* __restrict__ v,
-                    long long v_sb, long long v_sl,
-                    const bf16* __restrict__ dout, long long do_sb,
-                    long long do_sl, const float* __restrict__ lse,
-                    const float* __restrict__ delta,
-                    const float* __restrict__ cos_t,
-                    const float* __restrict__ sin_t,
-                    const float* __restrict__ kbias, bf16* __restrict__ dk,
-                    long long dk_sb, long long dk_sl, bf16* __restrict__ dv,
-                    long long dv_sb, long long dv_sl, int H, int Lq, int Lk) {
-  constexpr int LD = D + 8;  // padded row: conflict-free ldmatrix
-  constexpr int CH = D / 8;  // 16-byte chunks per row
-  // [kc: BR][v: BR][stage 0: qs, qd, do: 3·BS][stage 1: 3·BS] rows, then
-  // lse and δ [2][BS] each
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16(*s_k)[LD] = reinterpret_cast<bf16(*)[LD]>(smem_raw);
-  bf16(*s_v)[LD] = s_k + BR;
-  bf16(*s_q)[LD] = s_v + BR;
-  float* s_lse = reinterpret_cast<float*>(s_q + 6 * BS);
-  float* s_dl = s_lse + 2 * BS;
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_ss_n128(float* d, uint32_t a_lo,
+                                              uint32_t b_lo, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n.reg .b64 da, db;\n"
+      "mov.b64 da, {%64, %66};\nmov.b64 db, {%65, %66};\n"
+      "setp.ne.b32 p, %67, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      " %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23,"
+      " %24, %25, %26, %27, %28, %29, %30, %31,"
+      " %32, %33, %34, %35, %36, %37, %38, %39,"
+      " %40, %41, %42, %43, %44, %45, %46, %47,"
+      " %48, %49, %50, %51, %52, %53, %54, %55,"
+      " %56, %57, %58, %59, %60, %61, %62, %63}"
+      ", da, db, p, 1, 1, %68, %69;\n}\n"
+      : VDS_D64(0)
+      : "r"(a_lo), "r"(b_lo), "r"(kDescHi), "r"(scale_d), "n"(TA), "n"(TB));
+}
 
-  const int n0 = blockIdx.x * BR;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const long long bh = static_cast<long long>(b) * H + h;
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int g = lane / 4;
-  const int t = lane % 4;
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_ss_n64(float* d, uint32_t a_lo,
+                                             uint32_t b_lo, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n.reg .b64 da, db;\n"
+      "mov.b64 da, {%32, %34};\nmov.b64 db, {%33, %34};\n"
+      "setp.ne.b32 p, %35, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      " %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23,"
+      " %24, %25, %26, %27, %28, %29, %30, %31}"
+      ", da, db, p, 1, 1, %36, %37;\n}\n"
+      : VDS_D32(0)
+      : "r"(a_lo), "r"(b_lo), "r"(kDescHi), "r"(scale_d), "n"(TA), "n"(TB));
+}
 
-  {
-    const bf16* kb = kc + bh * Lk * D;
-    const bf16* vb = v + b * v_sb + h * D;
-    for (int idx = threadIdx.x; idx < BR * CH; idx += NT) {
-      const int r = idx / CH;
-      const int c = (idx % CH) * 8;
-      const bool valid = n0 + r < Lk;
-      const long long gr = valid ? n0 + r : 0;
-      cp_async16(&s_k[r][c], kb + gr * D + c, valid);
-      cp_async16(&s_v[r][c], vb + gr * v_sl + c, valid);
+template <int TB>
+__device__ __forceinline__ void wgmma_rs_n64(float* d, const uint32_t* a,
+                                             uint32_t b_lo, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n.reg .b64 db;\n"
+      "mov.b64 db, {%36, %37};\n"
+      "setp.ne.b32 p, %38, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      " %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23,"
+      " %24, %25, %26, %27, %28, %29, %30, %31}"
+      ", {%32, %33, %34, %35}, db, p, 1, 1, %39;\n}\n"
+      : VDS_D32(0)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b_lo),
+        "r"(kDescHi), "r"(scale_d), "n"(TB));
+}
+
+template <int TB>
+__device__ __forceinline__ void wgmma_rs_n128(float* d, const uint32_t* a,
+                                             uint32_t b_lo, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n.reg .b64 db;\n"
+      "mov.b64 db, {%68, %69};\n"
+      "setp.ne.b32 p, %70, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      " %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23,"
+      " %24, %25, %26, %27, %28, %29, %30, %31,"
+      " %32, %33, %34, %35, %36, %37, %38, %39,"
+      " %40, %41, %42, %43, %44, %45, %46, %47,"
+      " %48, %49, %50, %51, %52, %53, %54, %55,"
+      " %56, %57, %58, %59, %60, %61, %62, %63}"
+      ", {%64, %65, %66, %67}, db, p, 1, 1, %71;\n}\n"
+      : VDS_D64(0)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b_lo),
+        "r"(kDescHi), "r"(scale_d), "n"(TB));
+}
+
+#undef VDS_D64
+#undef VDS_D32
+#undef VDS_D8
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+                   smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar))
+               : "memory");
+}
+
+// Whether a wait that started at t0 has spun for about 10 s: that long can
+// only be a fault, and a hung card is worse.
+__device__ __forceinline__ bool stuck(long long t0) {
+  return clock64() - t0 > 20000000000ll;
+}
+
+// Traps (the launch fails with an error) once a wait is stuck.
+__device__ __forceinline__ void check_stuck(long long t0) {
+  if (stuck(t0)) asm volatile("trap;\n");
+}
+
+// Waits for the completion of the barrier's phase of this parity. A stuck
+// wait traps with TRAP, else gives up (the launch then ends with wrong
+// values, which every check against the twin catches). The consumer
+// warpgroups must not trap: a trap in their code holds ptxas to the
+// launch's 168 registers a thread, not setmaxnreg's 240, and it then
+// spills the accumulators every tile and serialises every wgmma.
+template <bool TRAP>
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
+  const long long t0 = clock64();
+  uint32_t done = 0;
+  do {
+    if (stuck(t0)) {
+      if (TRAP) asm volatile("trap;\n");
+      return;
     }
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem_u32(bar)), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// TMA tile loads of a 3-D / 4-D tensor map into shared memory, completing
+// on `bar`; coordinates innermost first.
+__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1,
+                                            int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
+      "r"(c1), "r"(c2)
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1,
+                                            int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
+      "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// A contiguous global → shared copy of `bytes` (a multiple of 16, both
+// ends 16-byte aligned), completing on `bar`.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                          uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(smem_u32(dst)),
+      "l"(src), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
+__device__ __forceinline__ void named_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// Keeps the compiler from moving reads or writes of these accumulator
+// registers across a wgmma issue or wait.
+template <int N>
+__device__ __forceinline__ void fence_regs(float* d) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+template <int N>
+__device__ __forceinline__ void fence_regs(uint32_t* d) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(d[i])::"memory");
+}
+
+// Shared-memory accesses by 32-bit address. The consumers form their
+// addresses from a base reloaded every tile, so that the compiler cannot
+// hoist every per-thread address out of the loop into a register.
+__device__ __forceinline__ void sts_u32(uint32_t a, uint32_t v) {
+  asm volatile("st.shared.u32 [%0], %1;\n" ::"r"(a), "r"(v) : "memory");
+}
+
+__device__ __forceinline__ void sts_f2(uint32_t a, float x, float y) {
+  asm volatile("st.shared.v2.f32 [%0], {%1, %2};\n" ::"r"(a), "f"(x), "f"(y)
+               : "memory");
+}
+
+__device__ __forceinline__ float2 lds_f2(uint32_t a) {
+  float2 v;
+  asm volatile("ld.shared.v2.f32 {%0, %1}, [%2];\n"
+               : "=f"(v.x), "=f"(v.y)
+               : "r"(a)
+               : "memory");
+  return v;
+}
+
+// Acquire load / release store of a counter in global memory.
+__device__ __forceinline__ int ld_acquire(const int* p) {
+  int v;
+  asm volatile("ld.acquire.gpu.global.b32 %0, [%1];\n" : "=r"(v) : "l"(p)
+               : "memory");
+  return v;
+}
+
+__device__ __forceinline__ void st_release(int* p, int v) {
+  asm volatile("st.release.gpu.global.b32 [%0], %1;\n" ::"l"(p), "r"(v)
+               : "memory");
+}
+
+// Byte offsets into the block's shared memory. A bf16 tile is stored as
+// panels of 64 columns (128 bytes a row, the TMA's 128-byte swizzle): kc,
+// kd, v [NP panels][BN rows] for the block's life; per stage qs and do
+// [NP][BM rows] and the stage's δ and lse rows; qd [NP][BM] and ds [BN kv
+// rows][BM q] (one panel) single; the dq partial of each consumer
+// warpgroup, fp32 [BM][64] with its 16-byte chunks swizzled; the barriers.
+template <int D>
+struct Layout {
+  static constexpr int NP = D / 64;
+  static constexpr int NDQ = D == 128 ? 2 : 1;  // dq writers: warpgroups
+  static constexpr int PANEL_KV = BN * 128;
+  static constexpr int PANEL_Q = BM * 128;
+  static constexpr int KV_TILE = NP * PANEL_KV;
+  static constexpr int Q_TILE = NP * PANEL_Q;
+  static constexpr int KC = 0;
+  static constexpr int KD = KV_TILE;
+  static constexpr int V = 2 * KV_TILE;
+  static constexpr int Q = 3 * KV_TILE;  // stage s: qs, do
+  static constexpr int STAGE = 2 * Q_TILE;
+  static constexpr int QD = Q + NSTAGE * STAGE;
+  static constexpr int DS = QD + Q_TILE;
+  static constexpr int DQ = DS + BN * 128;
+  static constexpr int DQ_TILE = BM * 64 * 4;
+  static constexpr int ROWS = DQ + NDQ * DQ_TILE;  // stage s: δ, lse
+  static constexpr int BARS = ROWS + NSTAGE * 2 * BM * 4;
+  // full[NSTAGE], empty[NSTAGE], qd_full, qd_empty, kv, dq_full,
+  // dq_empty, then the ticket and the block's smem base >> 4
+  static constexpr int BYTES = BARS + (2 * NSTAGE + 5) * 8 + 16;
+  static constexpr uint32_t STAGE_TX = STAGE + 2 * BM * 4;
+  static constexpr uint32_t KV_TX = 3 * KV_TILE;
+};
+
+// The offset of fp32 element (r, c) of a BM × 64 dq tile: 16-byte chunks
+// XOR-swizzled by the row, so the consumers' stores meet no bank conflict.
+__device__ __forceinline__ int dq_tile_off(int r, int c) {
+  return r * 64 + (((c >> 2) ^ (r & 15)) << 2) + (c & 3);
+}
+
+// The one-pass backward, warp-specialised. Warpgroup 0: warp 0 loads (one
+// thread issues every TMA copy), warp 1 adds the dq partials to the
+// accumulator (one thread, bulk copies from shared memory). Warpgroups 1
+// and 2 each own 64 of the block's BN kv rows. Block (ticket → kv block n,
+// b, h); `sync` holds the ticket counter, then per (b, h, q tile) one turn
+// counter per dq writer, all zero at launch. dq_acc [B·H, ⌈Lq/BM⌉, D/64]
+// tiles of BM × 64 fp32 (swizzled as dq_tile_off) needs no initialisation:
+// kv block 0 copies, the later ones add. rows [B·H, 2, Lqp] holds δ and
+// lse, padded to whole q tiles (Lqp = ⌈Lq/BM⌉·BM).
+template <int D, bool ROPE, bool BIAS, bool SPLIT>
+__global__ void __launch_bounds__(NT, 1)
+    bwd_kernel(const __grid_constant__ CUtensorMap tm_qs,
+               const __grid_constant__ CUtensorMap tm_qd,
+               const __grid_constant__ CUtensorMap tm_do,
+               const __grid_constant__ CUtensorMap tm_kc,
+               const __grid_constant__ CUtensorMap tm_kd,
+               const __grid_constant__ CUtensorMap tm_v,
+               const float* __restrict__ rows,
+               const float* __restrict__ cos_t,
+               const float* __restrict__ sin_t,
+               const float* __restrict__ kbias, bf16* __restrict__ dk,
+               long long dk_sb, long long dk_sl, bf16* __restrict__ dv,
+               long long dv_sb, long long dv_sl, float* __restrict__ dq_acc,
+               int* __restrict__ sync, float* __restrict__ dkv_part,
+               int splits, int kv_major, int nbh, int H, int Lq,
+               int Lk) {
+  using L = Layout<D>;
+  extern __shared__ unsigned char smem_raw[];
+  // the swizzle atoms need 1024-byte alignment
+  unsigned char* smem = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + L::BARS);
+  uint64_t* empty = full + NSTAGE;
+  uint64_t* qd_full = empty + NSTAGE;
+  uint64_t* qd_empty = qd_full + 1;
+  uint64_t* kvbar = qd_empty + 1;
+  uint64_t* dq_full = kvbar + 1;
+  uint64_t* dq_empty = dq_full + 1;
+  int* s_tile = reinterpret_cast<int*>(dq_empty + 1);
+  uint32_t* s_base4 = reinterpret_cast<uint32_t*>(s_tile + 1);
+
+  const int nq = (Lq + BM - 1) / BM;
+  const int lqp = nq * BM;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < NSTAGE; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 2 * 128);
+    }
+    mbar_init(qd_full, 1);
+    mbar_init(qd_empty, 2 * 128);
+    mbar_init(kvbar, 1);
+    mbar_init(dq_full, 128 * L::NDQ);
+    mbar_init(dq_empty, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    *s_tile = atomicAdd(sync, 1);
+    *s_base4 = smem_u32(smem) >> 4;
   }
-  const bf16* qsb = qs + bh * Lq * D;
-  const bf16* qdb = qd + bh * Lq * D;
-  const bf16* dob = dout + b * do_sb + h * D;
-  auto load_q = [&](int st, int m0) {
-    for (int idx = threadIdx.x; idx < BS * CH; idx += NT) {
-      const int r = idx / CH;
-      const int c = (idx % CH) * 8;
-      const bool valid = m0 + r < Lq;
-      const long long gr = valid ? m0 + r : 0;
-      cp_async16(&s_q[st * 3 * BS + r][c], qsb + gr * D + c, valid);
-      cp_async16(&s_q[st * 3 * BS + BS + r][c], qdb + gr * D + c, valid);
-      cp_async16(&s_q[st * 3 * BS + 2 * BS + r][c], dob + gr * do_sl + c,
-                 valid);
-    }
-    for (int r = threadIdx.x; r < BS; r += NT) {
-      const bool valid = m0 + r < Lq;
-      s_lse[st * BS + r] = valid ? lse[bh * Lq + m0 + r] : 0.f;
-      s_dl[st * BS + r] = valid ? delta[bh * Lq + m0 + r] : 0.f;
-    }
-    cp_async_commit();
-  };
+  __syncthreads();
+  const int tile = *s_tile;
+  // SPLIT = false compiles the unsplit kernel: one block per kv block
+  const int nsplit = SPLIT ? splits : 1;
+  const int split = tile % nsplit;
+  const int nkv = (Lk + BN - 1) / BN;
+  const int nblk = kv_major ? tile / nsplit / nbh : tile / nsplit % nkv;
+  const int bh = kv_major ? tile / nsplit % nbh : tile / nsplit / nkv;
+  // this block's q tiles [j0, j0 + nj): all of them, or its share of a
+  // split (which adds its dk, dv partials apart)
+  const int j0 = split * nq / nsplit;
+  const int nj = (split + 1) * nq / nsplit - j0;
+  const int b = bh / H;
+  const int h = bh % H;
+  const int n0 = nblk * BN;
+  // the turn counters of (b, h), one per q tile
+  int* turn = sync + 1 + static_cast<long long>(bh) * nq;
+  // warp-uniform as the compiler sees it, so setmaxnreg takes effect
+  const int wg = __shfl_sync(0xffffffff, threadIdx.x / 128, 0);
 
-  const int nq = (Lq + BS - 1) / BS;
-  load_q(0, 0);  // one group: the resident k/v tile and q tile 0
+  if (wg == 0) {  // ---- loader and dq writer ----
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
+    if (threadIdx.x == 0) {  // loader
+      mbar_expect_tx(kvbar, L::KV_TX);
+#pragma unroll
+      for (int p = 0; p < L::NP; ++p) {
+        tma_load_3d(smem + L::KC + p * L::PANEL_KV, &tm_kc, kvbar, 64 * p, n0,
+                    bh);
+        tma_load_3d(smem + L::KD + p * L::PANEL_KV, &tm_kd, kvbar, 64 * p, n0,
+                    bh);
+        tma_load_4d(smem + L::V + p * L::PANEL_KV, &tm_v, kvbar, 64 * p, h,
+                    n0, b);
+      }
+      const float* rows_bh = rows + static_cast<long long>(bh) * 2 * lqp;
+      for (int jj = 0; jj < nj; ++jj) {
+        const int j = j0 + jj;
+        const int s = jj % NSTAGE;
+        const int m0 = j * BM;
+        mbar_wait<true>(&empty[s], ((jj / NSTAGE) & 1) ^ 1);
+        unsigned char* st = smem + L::Q + s * L::STAGE;
+        mbar_expect_tx(&full[s], L::STAGE_TX);
+#pragma unroll
+        for (int p = 0; p < L::NP; ++p) {
+          tma_load_3d(st + p * L::PANEL_Q, &tm_qs, &full[s], 64 * p, m0, bh);
+          tma_load_4d(st + L::Q_TILE + p * L::PANEL_Q, &tm_do, &full[s],
+                      64 * p, h, m0, b);
+        }
+        float* r = reinterpret_cast<float*>(smem + L::ROWS) + s * 2 * BM;
+        bulk_load(r, rows_bh + m0, BM * 4, &full[s]);
+        bulk_load(r + BM, rows_bh + lqp + m0, BM * 4, &full[s]);
+        // qd is read last in a tile: one buffer, refilled once the
+        // consumers' dk product of the tile before is done
+        mbar_wait<true>(qd_empty, (jj & 1) ^ 1);
+        mbar_expect_tx(qd_full, L::Q_TILE);
+#pragma unroll
+        for (int p = 0; p < L::NP; ++p)
+          tma_load_3d(smem + L::QD + p * L::PANEL_Q, &tm_qd, qd_full, 64 * p,
+                      m0, bh);
+      }
+    } else if (threadIdx.x == 32) {  // dq writer
+      // a tile's partial: the NDQ warpgroups' BM × 64 blocks, adjacent in
+      // shared memory and in the accumulator
+      constexpr uint32_t bytes = L::NDQ * L::DQ_TILE;
+      const uint32_t src = smem_u32(smem + L::DQ);
+      float* acc_bh = dq_acc + static_cast<long long>(bh) * nq * L::NP *
+                                   (BM * 64);
+      for (int jj = 0; jj < nj; ++jj) {
+        const int j = j0 + jj;
+        mbar_wait<true>(dq_full, jj & 1);
+        const long long t0 = clock64();
+        while (ld_acquire(turn + j) != nblk) check_stuck(t0);
+        asm volatile("fence.proxy.async.global;\n" ::: "memory");
+        float* dst = acc_bh + static_cast<long long>(j) * L::NP * (BM * 64);
+        if (nblk == 0)
+          asm volatile(
+              "cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], "
+              "%2;\n" ::"l"(dst),
+              "r"(src), "r"(bytes)
+              : "memory");
+        else
+          asm volatile(
+              "cp.reduce.async.bulk.global.shared::cta.bulk_group.add.f32 "
+              "[%0], [%1], %2;\n" ::"l"(dst),
+              "r"(src), "r"(bytes)
+              : "memory");
+        asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+        // the staging buffer is free once read; the turn passes once the
+        // add is done
+        asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+        mbar_arrive(dq_empty);
+        asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+        asm volatile("fence.proxy.async.global;\n" ::: "memory");
+        st_release(turn + j, nblk + 1);
+      }
+    }
+  } else {  // ---- consumer warpgroups ----
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n");
+    const int c = wg - 1;  // which 64 kv rows
+    const int tid = threadIdx.x % 128;
+    const int wq = tid / 32;
+    const int lane = tid % 32;
+    const int g = lane / 4;
+    const int t = lane % 4;
 
-  // the bias of this thread's two kv rows (g, g + 8 of the warp's 16)
-  float row_kb[2] = {0.f, 0.f};
-  if (BIAS) {
+    // this thread's two kv rows: their bias, and whether they take part
+    // (inside Lk and not masked by a −1e30 bias)
+    const int kv_row0 = n0 + 64 * c + 16 * wq + g;
+    bool kv_in[2];
+    float row_kb[2];
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
-      const int row = n0 + warp * 16 + g + 8 * r;
-      row_kb[r] = row < Lk ? kbias[row] : 0.f;
+      kv_in[r] = kv_row0 + 8 * r < Lk;
+      row_kb[r] = BIAS && kv_in[r] ? kbias[kv_row0 + 8 * r] : 0.f;
+      if (BIAS) kv_in[r] = kv_in[r] && row_kb[r] > kMaskedBias;
+    }
+
+    float adk[D / 2], adv[D / 2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) adk[i] = adv[i] = 0.f;
+    // dq of the tile: D/2 columns (64c ..) per warpgroup at D = 128; at
+    // D = 64 both compute all 64 (no divergent wgmma) and warpgroup 0 sends
+    const bool has_dq = c < L::NDQ;
+
+    mbar_wait<false>(kvbar, 0);
+    for (int jj = 0; jj < nj; ++jj) {
+      const int j = j0 + jj;
+      const int s = jj % NSTAGE;
+      const int m0 = j * BM;
+      // the base reloaded every tile: descriptors computed from it cannot
+      // be hoisted out of the loop into registers the accumulators need
+      uint32_t b4;
+      asm volatile("ld.shared.u32 %0, [%1];\n"
+                   : "=r"(b4)
+                   : "r"(smem_u32(s_base4)));
+      const uint32_t st = L::Q + s * L::STAGE;  // this stage's offset
+      const uint32_t sb = b4 << 4;               // the block's shared base
+      // this thread's δ (and, BM floats on, lse) of column 2t of the stage
+      const uint32_t rows_t = sb + L::ROWS + s * 2 * BM * 4 + 8 * t;
+      mbar_wait<false>(&full[s], (jj / NSTAGE) & 1);
+
+      // per half of the tile's 64 q columns: sᵀ = kc·qsᵀ and dpᵀ = v·doᵀ
+      // (64 kv × 32 q, K-major over D), then pᵀ = exp2(sᵀ (+ bias[row]) −
+      // lse[col]) and dsᵀ = pᵀ·(dpᵀ − δ[col]), both 0 past Lq or on a kv
+      // row that takes no part, as bf16 A fragments (k-step kk: q columns
+      // 16kk ..); half a tile's products at a time keeps the fp32 logits
+      // within the registers the dk and dv accumulators leave
+      uint32_t pa[4][4], da[4][4];
+#pragma unroll
+      for (int hq = 0; hq < 2; ++hq) {
+        float sc[16], dp[16];
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk) {
+          const uint32_t koff =
+              (kk / 4) * L::PANEL_KV + 64 * c * 128 + (kk % 4) * 32;
+          const uint32_t qoff =
+              (kk / 4) * L::PANEL_Q + 32 * hq * 128 + (kk % 4) * 32;
+          wgmma_ss_n32<0, 0>(sc, b4 + desc_lo(L::KC + koff, 16),
+                             b4 + desc_lo(st + qoff, 16), kk > 0);
+          wgmma_ss_n32<0, 0>(dp, b4 + desc_lo(L::V + koff, 16),
+                             b4 + desc_lo(st + L::Q_TILE + qoff, 16), kk > 0);
+        }
+        wgmma_commit();
+        wgmma_wait_all();
+        fence_regs<16>(sc);
+        fence_regs<16>(dp);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int col = 32 * hq + 8 * i + 2 * t;
+          const float2 dl = lds_f2(rows_t + (32 * hq + 8 * i) * 4);
+          const float2 ls = lds_f2(rows_t + (BM + 32 * hq + 8 * i) * 4);
+          float p[4], ds[4];
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int r = e >> 1;
+            const bool valid = m0 + col + (e & 1) < Lq && kv_in[r];
+            const float sb = BIAS ? sc[4 * i + e] + row_kb[r] : sc[4 * i + e];
+            const float pe = exp2f(sb - ((e & 1) ? ls.y : ls.x));
+            p[e] = valid ? pe : 0.f;
+            ds[e] = valid ? pe * (dp[4 * i + e] - ((e & 1) ? dl.y : dl.x))
+                          : 0.f;
+          }
+          const int kk = 2 * hq + i / 2, hi = i % 2;
+          pa[kk][2 * hi] = pack_bf16(p[0], p[1]);
+          pa[kk][2 * hi + 1] = pack_bf16(p[2], p[3]);
+          da[kk][2 * hi] = pack_bf16(ds[0], ds[1]);
+          da[kk][2 * hi + 1] = pack_bf16(ds[2], ds[3]);
+        }
+      }
+
+      // dv += bf16(pᵀ)·do: A from registers, B MN-major (K = q, N = D)
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < BM / 16; ++kk) {
+        const uint32_t bd =
+            b4 + desc_lo(st + L::Q_TILE + kk * 16 * 128, L::PANEL_Q);
+        if constexpr (D == 128)
+          wgmma_rs_n128<1>(adv, pa[kk], bd, 1);
+        else
+          wgmma_rs_n64<1>(adv, pa[kk], bd, 1);
+      }
+      wgmma_commit();
+
+      // dsᵀ [kv row][q col] into the single ds buffer, in its
+      // 128-byte-swizzled rows, once both warpgroups' dq product of the
+      // tile before has read it
+      named_sync(1, 256);
+      // row 64c + 16wq + g (+ 8), 16-byte chunk j at chunk j ^ g (its row
+      // mod 8): the XOR lands on address bits 4–6, which the row's base
+      // leaves 0
+      const uint32_t ds_row = sb + L::DS + (64 * c + 16 * wq + g) * 128 + 4 * t;
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          sts_u32((ds_row + (e & 1) * 8 * 128 + ((2 * kk + (e >> 1)) << 4)) ^
+                      (g << 4),
+                  da[kk][e]);
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      named_sync(1, 256);
+
+      // dk += bf16(dsᵀ)·qd with A = this warpgroup's rows of the ds buffer
+      // (K-major: q along the row) and B = qd (MN-major), and this
+      // warpgroup's share of the tile's dq partial ds·kd over BN kv rows
+      // (A and B MN-major)
+      mbar_wait<false>(qd_full, jj & 1);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < BM / 16; ++kk) {
+        const uint32_t ad = b4 + desc_lo(L::DS + 64 * c * 128 + kk * 32, 16);
+        const uint32_t bd = b4 + desc_lo(L::QD + kk * 16 * 128, L::PANEL_Q);
+        if constexpr (D == 128)
+          wgmma_ss_n128<0, 1>(adk, ad, bd, 1);
+        else
+          wgmma_ss_n64<0, 1>(adk, ad, bd, 1);
+      }
+      float adq[32];
+#pragma unroll
+      for (int kk = 0; kk < BN / 16; ++kk) {
+        const uint32_t koff = kk * 16 * 128;
+        wgmma_ss_n64<1, 1>(
+            adq, b4 + desc_lo(L::DS + koff, BN * 128),
+            b4 + desc_lo(L::KD + (c % L::NP) * L::PANEL_KV + koff,
+                         L::PANEL_KV),
+            kk > 0);
+      }
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_regs<D / 2>(adv);
+      fence_regs<D / 2>(adk);
+      fence_regs<32>(adq);
+      fence_regs<16>(&pa[0][0]);  // the A fragments live until the wait
+      mbar_arrive(&empty[s]);  // this stage's qs and do are read
+      mbar_arrive(qd_empty);
+      if (!has_dq) continue;
+
+      // the partial to shared memory, once the writer has sent the last
+      mbar_wait<false>(dq_empty, (jj & 1) ^ 1);
+      // (row, column 8i + 2t) at dq_tile_off: the chunk 2i + t/2 of the
+      // row XOR the row mod 16, again on address bits 4–7 only
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int row = 16 * wq + g + 8 * r;
+        const uint32_t at = sb + L::DQ + c * L::DQ_TILE + row * 256 +
+                            8 * (t & 1) + ((t >> 1) << 4);
+#pragma unroll
+        for (int i = 0; i < 8; ++i)
+          sts_f2((at + (i << 5)) ^ ((row & 15) << 4), adq[4 * i + 2 * r],
+                 adq[4 * i + 2 * r + 1]);
+      }
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      mbar_arrive(dq_full);
+    }
+
+    // with the q tiles split over blocks: this block's fp32 partials of dk
+    // (unrotated) and dv, [split][dk, dv][B·H, Lk, D], summed in split
+    // order by dkv_reduce_kernel
+    if (SPLIT) {
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int row = kv_row0 + 8 * r;
+        if (row >= Lk) continue;
+        float* pk = dkv_part + ((static_cast<long long>(split) * 2 * nbh +
+                                 bh) * Lk + row) * D;
+        float* pv = pk + static_cast<long long>(nbh) * Lk * D;
+#pragma unroll
+        for (int i = 0; i < D / 8; ++i) {
+          *reinterpret_cast<float2*>(pk + 8 * i + 2 * t) =
+              make_float2(adk[4 * i + 2 * r], adk[4 * i + 2 * r + 1]);
+          *reinterpret_cast<float2*>(pv + 8 * i + 2 * t) =
+              make_float2(adv[4 * i + 2 * r], adv[4 * i + 2 * r + 1]);
+        }
+      }
+      return;
+    }
+    // dv, and dk rotated back by Rᵀ of the k table when ROPE, as bf16
+    constexpr int H2 = D / 2;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = kv_row0 + 8 * r;
+      if (row >= Lk) continue;
+      if (ROPE) {
+#pragma unroll
+        for (int i = 0; i < D / 16; ++i) {
+          const int col = 8 * i + 2 * t;
+          const float* cs = cos_t + static_cast<long long>(row) * H2 + col;
+          const float* sn = sin_t + static_cast<long long>(row) * H2 + col;
+          rotate_t2(&adk[4 * i + 2 * r], &adk[4 * (i + D / 16) + 2 * r], cs,
+                    sn);
+        }
+      }
+      bf16* ov = dv + b * dv_sb + static_cast<long long>(row) * dv_sl + h * D;
+      bf16* ok = dk + b * dk_sb + static_cast<long long>(row) * dk_sl + h * D;
+#pragma unroll
+      for (int i = 0; i < D / 8; ++i) {
+        *reinterpret_cast<uint32_t*>(ov + 8 * i + 2 * t) =
+            pack_bf16(adv[4 * i + 2 * r], adv[4 * i + 2 * r + 1]);
+        *reinterpret_cast<uint32_t*>(ok + 8 * i + 2 * t) =
+            pack_bf16(adk[4 * i + 2 * r], adk[4 * i + 2 * r + 1]);
+      }
     }
   }
-
-  float adk[D / 8][4], adv[D / 8][4];
-#pragma unroll
-  for (int i = 0; i < D / 8; ++i)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) adk[i][e] = adv[i][e] = 0.f;
-
-  for (int j = 0; j < nq; ++j) {
-    const int m0 = j * BS;
-    const int st = j & 1;
-    if (j + 1 < nq)
-      load_q(st ^ 1, m0 + BS);
-    else
-      cp_async_commit();  // an empty group keeps the wait count uniform
-    cp_async_wait_one();
-    __syncthreads();
-    const bf16(*t_qs)[LD] = s_q + st * 3 * BS;
-    const bf16(*t_qd)[LD] = t_qs + BS;
-    const bf16(*t_do)[LD] = t_qs + 2 * BS;
-    const float* t_lse = s_lse + st * BS;
-    const float* t_dl = s_dl + st * BS;
-
-    // sᵀ = kc·qsᵀ and dpᵀ = v·doᵀ: 16 kv rows × BS q columns per warp
-    float s[BS / 8][4], dp[BS / 8][4];
-#pragma unroll
-    for (int i = 0; i < BS / 8; ++i)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[i][e] = dp[i][e] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      uint32_t ka[4], va[4];
-      ldmatrix_x4(ka, &s_k[warp * 16 + (lane % 16)][kk * 16 + (lane / 16) * 8]);
-      ldmatrix_x4(va, &s_v[warp * 16 + (lane % 16)][kk * 16 + (lane / 16) * 8]);
-#pragma unroll
-      for (int np = 0; np < BS / 16; ++np) {
-        const int br = np * 16 + (lane % 8) + (lane / 16) * 8;
-        const int bc = kk * 16 + ((lane / 8) % 2) * 8;
-        uint32_t qf[4], df[4];
-        ldmatrix_x4(qf, &t_qs[br][bc]);
-        ldmatrix_x4(df, &t_do[br][bc]);
-        mma_bf16(s[2 * np], ka, qf[0], qf[1]);
-        mma_bf16(s[2 * np + 1], ka, qf[2], qf[3]);
-        mma_bf16(dp[2 * np], va, df[0], df[1]);
-        mma_bf16(dp[2 * np + 1], va, df[2], df[3]);
-      }
-    }
-
-    // pᵀ = exp2(sᵀ (+ bias[row]) − lse[col]), 0 past Lq;
-    // dsᵀ = pᵀ·(dpᵀ − δ[col])
-#pragma unroll
-    for (int i = 0; i < BS / 8; ++i)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int col = i * 8 + 2 * t + (e & 1);
-        const float sb = BIAS ? s[i][e] + row_kb[e >> 1] : s[i][e];
-        const float p = m0 + col < Lq ? exp2f(sb - t_lse[col]) : 0.f;
-        s[i][e] = p;
-        dp[i][e] = p * (dp[i][e] - t_dl[col]);
-      }
-
-    // dv += bf16(pᵀ)·do and dk += bf16(dsᵀ)·qd; A fragments from registers
-#pragma unroll
-    for (int kk = 0; kk < BS / 16; ++kk) {
-      uint32_t pa[4], da[4];
-      pa[0] = pack_bf16(s[2 * kk][0], s[2 * kk][1]);
-      pa[1] = pack_bf16(s[2 * kk][2], s[2 * kk][3]);
-      pa[2] = pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
-      pa[3] = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
-      da[0] = pack_bf16(dp[2 * kk][0], dp[2 * kk][1]);
-      da[1] = pack_bf16(dp[2 * kk][2], dp[2 * kk][3]);
-      da[2] = pack_bf16(dp[2 * kk + 1][0], dp[2 * kk + 1][1]);
-      da[3] = pack_bf16(dp[2 * kk + 1][2], dp[2 * kk + 1][3]);
-#pragma unroll
-      for (int dd = 0; dd < D / 16; ++dd) {
-        uint32_t f[4];
-        ldmatrix_x4_trans(f, &t_do[kk * 16 + (lane % 16)][dd * 16 + (lane / 16) * 8]);
-        mma_bf16(adv[2 * dd], pa, f[0], f[1]);
-        mma_bf16(adv[2 * dd + 1], pa, f[2], f[3]);
-        ldmatrix_x4_trans(f, &t_qd[kk * 16 + (lane % 16)][dd * 16 + (lane / 16) * 8]);
-        mma_bf16(adk[2 * dd], da, f[0], f[1]);
-        mma_bf16(adk[2 * dd + 1], da, f[2], f[3]);
-      }
-    }
-    __syncthreads();  // stage st is read; iteration j+1 refills it
-  }
-
-  const int row0 = n0 + warp * 16;
-  store_rows<D, false>(adv, dv + b * dv_sb + h * D, dv_sl, row0, Lk, nullptr,
-                       nullptr, g, t);
-  store_rows<D, ROPE>(adk, dk + b * dk_sb + h * D, dk_sl, row0, Lk, cos_t,
-                      sin_t, g, t);
 }
 
-// dq pass: block (q tile, h, b). qs and do of its 64 q rows stay in shared
-// memory; kc, kd and v stream in tiles of BS kv rows. Each warp owns 16 q
-// rows: s = qs·kcᵀ (+ bias), dp = do·vᵀ, ds = bf16(p·(dp − δ)), dq += ds·kd.
-template <int D, bool ROPE, bool BIAS>
-__global__ void __launch_bounds__(NT)
-    bwd_dq_kernel(const bf16* __restrict__ qs, const bf16* __restrict__ kc,
-                  const bf16* __restrict__ kd, const bf16* __restrict__ v,
-                  long long v_sb, long long v_sl,
-                  const bf16* __restrict__ dout, long long do_sb,
-                  long long do_sl, const float* __restrict__ lse,
-                  const float* __restrict__ delta,
-                  const float* __restrict__ cos_t,
-                  const float* __restrict__ sin_t,
-                  const float* __restrict__ kbias, bf16* __restrict__ dq,
-                  long long dq_sb, long long dq_sl, int H, int Lq, int Lk) {
-  constexpr int LD = D + 8;
-  constexpr int CH = D / 8;
-  // [qs: BR][do: BR][stage 0: kc, kd, v: 3·BS][stage 1: 3·BS] rows
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16(*s_q)[LD] = reinterpret_cast<bf16(*)[LD]>(smem_raw);
-  bf16(*s_do)[LD] = s_q + BR;
-  bf16(*s_kv)[LD] = s_do + BR;
-
-  const int m0 = blockIdx.x * BR;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const long long bh = static_cast<long long>(b) * H + h;
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int g = lane / 4;
-  const int t = lane % 4;
-
-  {
-    const bf16* qb = qs + bh * Lq * D;
-    const bf16* dob = dout + b * do_sb + h * D;
-    for (int idx = threadIdx.x; idx < BR * CH; idx += NT) {
-      const int r = idx / CH;
-      const int c = (idx % CH) * 8;
-      const bool valid = m0 + r < Lq;
-      const long long gr = valid ? m0 + r : 0;
-      cp_async16(&s_q[r][c], qb + gr * D + c, valid);
-      cp_async16(&s_do[r][c], dob + gr * do_sl + c, valid);
+// dq = bf16(dq_acc) → [B, Lq, H·D] with row strides, rotated back by Rᵀ
+// of the q table when ROPE; one thread per 8 pairs. dq_acc holds BM × 64
+// tiles [B·H, ⌈L/BM⌉, D/64] (dq_tile_off inside a tile).
+template <int D, bool ROPE>
+__global__ void dq_store_kernel(const float* __restrict__ acc,
+                                const float* __restrict__ cos_t,
+                                const float* __restrict__ sin_t,
+                                bf16* __restrict__ dq, long long dq_sb,
+                                long long dq_sl, int H, int L,
+                                long long total) {
+  constexpr int H2 = D / 2;
+  constexpr int CH = H2 / 8;
+  const long long i = blockIdx.x * static_cast<long long>(blockDim.x) + threadIdx.x;
+  if (i >= total) return;
+  const int c = static_cast<int>(i % CH) * 8;
+  long long rest = i / CH;
+  const int l = static_cast<int>(rest % L);
+  rest /= L;
+  const int h = static_cast<int>(rest % H);
+  const long long b = rest / H;
+  const int nq = (L + BM - 1) / BM;
+  const int r = l % BM;
+  // columns c .. c+7 and c+H2 .. c+H2+7: two 4-float chunks each
+  float x1[8], x2[8];
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int col = c + half * H2;
+    const float* tile = acc + (((b * H + h) * nq + l / BM) * (D / 64) +
+                               col / 64) * (BM * 64);
+    float* x = half ? x2 : x1;
+#pragma unroll
+    for (int j = 0; j < 8; j += 4) {
+      const float4 u = *reinterpret_cast<const float4*>(
+          tile + dq_tile_off(r, col % 64 + j));
+      x[j] = u.x, x[j + 1] = u.y, x[j + 2] = u.z, x[j + 3] = u.w;
     }
   }
-  const bf16* kcb = kc + bh * Lk * D;
-  const bf16* kdb = kd + bh * Lk * D;
-  const bf16* vb = v + b * v_sb + h * D;
-  auto load_kv = [&](int st, int n0) {
-    for (int idx = threadIdx.x; idx < BS * CH; idx += NT) {
-      const int r = idx / CH;
-      const int c = (idx % CH) * 8;
-      const bool valid = n0 + r < Lk;
-      const long long gr = valid ? n0 + r : 0;
-      cp_async16(&s_kv[st * 3 * BS + r][c], kcb + gr * D + c, valid);
-      cp_async16(&s_kv[st * 3 * BS + BS + r][c], kdb + gr * D + c, valid);
-      cp_async16(&s_kv[st * 3 * BS + 2 * BS + r][c], vb + gr * v_sl + c, valid);
-    }
-    cp_async_commit();
-  };
-
-  // lse and δ of this thread's two rows
-  float row_lse[2], row_dl[2];
+  if (ROPE) {
+    const float* cs = cos_t + static_cast<long long>(l) * H2 + c;
+    const float* sn = sin_t + static_cast<long long>(l) * H2 + c;
 #pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int row = m0 + warp * 16 + g + 8 * r;
-    row_lse[r] = row < Lq ? lse[bh * Lq + row] : 0.f;
-    row_dl[r] = row < Lq ? delta[bh * Lq + row] : 0.f;
+    for (int j = 0; j < 8; ++j) {
+      const float y1 = x1[j] * cs[j] - x2[j] * sn[j];
+      const float y2 = x1[j] * sn[j] + x2[j] * cs[j];
+      x1[j] = y1;
+      x2[j] = y2;
+    }
   }
+  bf16* out = dq + b * dq_sb + static_cast<long long>(l) * dq_sl + h * D + c;
+  *reinterpret_cast<uint4*>(out) = pack8(x1);
+  *reinterpret_cast<uint4*>(out + H2) = pack8(x2);
+}
 
-  const int nk = (Lk + BS - 1) / BS;
-  load_kv(0, 0);  // one group: the resident q/do tile and kv tile 0
-
-  float adq[D / 8][4];
+// dk, dv = the sum of the `splits` fp32 partials [split][dk, dv][B·H, L, D]
+// in split order, dk rotated back by Rᵀ of the k table when ROPE, as bf16
+// [B, L, H·D] with row strides; one thread per 8 pairs.
+template <int D, bool ROPE>
+__global__ void dkv_reduce_kernel(const float* __restrict__ part, int splits,
+                                  const float* __restrict__ cos_t,
+                                  const float* __restrict__ sin_t,
+                                  bf16* __restrict__ dk, long long dk_sb,
+                                  long long dk_sl, bf16* __restrict__ dv,
+                                  long long dv_sb, long long dv_sl, int H,
+                                  int L, long long total) {
+  constexpr int H2 = D / 2;
+  constexpr int CH = H2 / 8;
+  const long long i = blockIdx.x * static_cast<long long>(blockDim.x) + threadIdx.x;
+  if (i >= total) return;
+  const int c = static_cast<int>(i % CH) * 8;
+  long long rest = i / CH;
+  const int l = static_cast<int>(rest % L);
+  rest /= L;
+  const int h = static_cast<int>(rest % H);
+  const long long b = rest / H;
+  const long long plane = total / CH * D;  // B·H·L·D
+  float k1[8] = {}, k2[8] = {}, v1[8] = {}, v2[8] = {};
+  for (int z = 0; z < splits; ++z) {
+    const float* pk = part + 2 * z * plane + ((b * H + h) * L + l) * D + c;
 #pragma unroll
-  for (int i = 0; i < D / 8; ++i)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) adq[i][e] = 0.f;
-
-  for (int j = 0; j < nk; ++j) {
-    const int n0 = j * BS;
-    const int st = j & 1;
-    if (j + 1 < nk)
-      load_kv(st ^ 1, n0 + BS);
-    else
-      cp_async_commit();
-    cp_async_wait_one();
-    __syncthreads();
-    const bf16(*t_kc)[LD] = s_kv + st * 3 * BS;
-    const bf16(*t_kd)[LD] = t_kc + BS;
-    const bf16(*t_v)[LD] = t_kc + 2 * BS;
-
-    float s[BS / 8][4], dp[BS / 8][4];
-#pragma unroll
-    for (int i = 0; i < BS / 8; ++i)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[i][e] = dp[i][e] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      uint32_t qa[4], da[4];
-      ldmatrix_x4(qa, &s_q[warp * 16 + (lane % 16)][kk * 16 + (lane / 16) * 8]);
-      ldmatrix_x4(da, &s_do[warp * 16 + (lane % 16)][kk * 16 + (lane / 16) * 8]);
-#pragma unroll
-      for (int np = 0; np < BS / 16; ++np) {
-        const int br = np * 16 + (lane % 8) + (lane / 16) * 8;
-        const int bc = kk * 16 + ((lane / 8) % 2) * 8;
-        uint32_t kf[4], vf[4];
-        ldmatrix_x4(kf, &t_kc[br][bc]);
-        ldmatrix_x4(vf, &t_v[br][bc]);
-        mma_bf16(s[2 * np], qa, kf[0], kf[1]);
-        mma_bf16(s[2 * np + 1], qa, kf[2], kf[3]);
-        mma_bf16(dp[2 * np], da, vf[0], vf[1]);
-        mma_bf16(dp[2 * np + 1], da, vf[2], vf[3]);
-      }
+    for (int j = 0; j < 8; j += 4) {
+      const float4 a = *reinterpret_cast<const float4*>(pk + j);
+      const float4 e = *reinterpret_cast<const float4*>(pk + H2 + j);
+      const float4 u = *reinterpret_cast<const float4*>(pk + plane + j);
+      const float4 w = *reinterpret_cast<const float4*>(pk + plane + H2 + j);
+      k1[j] += a.x, k1[j + 1] += a.y, k1[j + 2] += a.z, k1[j + 3] += a.w;
+      k2[j] += e.x, k2[j + 1] += e.y, k2[j + 2] += e.z, k2[j + 3] += e.w;
+      v1[j] += u.x, v1[j + 1] += u.y, v1[j + 2] += u.z, v1[j + 3] += u.w;
+      v2[j] += w.x, v2[j + 1] += w.y, v2[j + 2] += w.z, v2[j + 3] += w.w;
     }
-
-    // p = exp2(s (+ bias[col]) − lse[row]), 0 past Lk; ds = p·(dp − δ[row])
-    // into dp
-#pragma unroll
-    for (int i = 0; i < BS / 8; ++i)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int col = n0 + i * 8 + 2 * t + (e & 1);
-        const int r = e >> 1;
-        const float p =
-            col < Lk ? exp2f((BIAS ? s[i][e] + kbias[col] : s[i][e]) - row_lse[r])
-                     : 0.f;
-        dp[i][e] = p * (dp[i][e] - row_dl[r]);
-      }
-
-    // dq += bf16(ds)·kd
-#pragma unroll
-    for (int kk = 0; kk < BS / 16; ++kk) {
-      uint32_t da[4];
-      da[0] = pack_bf16(dp[2 * kk][0], dp[2 * kk][1]);
-      da[1] = pack_bf16(dp[2 * kk][2], dp[2 * kk][3]);
-      da[2] = pack_bf16(dp[2 * kk + 1][0], dp[2 * kk + 1][1]);
-      da[3] = pack_bf16(dp[2 * kk + 1][2], dp[2 * kk + 1][3]);
-#pragma unroll
-      for (int dd = 0; dd < D / 16; ++dd) {
-        uint32_t f[4];
-        ldmatrix_x4_trans(f, &t_kd[kk * 16 + (lane % 16)][dd * 16 + (lane / 16) * 8]);
-        mma_bf16(adq[2 * dd], da, f[0], f[1]);
-        mma_bf16(adq[2 * dd + 1], da, f[2], f[3]);
-      }
-    }
-    __syncthreads();
   }
+  if (ROPE) {
+    const float* cs = cos_t + static_cast<long long>(l) * H2 + c;
+    const float* sn = sin_t + static_cast<long long>(l) * H2 + c;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const float y1 = k1[j] * cs[j] - k2[j] * sn[j];
+      const float y2 = k1[j] * sn[j] + k2[j] * cs[j];
+      k1[j] = y1;
+      k2[j] = y2;
+    }
+  }
+  bf16* ok = dk + b * dk_sb + static_cast<long long>(l) * dk_sl + h * D + c;
+  bf16* ov = dv + b * dv_sb + static_cast<long long>(l) * dv_sl + h * D + c;
+  *reinterpret_cast<uint4*>(ok) = pack8(k1);
+  *reinterpret_cast<uint4*>(ok + H2) = pack8(k2);
+  *reinterpret_cast<uint4*>(ov) = pack8(v1);
+  *reinterpret_cast<uint4*>(ov + H2) = pack8(v2);
+}
 
-  store_rows<D, ROPE>(adq, dq + b * dq_sb + h * D, dq_sl, m0 + warp * 16, Lq,
-                      cos_t, sin_t, g, t);
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType,
+                                cuuint32_t, void*, const cuuint64_t*,
+                                const cuuint64_t*, const cuuint32_t*,
+                                const cuuint32_t*, CUtensorMapInterleave,
+                                CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled from the driver, through the runtime (no -lcuda).
+inline EncodeTiled encode_tiled() {
+  static EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+#if CUDART_VERSION >= 12050
+    cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
+#else
+    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
+                                              cudaEnableDefault, &q);
+#endif
+    return err == cudaSuccess && q == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiled>(p)
+               : nullptr;
+  }();
+  return fn;
+}
+
+// A TMA map of a bf16 tensor with unit inner stride: dims and box innermost
+// first, strides (in elements) of dims 1 .. rank−1; 128-byte swizzle, the
+// box's inner 64 elements one swizzle row; out-of-bounds reads give zeros.
+inline cudaError_t bf16_map(CUtensorMap* map, const void* ptr, int rank,
+                            const long long* dims, const long long* strides,
+                            const int* box) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return cudaErrorNotSupported;
+  cuuint64_t gd[4], gs[3];
+  cuuint32_t bx[4], es[4];
+  for (int i = 0; i < rank; ++i) {
+    gd[i] = static_cast<cuuint64_t>(dims[i]);
+    bx[i] = static_cast<cuuint32_t>(box[i]);
+    es[i] = 1;
+  }
+  for (int i = 0; i + 1 < rank; ++i)
+    gs[i] = static_cast<cuuint64_t>(strides[i]) * sizeof(bf16);
+  const CUresult r = encode(
+      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank, const_cast<void*>(ptr), gd,
+      gs, bx, es, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+      CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
 // q rotates by cos_q/sin_q [Lq, D/2] and k by cos_k/sin_k [Lk, D/2]
-// (ROPE); kbias [Lk] fp32 (BIAS).
+// (ROPE); kbias [Lk] fp32 (BIAS). Scratch: qs/qd [B, H, Lq, D] and kc/kd
+// [B, H, Lk, D] bf16, rows [B·H, 2, Lqp] and dq_acc [B·H, Lqp, D] (as BM × 64
+// tiles) fp32, sync 1 + B·H·⌈Lq/BM⌉ int32 (zeroed here), Lqp = ⌈Lq/BM⌉·BM;
+// with splits > 1 (each kv block's q tiles split over that many blocks,
+// where the kv blocks alone leave SMs idle) dkv_part [splits][2][B·H, Lk,
+// D] fp32.
+// The TMA maps are encoded at every launch: they hold the scratch's
+// addresses, which are new at every call.
 template <int D, bool ROPE, bool BIAS>
 cudaError_t launch_attention_bwd(const void* q, const void* k, const void* v,
                                  const void* o, const void* dout,
                                  const void* lse, const void* cos_q,
                                  const void* sin_q, const void* cos_k,
                                  const void* sin_k, const void* kbias,
-                                 void* qs, void* qd,
-                                 void* kc, void* kd, void* delta, void* dq,
-                                 void* dk, void* dv, int B, int H, int Lq,
-                                 int Lk, const long long* st, float scale,
-                                 float q_mul, cudaStream_t stream) {
+                                 void* qs, void* qd, void* kc, void* kd,
+                                 void* rows, void* dq_acc, void* sync,
+                                 void* dkv_part, int splits, void* dq,
+                                 void* dk, void* dv, int B, int H,
+                                 int Lq, int Lk, const long long* st,
+                                 float scale, float q_mul,
+                                 cudaStream_t stream) {
   // st: q, k, v, o, do, dq, dk, dv — (batch, row) stride pairs in elements
   const int threads = 256;
   const float* cq = static_cast<const float*>(cos_q);
   const float* sq = static_cast<const float*>(sin_q);
   const float* ck = static_cast<const float*>(cos_k);
   const float* sk = static_cast<const float*>(sin_k);
-  const float* kb = static_cast<const float*>(kbias);
+  const int nbh = B * H;
+  const int nq = (Lq + BM - 1) / BM;
+  cudaError_t err = cudaMemsetAsync(
+      sync, 0, sizeof(int) * (1 + static_cast<size_t>(nbh) * nq), stream);
+  if (err != cudaSuccess) return err;
   const long long tq = static_cast<long long>(B) * Lq * H * (D / 16);
   prep_q_kernel<D, ROPE><<<static_cast<unsigned>((tq + threads - 1) / threads),
                            threads, 0, stream>>>(
       static_cast<const bf16*>(q), st[0], st[1], static_cast<const bf16*>(dout),
       st[8], st[9], static_cast<const bf16*>(o), st[6], st[7], cq, sq,
-      static_cast<bf16*>(qs), static_cast<bf16*>(qd),
-      static_cast<float*>(delta), H, Lq, q_mul, scale, tq);
-  cudaError_t err = cudaGetLastError();
+      static_cast<const float*>(lse), static_cast<bf16*>(qs),
+      static_cast<bf16*>(qd), static_cast<float*>(rows), H, Lq, nq * BM,
+      q_mul, scale, tq);
+  err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   const long long tk = static_cast<long long>(B) * Lk * H * (D / 16);
   prep_k_kernel<D, ROPE><<<static_cast<unsigned>((tk + threads - 1) / threads),
@@ -557,32 +1129,64 @@ cudaError_t launch_attention_bwd(const void* q, const void* k, const void* v,
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
 
-  constexpr int LD = D + 8;
-  constexpr int smem_dkdv = (2 * BR + 6 * BS) * LD * 2 + 4 * BS * 4;
-  constexpr int smem_dq = (2 * BR + 6 * BS) * LD * 2;
-  auto dkdv = bwd_dkdv_kernel<D, ROPE, BIAS>;
-  auto dqk = bwd_dq_kernel<D, ROPE, BIAS>;
-  err = cudaFuncSetAttribute(dkdv, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             smem_dkdv);
+  // head-major scratch [B·H, L, D]; do and v strided [B, L, H, D]
+  CUtensorMap maps[6];
+  const long long q3[3] = {D, Lq, nbh}, k3[3] = {D, Lk, nbh};
+  const long long qs3[2] = {D, static_cast<long long>(Lq) * D};
+  const long long ks3[2] = {D, static_cast<long long>(Lk) * D};
+  const long long do4[4] = {D, H, Lq, B}, v4[4] = {D, H, Lk, B};
+  const long long dos4[3] = {D, st[9], st[8]}, vs4[3] = {D, st[5], st[4]};
+  const int qbox3[3] = {64, BM, 1}, kbox3[3] = {64, BN, 1};
+  const int qbox4[4] = {64, 1, BM, 1}, kbox4[4] = {64, 1, BN, 1};
+  const void* ptrs[6] = {qs, qd, dout, kc, kd, v};
+  for (int i = 0; i < 6 && err == cudaSuccess; ++i) {
+    const bool q_side = i < 3;
+    if (i == 2 || i == 5)
+      err = bf16_map(&maps[i], ptrs[i], 4, q_side ? do4 : v4,
+                     q_side ? dos4 : vs4, q_side ? qbox4 : kbox4);
+    else
+      err = bf16_map(&maps[i], ptrs[i], 3, q_side ? q3 : k3,
+                     q_side ? qs3 : ks3, q_side ? qbox3 : kbox3);
+  }
   if (err != cudaSuccess) return err;
-  err = cudaFuncSetAttribute(dqk, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             smem_dq);
+
+  int dev = 0, sms = 0;
+  err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err != cudaSuccess) return err;
-  const float* l = static_cast<const float*>(lse);
-  const float* dl = static_cast<const float*>(delta);
-  dkdv<<<dim3((Lk + BR - 1) / BR, H, B), NT, smem_dkdv, stream>>>(
-      static_cast<const bf16*>(qs), static_cast<const bf16*>(qd),
-      static_cast<const bf16*>(kc), static_cast<const bf16*>(v), st[4], st[5],
-      static_cast<const bf16*>(dout), st[8], st[9], l, dl, ck, sk, kb,
-      static_cast<bf16*>(dk), st[12], st[13], static_cast<bf16*>(dv), st[14],
-      st[15], H, Lq, Lk);
+  constexpr int smem = Layout<D>::BYTES + 1024;  // + the alignment slack
+  auto kern = splits > 1 ? bwd_kernel<D, ROPE, BIAS, true>
+                         : bwd_kernel<D, ROPE, BIAS, false>;
+  err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             smem);
+  if (err != cudaSuccess) return err;
+  kern<<<static_cast<unsigned>((Lk + BN - 1) / BN) * nbh * splits, NT, smem,
+         stream>>>(
+      maps[0], maps[1], maps[2], maps[3], maps[4], maps[5],
+      static_cast<const float*>(rows), ck, sk,
+      static_cast<const float*>(kbias), static_cast<bf16*>(dk), st[12],
+      st[13], static_cast<bf16*>(dv), st[14], st[15],
+      static_cast<float*>(dq_acc), static_cast<int*>(sync),
+      static_cast<float*>(dkv_part), splits, nbh < sms ? 1 : 0, nbh, H, Lq,
+      Lk);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  dqk<<<dim3((Lq + BR - 1) / BR, H, B), NT, smem_dq, stream>>>(
-      static_cast<const bf16*>(qs), static_cast<const bf16*>(kc),
-      static_cast<const bf16*>(kd), static_cast<const bf16*>(v), st[4], st[5],
-      static_cast<const bf16*>(dout), st[8], st[9], l, dl, cq, sq, kb,
-      static_cast<bf16*>(dq), st[10], st[11], H, Lq, Lk);
+  if (splits > 1) {
+    const long long tk2 = static_cast<long long>(B) * H * Lk * (D / 16);
+    dkv_reduce_kernel<D, ROPE>
+        <<<static_cast<unsigned>((tk2 + threads - 1) / threads), threads, 0,
+           stream>>>(static_cast<const float*>(dkv_part), splits, ck, sk,
+                     static_cast<bf16*>(dk), st[12], st[13],
+                     static_cast<bf16*>(dv), st[14], st[15], H, Lk, tk2);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+  }
+  const long long td = static_cast<long long>(B) * H * Lq * (D / 16);
+  dq_store_kernel<D, ROPE><<<static_cast<unsigned>((td + threads - 1) / threads),
+                             threads, 0, stream>>>(
+      static_cast<const float*>(dq_acc), cq, sq, static_cast<bf16*>(dq),
+      st[10], st[11], H, Lq, td);
   return cudaGetLastError();
 }
 

@@ -14,19 +14,18 @@
 // as 8208 = 16 + 8·1024 that do not tile into its 1024-row blocks:
 // `_backward_tail` (:1596, `_bwd_dkv_kernel_tail` :1511) adds the 16
 // prefix columns' terms to the bulk's dq and emits the prefix rows' dk/dv.
-// Here the dk/dv pass owns every 64-row kv tile, the prefix's included, and
-// the dq pass streams every kv tile, the ragged last one masked; p comes
-// from the global lse either way, so the split's terms are all there.
+// Here every 128-row kv block, the ragged last one masked, owns its dk/dv
+// rows and adds its dq partial to every q tile; p comes from the global lse
+// either way, so the split's terms are all there.
 //
 // The long backward rounds exactly as the short one (qs = bf16(q·scale·
 // log2e), qd = bf16(q·scale), kc = k, kd = bf16(k·scale), p and δ fp32,
-// p and ds rounded for the products), so the two share the prologue and
-// the two passes of `attention_bwd.cuh`, instantiated here with ROPE off
-// and BIAS off or on: the passes hold nothing sized by L and take any
-// length. What differs from the TPU design is the dq reduction: the TPU
-// stores one dq partial per kv block in the input dtype and sums them
-// outside; the dq pass here accumulates all of kv in fp32 registers and
-// rounds once.
+// p and ds rounded for the products), so the two share the one-pass
+// backward of `attention_bwd.cuh`, instantiated here with ROPE off and
+// BIAS off or on: it holds nothing sized by L and takes any length. What
+// differs from the TPU design is the dq reduction: the TPU stores one dq
+// partial per kv block in the input dtype and sums them outside; here the
+// partials add in fp32, in kv-block order, and dq rounds once.
 
 #include "attention_bwd.cuh"
 
@@ -35,15 +34,20 @@
 // elements of q, k, v, o, do, dq, dk, dv in that order. lse [B, H, Lq] fp32
 // (exp2 domain, from the forward). kbias [Lk] fp32 added to the logits, or
 // null for none. Scratch: qs/qd [B, H, Lq, D] and kc/kd [B, H, Lk, D] bf16,
-// delta [B, H, Lq] fp32. Outputs dq, dk (roped space), dv bf16 with unit
-// column stride. q_mul = scale·log2e. Returns the cudaError_t of the
+// rows [B·H, 2, Lqp] (δ, lse) and dq_acc [B·H, Lqp, D] fp32, sync
+// 1 + B·H·⌈Lq/64⌉ int32 (Lqp = ⌈Lq/64⌉·64); with splits > 1,
+// dkv_part [splits][2][B·H, Lk, D] fp32 (splits: blocks per kv block, each
+// taking a share of the q tiles). Outputs dq, dk (roped space), dv bf16 with
+// unit column stride. q_mul = scale·log2e. Returns the cudaError_t of the
 // launches.
 extern "C" int long_attention_bwd(const void* q, const void* k, const void* v,
                                   const void* o, const void* dout,
                                   const void* lse, const void* kbias,
                                   void* qs, void* qd, void* kc, void* kd,
-                                  void* delta, void* dq, void* dk, void* dv,
-                                  int B, int H, int Lq, int Lk, int D,
+                                  void* rows, void* dq_acc, void* sync,
+                                  void* dkv_part, int splits, void* dq,
+                                  void* dk, void* dv, int B, int H,
+                                  int Lq, int Lk, int D,
                                   const long long* strides, float scale,
                                   float q_mul, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -51,7 +55,8 @@ extern "C" int long_attention_bwd(const void* q, const void* k, const void* v,
   if (D == DD && (kbias != nullptr) == BB)                                    \
   return static_cast<int>(launch_attention_bwd<DD, false, BB>(                \
       q, k, v, o, dout, lse, nullptr, nullptr, nullptr, nullptr, kbias, qs,   \
-      qd, kc, kd, delta, dq, dk, dv, B, H, Lq, Lk, strides, scale, q_mul, s))
+      qd, kc, kd, rows, dq_acc, sync, dkv_part, splits, dq, dk, dv, B, H, Lq, \
+      Lk, strides, scale, q_mul, s))
   VDS_LAUNCH(128, false);
   VDS_LAUNCH(128, true);
   VDS_LAUNCH(64, false);

@@ -80,9 +80,41 @@ def _use_fused_adaln(cfg: DiTConfig, x: torch.Tensor) -> bool:
         cfg.fused_adaln == "auto" and x.is_cuda)
 
 
+def fused_attention_takes(head_dim: int, dtype: torch.dtype) -> bool:
+    """Whether the CUDA attention kernels accept these operands: bf16 and
+    head_dim 64 or 128 (`ops/fused_attention.py:_check_qkv`)."""
+    return dtype == torch.bfloat16 and head_dim in (64, 128)
+
+
+def use_fused_attention(attention_impl: str, head_dim: int,
+                        dtype: torch.dtype, on_cuda: bool,
+                        context_parallel: bool = False) -> bool:
+    """Attention dispatch (JAX `_use_fused_attention`, `dit.py:211-229`).
+    "fused" always takes the fused ops, which raise on operands the kernels
+    refuse, as JAX's "pallas" does. "auto" takes them for CUDA tensors the
+    kernels accept and the plain composition otherwise (the port of XLA
+    attention, never a kernel's twin). Under context parallelism every
+    dispatch runs the ring, which exists only as kernels (and their twins
+    for CPU tensors): a CUDA tensor the kernels refuse raises
+    NotImplementedError, where JAX would run XLA attention over
+    GSPMD-sharded tokens."""
+    if context_parallel:
+        if on_cuda and not fused_attention_takes(head_dim, dtype):
+            raise NotImplementedError(
+                f"context parallelism with head_dim {head_dim} and {dtype} "
+                "(the ring kernels take bf16 and head_dim 64 or 128; JAX "
+                "sends the rest to XLA attention over GSPMD-sharded tokens) "
+                "is not ported (ROADMAP A9)")
+        return True
+    if attention_impl == "fused":
+        return True
+    return (attention_impl == "auto" and on_cuda
+            and fused_attention_takes(head_dim, dtype))
+
+
 def _use_fused_attention(cfg: DiTConfig, x: torch.Tensor) -> bool:
-    return cfg.attention_impl == "fused" or (
-        cfg.attention_impl == "auto" and x.is_cuda)
+    return use_fused_attention(cfg.attention_impl, cfg.head_dim, x.dtype,
+                               x.is_cuda)
 
 
 def _dense(lin: nn.Linear, x: torch.Tensor) -> torch.Tensor:
@@ -370,6 +402,9 @@ class DiT(nn.Module):
 
         ring, kbias, l_all = context_parallel, None, tokens.shape[1]
         if ring is not None:
+            use_fused_attention(cfg.attention_impl, cfg.head_dim,
+                                tokens.dtype, tokens.is_cuda,
+                                context_parallel=True)
             if cos is None:
                 raise NotImplementedError(
                     "context parallelism of a no-RoPE model (JAX sends it to "

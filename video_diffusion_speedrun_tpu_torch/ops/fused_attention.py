@@ -85,6 +85,10 @@ _MAX_DQ_PARTIALS = 16
 # later option, ROADMAP A9)
 _RING_FULLK_MAX_FWD = 4096
 _RING_FULLK_MAX_BWD = SHORT_MAX_KV
+# q rows of the backward kernel's tiles and kv rows of its blocks (BM, BN of
+# `csrc/attention_bwd.cuh`), which size its scratch
+_BWD_BQ = 64
+_BWD_BN = 128
 _NEG_INF = -1e30  # the kv-bias of padded ring rows, as JAX's
 # q rows per chunk of the long twins: a [B, H, rows, Lk] fp32 logits tile
 # at a time (1 GB at B=2, H=16, Lk=8208) instead of the whole [Lq, Lk]
@@ -642,6 +646,19 @@ def ring_chunk_forward(q, k, v, cos_q, sin_q, cos_k, sin_k, kbias,
 ring_chunk_forward.launches = 0
 
 
+def _bwd_splits(n_blocks: int, n_q_tiles: int, n_sm: int) -> int:
+    """Blocks per 128-row kv block of the backward kernel, each taking a
+    share of the q tiles: the split with the fewest rounds of the card's
+    SMs (one block each) times tiles per block (+1 for a block's fixed
+    cost), 1 where the kv blocks alone fill the card. At most 8."""
+    best, best_cost = 1, None
+    for z in range(1, min(8, n_q_tiles) + 1):
+        cost = _build.cdiv(n_blocks * z, n_sm) * (_build.cdiv(n_q_tiles, z) + 1)
+        if best_cost is None or cost < best_cost:
+            best, best_cost = z, cost
+    return best
+
+
 def _bwd_buffers(q, k, v, o, lse, do, num_heads: int,
                  dq: Optional[torch.Tensor], dk: Optional[torch.Tensor]):
     """Checks what both backward kernels take beyond q/k/v (o, do, lse and
@@ -668,14 +685,37 @@ def _bwd_buffers(q, k, v, o, lse, do, num_heads: int,
         _check_operand(name, t, dev)
         if t.shape != ref.shape:
             raise ValueError(f"{name} {tuple(t.shape)} does not match")
-    # qs, qd [B, H, Lq, D] and kc, kd [B, H, Lk, D] bf16, δ [B, H, Lq] fp32
+    # qs, qd [B, H, Lq, D] and kc, kd [B, H, Lk, D] bf16; δ and lse rows
+    # [B·H, 2, Lq padded to whole q tiles] and the dq accumulator (its
+    # tiles of 64 q rows) fp32; the ticket and the turn counters of the dq
+    # adds, one per (b, h, q tile) (zeroed by the launch)
+    nq = _build.cdiv(lq, _BWD_BQ)
     scratch = [torch.empty((b, num_heads, n, d), dtype=torch.bfloat16,
                            device=dev) for n in (lq, lq, lk, lk)]
-    scratch.append(torch.empty((b, num_heads, lq), dtype=torch.float32,
+    scratch.append(torch.empty((b * num_heads, 2, nq * _BWD_BQ),
+                               dtype=torch.float32, device=dev))
+    scratch.append(torch.empty((b * num_heads, nq * _BWD_BQ, d),
+                               dtype=torch.float32, device=dev))
+    scratch.append(torch.empty(1 + b * num_heads * nq, dtype=torch.int32,
                                device=dev))
+    # where the kv blocks leave SMs idle, each kv block's q tiles are split
+    # over `splits` blocks, whose dk, dv partials [splits, 2, B·H, Lk, D]
+    # fp32 a last kernel sums in order
+    splits = _bwd_splits(_build.cdiv(lk, _BWD_BN) * b * num_heads, nq,
+                         torch.cuda.get_device_properties(dev)
+                         .multi_processor_count)
+    scratch.append(torch.empty((splits, 2, b * num_heads, lk, d),
+                               dtype=torch.float32, device=dev)
+                   if splits > 1 else None)
     strides = (ctypes.c_longlong * 16)(*(
         s for t in (q, k, v, o, do, dq, dk, dv) for s in t.stride()[:2]))
-    return do, dq, dk, dv, scratch, strides
+    return do, dq, dk, dv, scratch, splits, strides
+
+
+def _scratch_args(scratch, splits: int):
+    """The scratch pointers and the split count, in the order the backward
+    entry points take them (the dk/dv partials, or None, then splits)."""
+    return [None if t is None else t.data_ptr() for t in scratch] + [splits]
 
 
 def short_attention_bwd_cuda(q, k, v, cos, sin, o, lse, do, num_heads: int,
@@ -688,11 +728,12 @@ def short_attention_bwd_cuda(q, k, v, cos, sin, o, lse, do, num_heads: int,
     column slices of one d(qkv) buffer); dv is allocated contiguous.
     Raises on anything the kernel does not take."""
     _check_shapes(q, k, v, cos, sin, num_heads)
-    do, dq, dk, dv, scratch, strides = _bwd_buffers(q, k, v, o, lse, do,
+    do, dq, dk, dv, scratch, splits, strides = _bwd_buffers(q, k, v, o, lse, do,
                                                     num_heads, dq, dk)
     rope = cos is not None
     lib = _library(_LIB_BWD, "short_attention_bwd",
-                   [_P] * 16 + [_I] * 5 + [_STRIDES, _F, _F, _I, _P])
+                   [_P] * 16 + [_I] + [_P] * 3 + [_I] * 5
+                   + [_STRIDES, _F, _F, _I, _P])
     dev = q.device
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
@@ -700,7 +741,7 @@ def short_attention_bwd_cuda(q, k, v, cos, sin, o, lse, do, num_heads: int,
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
             do.data_ptr(), lse.data_ptr(), cos.data_ptr() if rope else None,
             sin.data_ptr() if rope else None,
-            *(t.data_ptr() for t in scratch), dq.data_ptr(), dk.data_ptr(),
+            *_scratch_args(scratch, splits), dq.data_ptr(), dk.data_ptr(),
             dv.data_ptr(), q.shape[0], num_heads, q.shape[1], k.shape[1],
             q.shape[-1] // num_heads, strides, scale, scale * _LOG2E,
             int(rope), stream)
@@ -728,10 +769,11 @@ def ring_attention_bwd_cuda(q, k, v, cos_q, sin_q, cos_k, sin_k, kbias, o,
     if kbias is None:
         raise ValueError("the ring kernel takes a kv-bias row")
     _check_kbias(kbias, lk, q.device)
-    do, dq, dk, dv, scratch, strides = _bwd_buffers(q, k, v, o, lse, do,
+    do, dq, dk, dv, scratch, splits, strides = _bwd_buffers(q, k, v, o, lse, do,
                                                     num_heads, None, None)
     lib = _library(_LIB_RING_BWD, "ring_attention_bwd",
-                   [_P] * 19 + [_I] * 5 + [_STRIDES, _F, _F, _P])
+                   [_P] * 19 + [_I] + [_P] * 3 + [_I] * 5
+                   + [_STRIDES, _F, _F, _P])
     dev = q.device
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
@@ -739,7 +781,7 @@ def ring_attention_bwd_cuda(q, k, v, cos_q, sin_q, cos_k, sin_k, kbias, o,
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
             do.data_ptr(), lse.data_ptr(), cos_q.data_ptr(), sin_q.data_ptr(),
             cos_k.data_ptr(), sin_k.data_ptr(), kbias.data_ptr(),
-            *(t.data_ptr() for t in scratch), dq.data_ptr(), dk.data_ptr(),
+            *_scratch_args(scratch, splits), dq.data_ptr(), dk.data_ptr(),
             dv.data_ptr(), q.shape[0], num_heads, lq, lk, d, strides, scale,
             scale * _LOG2E, stream)
     _build.check(_LIB_RING_BWD, err)
@@ -757,10 +799,11 @@ def long_attention_bwd_cuda(q, k, v, o, lse, do, num_heads: int,
     the kernel does not take."""
     _check_qkv(q, k, v, num_heads)
     _check_kbias(kbias, k.shape[1], q.device)
-    do, dq, dk, dv, scratch, strides = _bwd_buffers(q, k, v, o, lse, do,
+    do, dq, dk, dv, scratch, splits, strides = _bwd_buffers(q, k, v, o, lse, do,
                                                     num_heads, None, None)
     lib = _library(_LIB_LONG_BWD, "long_attention_bwd",
-                   [_P] * 15 + [_I] * 5 + [_STRIDES, _F, _F, _P])
+                   [_P] * 15 + [_I] + [_P] * 3 + [_I] * 5
+                   + [_STRIDES, _F, _F, _P])
     dev = q.device
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
@@ -768,7 +811,7 @@ def long_attention_bwd_cuda(q, k, v, o, lse, do, num_heads: int,
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
             do.data_ptr(), lse.data_ptr(),
             None if kbias is None else kbias.data_ptr(),
-            *(t.data_ptr() for t in scratch),
+            *_scratch_args(scratch, splits),
             dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), q.shape[0],
             num_heads, q.shape[1], k.shape[1], q.shape[-1] // num_heads,
             strides, scale, scale * _LOG2E, stream)

@@ -96,9 +96,14 @@ def data_rank(mesh) -> int:
     return axis_rank(mesh, AXIS_REPLICA)
 
 
+def data_shards(mesh) -> int:
+    """Number of data shards: replica × fsdp."""
+    return axis_size(mesh, AXIS_REPLICA) * axis_size(mesh, AXIS_FSDP)
+
+
 def local_batch_slice(mesh, global_batch: int) -> int:
     """Per-data-shard batch size."""
-    data = axis_size(mesh, AXIS_REPLICA) * axis_size(mesh, AXIS_FSDP)
+    data = data_shards(mesh)
     if global_batch % data != 0:
         raise ValueError(
             f"global batch {global_batch} not divisible by data={data}")

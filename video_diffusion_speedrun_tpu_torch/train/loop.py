@@ -105,8 +105,18 @@ class Trainer:
         epoch after epoch."""
         ds = self.datasets[split]
         batch = self.cfg.batch_size
-        if split != "train":
-            batch = min(batch, len(ds))  # the test split is 40 rows
+        if split != "train" and batch > len(ds):
+            # the test split is 40 rows; clamp the global batch to the
+            # largest multiple of the data shards (replica × fsdp) that it
+            # fills, as JAX's `_loader` (`train/loop.py:132-157`)
+            shards = pmesh.data_shards(self.mesh)
+            batch = (len(ds) // shards) * shards
+            if batch == 0:
+                raise ValueError(
+                    f"test split ({len(ds)} rows) cannot fill one batch "
+                    f"slice per data shard ({shards} shards)")
+            self._log("eval batch clamped %d -> %d (test split has %d rows)",
+                      self.cfg.batch_size, batch, len(ds))
         sampler = ShardedSampler(len(ds), batch, self.cfg.data.shuffle_seed,
                                  shuffle=split == "train")
         epochs = self.cfg.num_epochs if split == "train" else 1
