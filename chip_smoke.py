@@ -2,10 +2,12 @@
 """Chip smoke test of the PyTorch port on one CUDA card.
 
     python3 chip_smoke.py
-    python3 chip_smoke.py --ab TREE_A TREE_B [PAIRS [TRAIN_PAIRS]]
+    python3 chip_smoke.py --ab TREE_A TREE_B [PAIRS [TRAIN [SERVE]]]
 
-The second form times the attention backward rows and the train steps of
-two checkouts' packages in alternating processes on one card (`main_ab`).
+The second form times the attention backward and forward rows, a
+serve-long request (ms per Euler step, profiled busy ms) and the train
+steps of two checkouts' packages in alternating processes on one card
+(`main_ab`).
 Run from the root of a checkout. Phases, each of which raises on failure:
 
 1. build   — compile the CUDA kernels from `video_diffusion_speedrun_tpu_torch/
@@ -15,8 +17,11 @@ Run from the root of a checkout. Phases, each of which raises on failure:
              kernel, twin and a library call as a yardstick, with each
              kernel's bound from the card's peaks. Forward kernels at the
              sampling shapes (self-attention B=2, L=1040, H=16, D=128;
-             cross Lk=512; AdaLN D=2048); backward kernels at the training
-             shapes (B=64, H=4, D=128, L=528, cross Lk=512; AdaLN
+             cross Lk=512; AdaLN D=2048), and timed beside them at the
+             training shapes (B=64, H=4, L=528) and serve-long's
+             cross-attention (8208×512); backward kernels at the training
+             shapes (B=64, H=4, D=128, L=528, cross Lk=512, and timed beside
+             them train-long's cross-attention 8208×512, B=2; AdaLN
              [64, 528, 512] with and without γ, strided x); attention at a
              ragged shape too (L=333, Lk=77); AdamW on leaves of the
              canonical DiT with fp32 and bf16 moments, timed over all 299;
@@ -39,7 +44,8 @@ Run from the root of a checkout. Phases, each of which raises on failure:
              against their twins at L = 8208 (the serve shape B=2, H=16 and
              the train shape B=2, H=4, D=128) and a ragged L = 2100; at
              L = 8208 the same launches against JAX's split-prefix
-             decomposition in plain torch (rows 8–9); times beside SDPA;
+             decomposition in plain torch (rows 8–9); times beside SDPA
+             (the forward at both shapes);
 8. serve-long — the demo DiT at the sampling CLI's default 512×512×16
              latent frames (L = 8208) through `generate_latents`: 1 request
              of 8 Euler steps, full width and depth, counters per step;
@@ -72,7 +78,8 @@ Run from the root of a checkout. Phases, each of which raises on failure:
              over cp = 4: chunk 2064, 48 padded kv rows) and the train chunk
              (B=2, H=4, cp = 8: chunk 1040, 112 padded), a chunk that is
              all padding and a ragged Lq ≠ Lk; rows 6–7 with the kv-bias at
-             chunk 4112 (cp = 2); times beside SDPA with the bias as mask;
+             chunk 4112 (cp = 2; row 7 also at 2064, cp = 4); times beside
+             SDPA with the bias as mask;
 14. serve-cp — context parallelism over `LocalRing(4)` and `LocalRing(2)`
              (every rank's work on this one card): the demo DiT at
              512×512×16 (L = 8208), 1 request of 2 Euler steps each,
@@ -246,22 +253,22 @@ def phase_build():
         for line in report.splitlines():
             if "Compiling entry function" in line:
                 log("[build]   " + line.split("'")[1])
-            elif "Used" in line or "spill" in line:
+            elif "Used" in line or "spill" in line or "warning" in line:
                 log("[build]     " + line.strip())
 
 
-def attention_case(dev, lq, lk, rope, gen):
+def attention_case(dev, lq, lk, rope, gen, b=2, h=WIDTH // HEAD_DIM):
     from video_diffusion_speedrun_tpu_torch.models.rope import rope_cos_sin
 
-    h, d = WIDTH // HEAD_DIM, HEAD_DIM
+    d = HEAD_DIM
     hd = h * d
 
     def randn(*shape):
         return torch.randn(*shape, generator=gen, device=dev).bfloat16()
 
-    qkv = randn(2, lq, 3 * hd)
+    qkv = randn(b, lq, 3 * hd)
     if rope:
-        v = randn(2, lq, hd)
+        v = randn(b, lq, hd)
         q, k = qkv[..., :hd], qkv[..., hd:2 * hd]
         gh = gw = int(round(((lq - 16) / (FRAMES // 2)) ** 0.5))
         if (FRAMES // 2) * gh * gw + 16 == lq:
@@ -271,7 +278,7 @@ def attention_case(dev, lq, lk, rope, gen):
         cos, sin = rope_cos_sin(d, *grid, torch.tensor([3, 5, 7], device=dev),
                                 num_registers=16)
     else:
-        ckv = randn(2, lk, 2 * hd)
+        ckv = randn(b, lk, 2 * hd)
         q, k, v = qkv[..., :hd], ckv[..., :hd], ckv[..., hd:]
         cos = sin = None
     return q, k, v, cos, sin, h, d
@@ -288,13 +295,23 @@ def phase_kernels(dev):
     gen = torch.Generator(device=dev).manual_seed(0)
     rows = {}
     real_l = (FRAMES // 2) * (HEIGHT // 16) * (WIDTH_PX // 16) + 16
-    for rope, name, replaces in (
+    serve_h, train_h = WIDTH // HEAD_DIM, T_WIDTH // T_HEAD_DIM
+    # (B, H, Lq, Lk): the sampling shape (the kernels line's row), a ragged
+    # one, and, checked and timed beside it, the training shapes and
+    # serve-long's and train-long's cross-attention
+    for rope, name, replaces, shapes in (
             (True, "short_attention_fwd<rope>",
-             "video_diffusion_speedrun_tpu/ops/fused_attention.py:813"),
+             "video_diffusion_speedrun_tpu/ops/fused_attention.py:813",
+             ((2, serve_h, real_l, real_l), (2, serve_h, 333, 333),
+              (T_BATCH, train_h, T_L, T_L))),
             (False, "short_attention_fwd<norope>",
-             "video_diffusion_speedrun_tpu/ops/fused_attention.py:757")):
-        for lq, lk in ((real_l, real_l if rope else CTX_LEN), (333, 333 if rope else 77)):
-            q, k, v, cos, sin, h, d = attention_case(dev, lq, lk, rope, gen)
+             "video_diffusion_speedrun_tpu/ops/fused_attention.py:757",
+             ((2, serve_h, real_l, CTX_LEN), (2, serve_h, 333, 77),
+              (2, serve_h, LONG_L, CTX_LEN),
+              (T_BATCH, train_h, T_L, CTX_LEN)))):
+        for b, h, lq, lk in shapes:
+            q, k, v, cos, sin, h, d = attention_case(dev, lq, lk, rope, gen,
+                                                     b, h)
             scale = d ** -0.5
             o, lse = fa.short_attention_cuda(q, k, v, cos, sin, h, scale)
             po, plse = fa.short_attention_plain(q, k, v, cos, sin, h, scale)
@@ -302,25 +319,23 @@ def phase_kernels(dev):
             err = (o.float() - po.float()).abs().max().item()
             lerr = (lse - plse).abs().max().item()
             ok = err <= ATTN_TOL and lerr <= LSE_TOL
-            log(f"[kernels] {name} Lq={lq} Lk={lk}: max_abs_err(o) {err:.3e} "
+            log(f"[kernels] {name} B={b} H={h} Lq={lq} Lk={lk}: "
+                f"max_abs_err(o) {err:.3e} "
                 f"(tol {ATTN_TOL}), max_abs_err(lse) {lerr:.3e} "
                 f"(tol {LSE_TOL}) {'ok' if ok else 'FAIL'}")
             if not ok:
                 raise AssertionError(f"{name} disagrees with its twin")
-            if lq != real_l:
+            if lq == 333:
                 continue
             ms = cuda_ms(lambda: fa.short_attention_cuda(q, k, v, cos, sin, h,
                                                          scale))
-            plain_ms = cuda_ms(lambda: fa.short_attention_plain(
-                q, k, v, cos, sin, h, scale), iters=10)
             # yardstick only: SDPA on pre-rotated [B, H, L, D] q/k
-            qh, kh, vh = (t.reshape(2, -1, h, d).transpose(1, 2).contiguous()
+            qh, kh, vh = (t.reshape(b, -1, h, d).transpose(1, 2).contiguous()
                           for t in (q, k, v))
             if rope:
                 qh = fa._rope_rotate(qh.float(), cos, sin).bfloat16()
                 kh = fa._rope_rotate(kh.float(), cos, sin).bfloat16()
             lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(qh, kh, vh))
-            b = 2
             nbytes = 2 * b * (2 * lq + 2 * lk) * h * d + 4 * b * h * lq
             if rope:
                 nbytes += 2 * 4 * lq * d // 2
@@ -328,15 +343,21 @@ def phase_kernels(dev):
             # rotation (3 flops a rotated element) + softmax (~4 a logit)
             fp32 = 4 * b * h * lq * lk + (3 * b * (lq + lk) * h * d if rope else 0)
             bms, by = bound(nbytes, tc, fp32)
+            log(f"[kernels] {name} B={b} H={h} Lq={lq} Lk={lk}: kernel "
+                f"{ms:.4f} ms, SDPA {lib_ms:.4f} ms, bound {bms:.4f} ms "
+                f"({by}), {tc / ms / 1e9:.1f} TFLOP/s")
+            if lq != real_l:
+                continue
+            plain_ms = cuda_ms(lambda: fa.short_attention_plain(
+                q, k, v, cos, sin, h, scale), iters=10)
+            log(f"[kernels] {name} B={b} H={h} Lq={lq} Lk={lk}: twin "
+                f"{plain_ms:.4f} ms")
             rows[name] = dict(name=name, route="cuda",
                               source="video_diffusion_speedrun_tpu_torch/csrc/"
                                      "short_attention_fwd.cu",
                               replaces=replaces, max_abs_err=err, ms=ms,
                               plain_ms=plain_ms, bound_ms=bms, bound_by=by,
                               library_ms=lib_ms)
-            log(f"[kernels] {name} Lq={lq} Lk={lk}: kernel {ms:.4f} ms, "
-                f"twin {plain_ms:.4f} ms, SDPA {lib_ms:.4f} ms, bound "
-                f"{bms:.4f} ms ({by}), {tc / ms / 1e9:.1f} TFLOP/s")
 
     name = "adaln_rms_modulate_fwd"
     for l, with_gamma in ((real_l, False), (333, True)):
@@ -430,8 +451,11 @@ def attention_bwd_rows(dev):
     for rope, replaces in ((True, "fused_attention.py:873"),
                            (False, "fused_attention.py:1042")):
         name = f"short_attention_bwd<{'rope' if rope else 'norope'}>"
-        for b, lq, lk in ((T_BATCH, T_L, T_L if rope else CTX_LEN),
-                          (2, 333, 333), (2, 333, 77)):
+        shapes = ((T_BATCH, T_L, T_L if rope else CTX_LEN), (2, 333, 333),
+                  (2, 333, 77))
+        if not rope:  # train-long's cross-attention, timed beside the row
+            shapes += ((2, LONG_L, CTX_LEN),)
+        for b, lq, lk in shapes:
             qkv = randn(b, lq, 3 * hd)
             q = qkv[..., :hd]
             if rope and lk == lq:
@@ -464,12 +488,11 @@ def attention_bwd_rows(dev):
                                 lambda: fa.short_attention_bwd_cuda(
                                     q, k, v, cos, sin, o, lse, do, h, scale),
                                 got)
-            if lq != T_L:
+            if lq == 333:
                 continue
+            del got
             ms = cuda_ms(lambda: fa.short_attention_bwd_cuda(
                 q, k, v, cos, sin, o, lse, do, h, scale), iters=20)
-            plain_ms = cuda_ms(lambda: fa.short_attention_bwd_plain(
-                q, k, v, cos, sin, o, lse, do, h, scale), iters=3, warmup=1)
             # yardstick only: SDPA's backward on pre-rotated [B, H, L, D]
             qh, kh, vh = (t.reshape(b, -1, h, d).transpose(1, 2).contiguous()
                           for t in (q, k, v))
@@ -491,6 +514,15 @@ def attention_bwd_rows(dev):
             # exp2, p·(dp − δ) (~4 a logit) and the rotations
             fp32 = 4 * b * h * lq * lk + (6 * b * (lq + lk) * hd if rope else 0)
             bms, by = bound(nbytes, tc, fp32)
+            log(f"[kernels] {name} B={b} Lq={lq} Lk={lk}: kernel {ms:.4f} ms, "
+                f"SDPA backward {lib_ms:.4f} ms, bound {bms:.4f} ms ({by}), "
+                f"{tc / ms / 1e9:.1f} useful TFLOP/s")
+            if lq != T_L:
+                continue
+            plain_ms = cuda_ms(lambda: fa.short_attention_bwd_plain(
+                q, k, v, cos, sin, o, lse, do, h, scale), iters=3, warmup=1)
+            log(f"[kernels] {name} B={b} Lq={lq} Lk={lk}: twin "
+                f"{plain_ms:.4f} ms")
             rows[name] = dict(
                 name=name, route="cuda",
                 source="video_diffusion_speedrun_tpu_torch/csrc/"
@@ -498,10 +530,6 @@ def attention_bwd_rows(dev):
                 replaces="video_diffusion_speedrun_tpu/ops/" + replaces,
                 max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms,
                 bound_by=by, library_ms=lib_ms)
-            log(f"[kernels] {name} B={b} Lq={lq} Lk={lk}: kernel {ms:.4f} ms, "
-                f"twin {plain_ms:.4f} ms, SDPA backward {lib_ms:.4f} ms, "
-                f"bound {bms:.4f} ms ({by}), {tc / ms / 1e9:.1f} useful "
-                f"TFLOP/s")
     return rows
 
 
@@ -724,21 +752,22 @@ def long_attention_rows(dev):
                   fa.split_attention_plain(q, k, v, h, scale, n_pfx))
         ms = cuda_ms(lambda: fa.long_attention_cuda(q, k, v, h, scale),
                      iters=10, warmup=2)
+        qh, kh, vh = heads(q, k, v)
+        lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(qh, kh, vh),
+                         iters=10, warmup=2)
+        del qh, kh, vh
         bms, by = attention_bounds(b, h, l, l, d, backward=False)
-        log(f"[kernels] long_attention_fwd {what}: kernel {ms:.4f} ms, bound "
-            f"{bms:.4f} ms ({by}), {4 * b * h * l * l * d / ms / 1e9:.1f} "
-            f"TFLOP/s")
+        log(f"[kernels] long_attention_fwd {what}: kernel {ms:.4f} ms, SDPA "
+            f"{lib_ms:.4f} ms, bound {bms:.4f} ms ({by}), "
+            f"{4 * b * h * l * l * d / ms / 1e9:.1f} TFLOP/s")
         if h != serve_h:
             continue
         plain_ms = cuda_ms(lambda: fa.long_attention_plain(q, k, v, h, scale),
                            iters=3, warmup=1)
         split_ms = cuda_ms(lambda: fa.split_attention_plain(
             q, k, v, h, scale, n_pfx), iters=3, warmup=1)
-        qh, kh, vh = heads(q, k, v)
-        lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(qh, kh, vh),
-                         iters=10, warmup=2)
         log(f"[kernels] long_attention_fwd {what}: twin {plain_ms:.4f} ms, "
-            f"split plain version {split_ms:.4f} ms, SDPA {lib_ms:.4f} ms")
+            f"split plain version {split_ms:.4f} ms")
         for name, line, pms in (("long_attention_fwd", 251, plain_ms),
                                 ("long_attention_fwd<split>", 1468, split_ms)):
             rows[name] = dict(name=name, route="cuda", source=src.format("fwd"),
@@ -1034,12 +1063,8 @@ def ring_attention_rows(dev):
         check_deterministic(name, what,
                             lambda: fa.long_attention_bwd_cuda(*args), got)
         del got
-        if cp != 4:
-            continue
         ms = cuda_ms(lambda: fa.long_attention_bwd_cuda(*args), iters=10,
                      warmup=2)
-        plain_ms = cuda_ms(lambda: fa.long_attention_bwd_plain(*args),
-                           iters=2, warmup=1)
         qh, kh, vh = (t.requires_grad_() for t in (qh, kh, vh))
         oh = F.scaled_dot_product_attention(qh, kh, vh, attn_mask=mask)
         (doh,) = heads(do)
@@ -1047,10 +1072,14 @@ def ring_attention_rows(dev):
             oh, (qh, kh, vh), doh, retain_graph=True), iters=10, warmup=2)
         del oh
         bms, by = attention_bounds(b, h, l, l, d, backward=True)
+        log(f"[kernels] {name} {what}: kernel {ms:.4f} ms, SDPA backward "
+            f"with mask {lib_ms:.4f} ms, bound {bms:.4f} ms ({by})")
+        if cp != 4:  # the row: the shape train-cp4 gives it
+            continue
+        plain_ms = cuda_ms(lambda: fa.long_attention_bwd_plain(*args),
+                           iters=2, warmup=1)
+        log(f"[kernels] {name} {what}: twin {plain_ms:.4f} ms")
         record(name, "long_attention_bwd", 534, ms, plain_ms, lib_ms, bms, by)
-        log(f"[kernels] {name} {what}: kernel {ms:.4f} ms, twin "
-            f"{plain_ms:.4f} ms, SDPA backward with mask {lib_ms:.4f} ms, "
-            f"bound {bms:.4f} ms ({by})")
     for name, row in rows.items():
         row["max_abs_err"] = errs[name]
     torch.cuda.empty_cache()
@@ -1453,10 +1482,9 @@ def profile_step(model, context, lat, tag: str, ring=None):
 
 # profile rows grouped by kernel name: (kind, substrings), first match wins
 KERNEL_KINDS = (
-    ("attention kernels (csrc/{short,long,ring}_attention_*.cu)",
-     ("short_attention", "long_attention", "attention_fwd_kernel",
-      "bwd_kernel", "dq_store", "dkv_reduce", "prep_q", "prep_k",
-      "rope_rotate")),
+    ("attention kernels (csrc/attention_{fwd,bwd}.cuh)",
+     ("short_attention", "long_attention", "fwd_kernel", "bwd_kernel",
+      "dq_store", "dkv_reduce", "prep_q", "prep_k", "rope_rotate")),
     ("AdaLN kernels (Triton)", ("adaln_rms_modulate",)),
     ("gated-residual AdaLN kernels (Triton)", ("gated_residual_adaln",)),
     ("bias+GELU kernels (Triton)", ("bias_gelu",)),
@@ -1958,7 +1986,7 @@ def phase_nccl_ring(dev):
 
 # ---- A/B of two checkouts on one card: `python3 chip_smoke.py --ab A B` ----
 
-AB_PAIRS = 10  # alternated pairs of the backward rows (A B, B A, ...)
+AB_PAIRS = 10  # alternated pairs (A B, B A, ...): rows and serve-long
 AB_TRAIN_PAIRS = 2  # of which the first this many also run the train steps
 
 
@@ -2028,8 +2056,89 @@ def ab_rows(dev):
         lambda: fa.ring_chunk_bwd_plain(*args))
 
 
+def ab_fwd_rows(dev):
+    """The attention forward rows at the main path's shapes, each timed
+    once (`cuda_ms`) through the wrapper of whichever package is first on
+    sys.path, after a check against its twin (the kernels line's limits)
+    and against a second launch bit for bit: row 1 at 1040² (B=2, H=16)
+    and 528² (B=64, H=4); row 2 at 1040×512 and 8208×512 (B=2, H=16) and
+    528×512 (B=64, H=4); row 6 at L = 8208 with H=16 and H=4, and with the
+    kv-bias at the ring fallback's 4112² (cp = 2, H=16); row 10 at the
+    serve chunk (2064², B=2, H=16) and the train chunk (1040², B=2, H=4).
+    Logs `[ab] <row> <ms> ms` lines."""
+    from video_diffusion_speedrun_tpu_torch.models.rope import rope_cos_sin
+    from video_diffusion_speedrun_tpu_torch.ops import fused_attention as fa
+
+    gen = torch.Generator(device=dev).manual_seed(6)
+    d, scale = HEAD_DIM, HEAD_DIM ** -0.5
+    serve_h, train_h = WIDTH // HEAD_DIM, T_WIDTH // T_HEAD_DIM
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen, device=dev).bfloat16()
+
+    def row(name, fn, plain, rel):
+        """rel: o within rel·max|o| (long and ring rows), else ATTN_TOL."""
+        (o, lse), (po, plse) = fn(), plain()
+        tol = rel * po.float().abs().max().item() if rel else ATTN_TOL
+        err = (o.float() - po.float()).abs().max().item()
+        lerr = (lse - plse).abs().max().item()
+        if not (err <= tol and lerr <= LSE_TOL):
+            raise AssertionError(f"{name}: |err| {err} (o), {lerr} (lse) "
+                                 f"against the twin")
+        again = fn()
+        if not (torch.equal(o, again[0]) and torch.equal(lse, again[1])):
+            raise AssertionError(f"{name}: a second launch gives other bits")
+        del o, lse, po, plse, again
+        log(f"[ab] {name} {cuda_ms(fn, iters=20, warmup=3):.4f} ms")
+
+    # q, k strided out of qkv (row 1) or q and the context's k/v (row 2)
+    for name, b, h, lq, lk, rope in (
+            ("row1-1040", 2, serve_h, 1040, 1040, True),
+            ("row1-528", T_BATCH, train_h, T_L, T_L, True),
+            ("row2-1040", 2, serve_h, 1040, CTX_LEN, False),
+            ("row2-8208", 2, serve_h, LONG_L, CTX_LEN, False),
+            ("row2-528", T_BATCH, train_h, T_L, CTX_LEN, False)):
+        hd = h * d
+        qkv = randn(b, lq, 3 * hd)
+        if rope:
+            q, k, v = qkv[..., :hd], qkv[..., hd:2 * hd], qkv[..., 2 * hd:]
+            frames = FRAMES // 2 if lq == 1040 else T_LATENT[1] // 2
+            cos, sin = rope_cos_sin(d, frames, 16, 16, torch.tensor(
+                [3, 5, 7], device=dev), num_registers=16)
+        else:
+            ckv = randn(b, lk, 2 * hd)
+            q, k, v = qkv[..., :hd], ckv[..., :hd], ckv[..., hd:]
+            cos = sin = None
+        args = (q, k, v, cos, sin, h, scale)
+        row(name, lambda: fa.short_attention_cuda(*args),
+            lambda: fa.short_attention_plain(*args), 0.0)
+    for name, h in (("row6", serve_h), ("row6-h4", train_h)):
+        q, k, v = long_inputs(dev, gen, 2, LONG_L, LONG_L, h)
+        row(name, lambda: fa.long_attention_cuda(q, k, v, h, scale),
+            lambda: fa.long_attention_plain(q, k, v, h, scale), LONG_FWD_REL)
+    q, k, v, tabs, kbias = ring_inputs(dev, gen, 2, serve_h, LONG_L, 2, 0, 1)
+    q = fa.rotate_flat(q, tabs[0], tabs[1], serve_h)
+    k = fa.rotate_flat(k, tabs[2], tabs[3], serve_h)
+    row(f"row6-bias-{q.shape[1]}",
+        lambda: fa.long_attention_cuda(q, k, v, serve_h, scale, kbias),
+        lambda: fa.long_attention_plain(q, k, v, serve_h, scale, kbias),
+        LONG_FWD_REL)
+    for h, cp in ((serve_h, 4), (train_h, 8)):
+        q, k, v, tabs, kbias = ring_inputs(dev, gen, 2, h, LONG_L, cp, 0,
+                                           cp - 1)
+        args = (q, k, v, *tabs, kbias, h, scale)
+        row(f"row10-{q.shape[1]}", lambda: fa.ring_attention_cuda(*args),
+            lambda: fa.ring_chunk_plain(*args), LONG_FWD_REL)
+    torch.cuda.empty_cache()
+
+
 AB_PATTERNS = (
     (r"\[ab\] (\S+) ([0-9.]+) ms", lambda m: (m[1], float(m[2]))),
+    (r"\[serve-long\] request 0 seed \d+: .* ([0-9.]+) ms per Euler step",
+     lambda m: ("serve-long step ms", float(m[1]))),
+    (r"\[serve-long-profile\] one forward: [0-9.]+ ms wall \(profiled\), "
+     r"device busy ([0-9.]+) ms",
+     lambda m: ("serve-long busy ms", float(m[1]))),
     (r"\[(train|train-long)\] steady state ([0-9.]+) ms",
      lambda m: (m[1] + " step ms", float(m[2]))),
     (r"\[(train|train-long)-profile\] one train step: [0-9.]+ ms wall "
@@ -2041,7 +2150,8 @@ AB_PATTERNS = (
 def ab_child(tree: str, what: str) -> int:
     """One turn of the A/B in a process of its own, with the package of
     `tree` first on sys.path and this file's measurements: `build` its
-    kernels, time the `rows`, or the rows and the `train` steps."""
+    kernels; or time the backward and forward `rows`, and then serve one
+    serve-long request (`serve`), and then run the `train` steps too."""
     sys.path.insert(0, tree)
     from video_diffusion_speedrun_tpu_torch.ops import fused_attention as fa
 
@@ -2052,6 +2162,14 @@ def ab_child(tree: str, what: str) -> int:
     if what == "build":
         return 0
     ab_rows(dev)
+    ab_fwd_rows(dev)
+    if what == "rows":
+        return 0
+    model, context = build_demo(dev)
+    phase_serve(dev, model, context, LONG_PX, LONG_FRAMES, LONG_STEPS,
+                SEEDS[:1], "serve-long")
+    del model, context
+    torch.cuda.empty_cache()
     if what == "train":
         phase_train(dev, T_BATCH, T_LATENT, T_STEPS, (), "train",
                     evaluate=False)
@@ -2061,18 +2179,21 @@ def ab_child(tree: str, what: str) -> int:
 
 
 def main_ab(argv) -> int:
-    """`--ab TREE_A TREE_B [PAIRS [TRAIN_PAIRS]]`: alternate the two
-    checkouts (A B, B A, A B, ...) for PAIRS pairs (default AB_PAIRS), the
-    first TRAIN_PAIRS (default AB_TRAIN_PAIRS) with the train steps, each
-    turn a process running `ab_child`; print every reading, the medians
-    and how many pairs B won, then the card's name and power limit."""
-    if not 2 <= len(argv) <= 4 or not torch.cuda.is_available():
+    """`--ab TREE_A TREE_B [PAIRS [TRAIN_PAIRS [SERVE_PAIRS]]]`: alternate
+    the two checkouts (A B, B A, A B, ...) for PAIRS pairs (default
+    AB_PAIRS), each turn a process running `ab_child`: the rows, a
+    serve-long request in the first SERVE_PAIRS (default all) and the
+    train steps in the first TRAIN_PAIRS (default AB_TRAIN_PAIRS); print
+    every reading, the medians, the ranges and how many pairs B won, then
+    the card's name and power limit."""
+    if not 2 <= len(argv) <= 5 or not torch.cuda.is_available():
         print("usage on a card: chip_smoke.py --ab TREE_A TREE_B [PAIRS "
-              "[TRAIN_PAIRS]]", file=sys.stderr)
+              "[TRAIN_PAIRS [SERVE_PAIRS]]]", file=sys.stderr)
         return 1
     trees = [str(Path(t).resolve()) for t in argv[:2]]
     pairs = int(argv[2]) if len(argv) > 2 else AB_PAIRS
     train_pairs = int(argv[3]) if len(argv) > 3 else AB_TRAIN_PAIRS
+    serve_pairs = int(argv[4]) if len(argv) > 4 else pairs
     # build both trees' kernels at once (each into its own build directory)
     builds = [subprocess.Popen([sys.executable, __file__, "--ab-child", t,
                                 "build"], stdout=subprocess.DEVNULL)
@@ -2083,7 +2204,8 @@ def main_ab(argv) -> int:
     for i in range(pairs):
         for idx in ((0, 1) if i % 2 == 0 else (1, 0)):
             cmd = [sys.executable, __file__, "--ab-child", trees[idx],
-                   "train" if i < train_pairs else "rows"]
+                   "train" if i < train_pairs else
+                   "serve" if i < serve_pairs else "rows"]
             run = subprocess.run(cmd, capture_output=True, text=True)
             if run.returncode:
                 print(run.stdout[-2000:], run.stderr[-4000:])
@@ -2100,9 +2222,10 @@ def main_ab(argv) -> int:
         a, b = readings[0][name], readings[1].get(name, [])
         wins = sum(y < x for x, y in zip(a, b))
         ma, mb = np.median(a), np.median(b)
-        print(f"[ab] {name}: A median {ma:.4f} ({len(a)} runs), B median "
-              f"{mb:.4f}, B/A {mb / ma:.3f}, B faster in {wins} of "
-              f"{min(len(a), len(b))} pairs", flush=True)
+        print(f"[ab] {name}: A median {ma:.4f} ({min(a):.4f}–{max(a):.4f}, "
+              f"{len(a)} runs), B median {mb:.4f} "
+              f"({min(b):.4f}–{max(b):.4f}), B/A {mb / ma:.3f}, B faster in "
+              f"{wins} of {min(len(a), len(b))} pairs", flush=True)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True)

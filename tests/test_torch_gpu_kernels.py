@@ -723,3 +723,82 @@ def test_auto_dispatch_runs_a_head_dim_the_kernels_refuse(dev):
     assert out.shape == x.shape and torch.isfinite(out.float()).all()
     assert (tfa.qkv_rope_flash_forward.launches,
             tfa.cross_flash_forward.launches) == before
+
+
+# (wrapper, B, H, Lq, Lk, D, padded kv rows) of the forward template:
+# rows 1–2 (short, with and without RoPE), 6 (long, with the kv-bias as the
+# ring's fallback) and 10 (ring) at the main path's shapes, then ragged
+# edges against the 128-row q and kv tiles, Lq ≠ Lk on the ring, a ring
+# chunk that is all padding, and D = 64
+_FWD_CASES = [
+    ("short-rope", 2, 16, 1040, 1040, 128, 0),
+    ("short-rope", 64, 4, 528, 528, 128, 0),
+    ("short-norope", 2, 16, 1040, 512, 128, 0),
+    ("short-norope", 2, 16, 8208, 512, 128, 0),
+    ("short-norope", 64, 4, 528, 512, 128, 0),
+    ("long", 2, 16, 8208, 8208, 128, 0),
+    ("long", 2, 4, 8208, 8208, 128, 0),
+    ("long", 2, 16, 4112, 4112, 128, 16),
+    ("ring", 2, 16, 2064, 2064, 128, 48),
+    ("ring", 2, 4, 1040, 1040, 128, 112),
+    ("short-rope", 2, 4, 333, 333, 128, 0),
+    ("short-norope", 2, 4, 333, 77, 128, 0),
+    ("short-norope", 1, 2, 2100, 333, 128, 0),
+    ("long", 1, 2, 2100, 333, 128, 0),
+    ("long", 2, 2, 333, 2100, 128, 5),
+    ("ring", 2, 4, 2100, 333, 128, 7),
+    ("ring", 2, 4, 333, 2000, 128, 0),
+    ("ring", 2, 2, 333, 77, 128, 77),
+    ("short-rope", 2, 4, 1040, 1040, 64, 0),
+    ("short-norope", 2, 4, 333, 77, 64, 0),
+    ("long", 2, 2, 2100, 333, 64, 9),
+    ("ring", 1, 2, 100, 3000, 64, 0),
+]
+
+
+@pytest.mark.parametrize("kind,b,h,lq,lk,d,pad", _FWD_CASES)
+def test_forward_template_matches_twins(dev, kind, b, h, lq, lk, d, pad):
+    """The forward template (`csrc/attention_fwd.cuh`) through each entry
+    against its twin on bf16 inputs: o within the kernels' limits (short:
+    2e-2, about one bf16 ulp of values of order 1; long and ring: two bf16
+    ulps of the largest |o|, which over thousands of keys is of order
+    Lk^-1/2), lse within 1e-3; a chunk that is all padding keeps a finite
+    o and lse ≈ −1e30. A second launch gives the same bits."""
+    gen = torch.Generator(device=dev).manual_seed(31)
+    q, k, v, tabs, kbias = _ring_inputs(dev, gen, b, lq, lk, h, d, pad,
+                                        q_row0=16, k_row0=lq)
+    scale = d ** -0.5
+    if kind == "ring":
+        args = (q, k, v, *tabs, kbias, h, scale)
+        launch, twin = tfa.ring_attention_cuda, tfa.ring_chunk_plain
+    elif kind == "long":
+        args = (q, k, v, h, scale, kbias if pad else None)
+        launch, twin = tfa.long_attention_cuda, tfa.long_attention_plain
+    else:
+        rope = kind == "short-rope"
+        if rope:  # self-attention: one table for q and k
+            rows = max(lq, lk)
+            ang = torch.arange(rows * (d // 2), dtype=torch.float32,
+                               device=dev).reshape(rows, d // 2) * 0.003
+            cos, sin = ang.cos(), ang.sin()
+        else:
+            cos = sin = None
+        args = (q, k, v, cos, sin, h, scale)
+        launch, twin = tfa.short_attention_cuda, tfa.short_attention_plain
+    o, lse = launch(*args)
+    again = launch(*args)
+    po, plse = twin(*args)
+    torch.cuda.synchronize()
+    assert o.shape == (b, lq, h * d) and lse.shape == (b, h, lq)
+    assert torch.isfinite(o.float()).all() and torch.isfinite(lse).all()
+    assert torch.equal(o, again[0]) and torch.equal(lse, again[1])
+    err = (o.float() - po.float()).abs().max().item()
+    if kind.startswith("short"):
+        assert err < 2e-2
+    else:
+        assert err <= 2 ** -6 * po.float().abs().max().item()
+    if pad == lk:
+        assert lse.max().item() < -1e29
+        assert (lse / plse - 1).abs().max().item() < 1e-6
+    else:
+        assert (lse - plse).abs().max().item() < 1e-3

@@ -48,7 +48,7 @@ extern "C" int ring_attention_fwd(const void* q, const void* k, const void* v,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define VDS_LAUNCH(DD)                                                        \
   if (D == DD)                                                                \
-  return static_cast<int>(launch_attention_fwd<DD, true, true>(               \
+  return static_cast<int>(launch_attention_fwd<DD, Q_ROPE, true>(             \
       q, k, v, cos_q, sin_q, cos_k, sin_k, kbias, k_rot, o, lse, B, H, Lq,    \
       Lk, q_sb, q_sl, k_sb, k_sl, v_sb, v_sl, q_mul, s))
   VDS_LAUNCH(128);

@@ -30,7 +30,8 @@ extern "C" int short_attention_fwd(const void* q, const void* k, const void* v,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define VDS_LAUNCH(DD, RR)                                                   \
   if (D == DD && (rope != 0) == RR)                                          \
-  return static_cast<int>(launch_attention_fwd<DD, RR, false>(               \
+  return static_cast<int>(launch_attention_fwd<DD, RR ? Q_ROPE : Q_SCALE,   \
+                                                false>(                      \
       q, k, v, cos_t, sin_t, cos_t, sin_t, nullptr, k_rot, o, lse, B, H, Lq, \
       Lk, q_sb, q_sl, k_sb, k_sl, v_sb, v_sl, q_mul, s))
   VDS_LAUNCH(128, true);

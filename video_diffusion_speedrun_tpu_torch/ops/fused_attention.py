@@ -19,8 +19,8 @@ rotate once per layer (`rotate_flat`, plain torch as the JAX XLA pass), then
 kv in one launch, the ragged last kv tile masked. Where JAX splits off a
 thin prefix because L does not tile into its 1024-row blocks
 (`_split_prefix`: 8208 = 16 registers + 8·1024) and folds it back in with
-`_forward_tail` / `_backward_tail`, the H100 kernels cover the prefix
-columns as one more masked 64-row kv tile of the same online softmax.
+`_forward_tail` / `_backward_tail`, the H100 kernels stream every kv
+column, the prefix included, through one online softmax in 128-row tiles.
 `split_attention_plain` and `split_attention_bwd_plain` keep JAX's split
 decomposition in plain torch, to hold the one launch against it.
 
