@@ -3,11 +3,14 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --ab TREE_A TREE_B [PAIRS [TRAIN [SERVE]]]
+    python3 chip_smoke.py --adaln-configs
 
-The second form times the attention backward and forward rows, a
-serve-long request (ms per Euler step, profiled busy ms) and the train
-steps of two checkouts' packages in alternating processes on one card
-(`main_ab`).
+The second form times the attention backward and forward rows, the AdaLN
+backward rows, a serve-long request (ms per Euler step, profiled busy ms)
+and the train steps (with `fused_residual` too) of two checkouts' packages
+in alternating processes on one card (`main_ab`). The third times the
+AdaLN backward under configurations other than its default
+(`adaln_configs`).
 Run from the root of a checkout. Phases, each of which raises on failure:
 
 1. build   — compile the CUDA kernels from `video_diffusion_speedrun_tpu_torch/
@@ -21,10 +24,13 @@ Run from the root of a checkout. Phases, each of which raises on failure:
              training shapes (B=64, H=4, L=528) and serve-long's
              cross-attention (8208×512); backward kernels at the training
              shapes (B=64, H=4, D=128, L=528, cross Lk=512, and timed beside
-             them train-long's cross-attention 8208×512, B=2; AdaLN
-             [64, 528, 512] with and without γ, strided x); attention at a
-             ragged shape too (L=333, Lk=77); AdamW on leaves of the
-             canonical DiT with fp32 and bf16 moments, timed over all 299;
+             them train-long's cross-attention 8208×512, B=2; the AdaLN
+             backward at [64, 528, 512] with x strided and [2, 8208, 512],
+             with and without γ, each also against a second launch bit for
+             bit, and where its plan and instantiations change, and row 3
+             timed at [64, 528, 512]); attention at a ragged shape too
+             (L=333, Lk=77); AdamW on leaves of the canonical DiT with fp32
+             and bf16 moments, timed over all 299;
 3. serve   — sample 2 requests (two seeds, 8 Euler steps, CFG 6.0) with the
              demo DiT (width 2048, depth 24, head 128) at 256×256×8 frames
              through `generate_latents`, the launch counters set to 0 just
@@ -61,7 +67,8 @@ Run from the root of a checkout. Phases, each of which raises on failure:
              twins);
 11. epilogue kernels — the gated-residual AdaLN forward and backward
              (rows 13–14) against their twins at [2, 1040, 2048] and
-             [64, 528, 512] and a ragged L = 333, with and without γ; the
+             [64, 528, 512] and a ragged L = 333, with and without γ, the
+             backward also against a second launch bit for bit; the
              bias+GELU forward and backward (rows 15–16) at the MLP's
              shapes ([2, 1040, 8192], [2, 8208, 8192], [64, 528, 2048],
              [2, 8208, 2048]) and L = 333, the MLP's variant and
@@ -397,6 +404,26 @@ def phase_kernels(dev):
         log(f"[kernels] {name} L={l}: kernel {ms:.4f} ms, twin "
             f"{plain_ms:.4f} ms, no single library call, bound {bms:.4f} ms "
             f"({by}), {2 * n * 2 / ms / 1e6:.1f} GB/s")
+    # the train shape (145 launches a train step), checked with γ, timed
+    # as the main path calls it (without: the train CLI's default)
+    b, l, d = T_BATCH, T_L, T_WIDTH
+    x = torch.randn(b, l, d, generator=gen, device=dev).bfloat16()
+    mod = torch.randn(b, 9 * d, generator=gen, device=dev).bfloat16()
+    shift, scale = mod[:, :d], mod[:, d:2 * d]
+    gamma = torch.randn(d, generator=gen, device=dev)
+    y = fad.adaln_rms_modulate(x, shift, scale, gamma)
+    want = fad.adaln_rms_modulate_plain(x, shift, scale, gamma)
+    diff = (y.float() - want.float()).abs()
+    if not bool((diff <= ADALN_RTOL * want.float().abs() + 1e-2).all()):
+        raise AssertionError(f"{name} disagrees with its twin at [{b}, {l}, "
+                             f"{d}]")
+    ms = cuda_ms(lambda: fad.adaln_rms_modulate(x, shift, scale))
+    n = b * l * d
+    bms, by = bound(2 * n * 2 + 2 * b * d * 2, 0, 5 * n)
+    log(f"[kernels] {name} [{b}, {l}, {d}]: max_abs_err (γ) "
+        f"{diff.max().item():.3e} ok; kernel (no γ) {ms:.4f} ms, bound "
+        f"{bms:.4f} ms ({by}), {2 * n * 2 / ms / 1e6:.1f} GB/s")
+    del x, y, want, diff
     rows.update(attention_bwd_rows(dev))
     rows.update(adaln_bwd_row(dev))
     rows.update(adamw_row(dev))
@@ -418,14 +445,18 @@ def check_close(name: str, what: str, got, want, rtol: float, atol: float,
     return err.max().item()
 
 
-def check_deterministic(name: str, what: str, fn, got) -> None:
+def check_deterministic(name: str, what: str, fn, got,
+                        outs=("dq", "dk", "dv")) -> None:
     """Raise unless a second launch of `fn` gives the same bits as `got`
-    (dq, dk, dv): the dq partials add in a fixed order."""
+    (the outputs `outs`, None where the kernel gives none): the attention
+    backward adds its dq partials, the AdaLN backward its column sums, in a
+    fixed order."""
     again = fn()
     torch.cuda.synchronize()
-    same = all(torch.equal(a, b) for a, b in zip(got, again))
+    same = all((a is None and b is None) or torch.equal(a, b)
+               for a, b in zip(got, again))
     log(f"[kernels] {name} {what}: a second launch gives "
-        f"{'the same bits' if same else 'OTHER BITS'} in dq, dk, dv "
+        f"{'the same bits' if same else 'OTHER BITS'} in {', '.join(outs)} "
         f"{'ok' if same else 'FAIL'}")
     if not same:
         raise AssertionError(f"{name} is not deterministic ({what})")
@@ -533,50 +564,112 @@ def attention_bwd_rows(dev):
     return rows
 
 
+# AdaLN backward (rows 12 and 14) against its twin: name → (rtol, atol as
+# a share of max|ref|, note); row 14's dγ keeps its own atol
+ADALN_BWD_TOLS = {
+    "dx": (ADALN_BWD_RTOL, 1e-2, "one bf16 ulp + 1% of scale: row-sum "
+                                 "order"),
+    "dshift": (ADALN_BWD_RTOL, 1e-3, "one bf16 ulp + 0.1% of scale: "
+                                     "column-sum order"),
+    "dgamma": (1e-4, 1e-6, "fp32 column sums over B·L rows in another "
+                           "order")}
+ADALN_BWD_TOLS["dscale"] = ADALN_BWD_TOLS["dshift"]
+GR_BWD_TOLS = dict(ADALN_BWD_TOLS, ddelta=ADALN_BWD_TOLS["dx"],
+                   dgate=ADALN_BWD_TOLS["dshift"],
+                   dgamma=(1e-4, 1e-3, ADALN_BWD_TOLS["dshift"][2]))
+ADALN_BWD_NAMES = ("dx", "dshift", "dscale", "dgamma")
+GR_BWD_NAMES = ("dx", "ddelta", "dgate", "dshift", "dscale", "dgamma")
+# the AdaLN backward beyond the main path's shapes, where its plan and its
+# instantiations change — (B, L, D, dtype): B = 1; L shorter than one ring
+# stage; runs that cross many b boundaries (L = 7); L = 333; D = 2048
+# (partials in shared memory); D = 520 (32 columns a lane); D = 100 (rows
+# of 200 bytes: the masked loads); fp32 rows
+ADALN_BWD_CASES = ((1, 333, 512, torch.bfloat16), (3, 2, 512, torch.bfloat16),
+                   (5, 7, 512, torch.bfloat16), (3, 333, 512, torch.bfloat16),
+                   (2, 333, 2048, torch.bfloat16),
+                   (2, 40, 520, torch.bfloat16), (3, 37, 100, torch.bfloat16),
+                   (4, 100, 512, torch.float32))
+
+
+def check_adaln_bwd(name: str, what: str, names, got, want, tols) -> float:
+    """Each gradient of an AdaLN backward against the twin's within its
+    limit of `tols`; returns the max abs error."""
+    err = 0.0
+    for gname, a, w in zip(names, got, want):
+        if w is None:
+            if a is not None:
+                raise AssertionError(f"{name} {what}: {gname} is not None")
+            continue
+        rtol, rel, note = tols[gname]
+        err = max(err, check_close(name, f"{what} {gname}", a, w, rtol,
+                                   rel * w.float().abs().max().item(), note))
+    return err
+
+
+def adaln_bwd_bound(b: int, l: int, d: int, esize: int, gamma: bool,
+                    gated: bool):
+    """Row 12 reads x and g and writes dx; row 14 reads x_new, δ, gx, gy and
+    writes dx and dδ; both read scale (and gate, γ) and write the [B, D]
+    sums (and dγ); ~14 fp32 flops an element (row 14: ~20)."""
+    n = b * l * d
+    nbytes = (6 if gated else 3) * n * esize + (5 if gated else 3) * b * d * 2
+    nbytes += 2 * d * 4 if gamma else 0
+    return bound(nbytes, 0, (20 if gated else 14) * n)
+
+
 def adaln_bwd_row(dev):
-    """Row 12: the Triton backward against its twin at [64, 528, 512],
-    with and without γ, x strided as the final layer passes it."""
+    """Row 12: the CUDA backward (csrc/adaln_bwd.cu) against its twin and
+    against a second launch bit for bit, with γ and without (the main
+    path's case: the train CLI's `--train_bias_and_rms` defaults to False,
+    as JAX's train.py): at the train shape [64, 528, 512] with x strided as
+    the final layer passes it, at train-long's [2, 8208, 512], and at
+    ADALN_BWD_CASES; times at the first two."""
     from video_diffusion_speedrun_tpu_torch.ops import fused_adaln as fad
 
     name = "adaln_rms_modulate_bwd"
     gen = torch.Generator(device=dev).manual_seed(6)
-    b, l, d = T_BATCH, T_L, T_WIDTH
-    x = torch.randn(b, l + 16, d, generator=gen, device=dev).bfloat16()[:, 16:]
-    mod = torch.randn(b, 9 * d, generator=gen, device=dev).bfloat16()
-    shift, scale = mod[:, :d], mod[:, d:2 * d]
-    g = torch.randn(b, l, d, generator=gen, device=dev).bfloat16()
-    err = 0.0
-    for gamma in (None, torch.randn(d, generator=gen, device=dev)):
-        got = fad.adaln_rms_modulate_bwd(x, shift, scale, gamma, g)
-        want = fad.adaln_rms_modulate_bwd_plain(x, shift, scale, gamma, g)
-        torch.cuda.synchronize()
-        tols = {"dx": (ADALN_BWD_RTOL, 1e-2, "one bf16 ulp + 1% of scale: "
-                                             "row-sum order"),
-                "dshift": (ADALN_BWD_RTOL, 1e-3, "one bf16 ulp + 0.1% of "
-                                                 "scale: column-sum order"),
-                "dgamma": (1e-4, 1e-6, "fp32 column sums over B·L rows in "
-                                       "another order")}
-        tols["dscale"] = tols["dshift"]
-        for gname, a, w in zip(("dx", "dshift", "dscale", "dgamma"), got,
-                               want):
-            if w is None:
+    err, row = 0.0, None
+    # (B, L, D, dtype, x strided, timed)
+    cases = [(T_BATCH, T_L, T_WIDTH, torch.bfloat16, True, True),
+             (2, LONG_L, T_WIDTH, torch.bfloat16, False, True)]
+    cases += [(*c, True, False) for c in ADALN_BWD_CASES]
+    for b, l, d, dtype, strided, timed in cases:
+        x = torch.randn(b, l + 16, d, generator=gen, device=dev).to(dtype)
+        x = x[:, 16:] if strided else x[:, :l].contiguous()
+        mod = torch.randn(b, 9 * d, generator=gen, device=dev).to(dtype)
+        shift, scale = mod[:, :d], mod[:, d:2 * d]
+        g = torch.randn(b, l, d, generator=gen, device=dev).to(dtype)
+        for gamma in (torch.randn(d, generator=gen, device=dev), None):
+            what = f"[{b}, {l}, {d}] {dtype} gamma={gamma is not None}"
+
+            def run():
+                return fad.adaln_rms_modulate_bwd(x, shift, scale, gamma, g)
+
+            got = run()
+            want = fad.adaln_rms_modulate_bwd_plain(x, shift, scale, gamma, g)
+            torch.cuda.synchronize()
+            err = max(err, check_adaln_bwd(name, what, ADALN_BWD_NAMES, got,
+                                           want, ADALN_BWD_TOLS))
+            check_deterministic(name, what, run, got, ADALN_BWD_NAMES)
+            del got, want
+            if not timed:
                 continue
-            rtol, rel_atol, note = tols[gname]
-            err = max(err, check_close(
-                name, f"gamma={gamma is not None} {gname}", a, w, rtol,
-                rel_atol * w.float().abs().max().item(), note))
-    ms = cuda_ms(lambda: fad.adaln_rms_modulate_bwd(x, shift, scale, None, g))
-    plain_ms = cuda_ms(lambda: fad.adaln_rms_modulate_bwd_plain(
-        x, shift, scale, None, g), iters=10)
-    n = b * l * d
-    # reads x and g, writes dx (bf16), plus shift/scale in and out
-    bms, by = bound(3 * n * 2 + 4 * b * d * 2, 0, 12 * n)
-    log(f"[kernels] {name} [{b}, {l}, {d}]: kernel {ms:.4f} ms, twin "
-        f"{plain_ms:.4f} ms, no single library call, bound {bms:.4f} ms "
-        f"({by}), {3 * n * 2 / ms / 1e6:.1f} GB/s")
+            ms = cuda_ms(run)
+            bms, by = adaln_bwd_bound(b, l, d, 2, gamma is not None, False)
+            log(f"[kernels] {name} {what}: kernel {ms:.4f} ms, bound "
+                f"{bms:.4f} ms ({by}), {3 * b * l * d * 2 / ms / 1e6:.1f} "
+                f"GB/s of rows")
+            if l == T_L and gamma is None:
+                plain_ms = cuda_ms(lambda: fad.adaln_rms_modulate_bwd_plain(
+                    x, shift, scale, gamma, g), iters=10)
+                log(f"[kernels] {name} {what}: twin {plain_ms:.4f} ms, no "
+                    f"single library call")
+                row = (ms, plain_ms, bms, by)
+        del x, g, mod
+    ms, plain_ms, bms, by = row
     return {name: dict(
-        name=name, route="triton",
-        source="video_diffusion_speedrun_tpu_torch/ops/fused_adaln.py",
+        name=name, route="cuda",
+        source="video_diffusion_speedrun_tpu_torch/csrc/adaln_bwd.cu",
         replaces="video_diffusion_speedrun_tpu/ops/fused_adaln.py:156",
         max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
         library_ms=None)}
@@ -1154,22 +1247,19 @@ def epilogue_rows(dev):
         check(fwd, what + " y", got[1], want[1], ADALN_RTOL, 1e-2,
               one_ulp + " + 1e-2 (row-sum order), as row 3")
         gx, gy = randn(b, l, d).bfloat16(), randn(b, l, d).bfloat16()
-        got = fad.gated_residual_adaln_bwd(want[0], delta, gate, scale, gamma,
-                                           gx, gy)
+
+        def run_bwd(gamma=gamma):
+            return fad.gated_residual_adaln_bwd(want[0], delta, gate, scale,
+                                                gamma, gx, gy)
+
+        got = run_bwd()
         ref = fad.gated_residual_adaln_bwd_plain(want[0], delta, gate, scale,
                                                  gamma, gx, gy)
         torch.cuda.synchronize()
-        for gname, a, w in zip(("dx", "ddelta", "dgate", "dshift", "dscale",
-                                "dgamma"), got, ref):
-            if w is None:
-                continue
-            rel, note = ((1e-2, "one bf16 ulp + 1% of scale: row-sum order")
-                         if gname in ("dx", "ddelta") else
-                         (1e-3, "one bf16 ulp + 0.1% of scale: column-sum "
-                                "order"))
-            rtol = 1e-4 if gname == "dgamma" else ADALN_BWD_RTOL
-            check(bwd, f"{what} {gname}", a, w, rtol,
-                  rel * w.float().abs().max().item(), note)
+        errs[bwd] = max(errs.get(bwd, 0.0), check_adaln_bwd(
+            bwd, what, GR_BWD_NAMES, got, ref, GR_BWD_TOLS))
+        check_deterministic(bwd, what, run_bwd, got, GR_BWD_NAMES)
+        del got, ref
         if l == 1040:  # the serve shape: time the forward
             n = b * l * d
             ms = cuda_ms(lambda: fad.gated_residual_adaln(x, delta, gate,
@@ -1182,23 +1272,43 @@ def epilogue_rows(dev):
                 f"{plain_ms:.4f} ms, no single library call, bound "
                 f"{bms:.4f} ms ({by}), {4 * n * 2 / ms / 1e6:.1f} GB/s")
             fwd_times = (ms, plain_ms, bms, by)
-        if l == T_L:  # the train shape: time both
+        if l == T_L:  # the train shape: time both, the backward with γ and
+            # without (the main path's case), and without γ checked too
             n = b * l * d
             ms = cuda_ms(lambda: fad.gated_residual_adaln(x, delta, gate,
                                                           shift, scale, gamma))
             log(f"[kernels] {fwd} [{b}, {l}, {d}]: kernel {ms:.4f} ms, bound "
                 f"{bound(4 * n * 2, 0, 8 * n)[0]:.4f} ms")
-            args = (want[0], delta, gate, scale, None, gx, gy)
-            ms = cuda_ms(lambda: fad.gated_residual_adaln_bwd(*args))
-            plain_ms = cuda_ms(lambda: fad.gated_residual_adaln_bwd_plain(
-                *args), iters=10)
-            # reads x_new, δ, gx, gy, writes dx, dδ (+ the [B, D] vectors)
-            bms, by = bound(6 * n * 2 + 6 * b * d * 2, 0, 20 * n)
-            log(f"[kernels] {bwd} [{b}, {l}, {d}]: kernel {ms:.4f} ms, twin "
-                f"{plain_ms:.4f} ms, no single library call, bound "
-                f"{bms:.4f} ms ({by}), {6 * n * 2 / ms / 1e6:.1f} GB/s")
-            row(bwd, "adaln", 379, ms, plain_ms, bms, by, None)
+            for gm in (gamma, None):
+                if gm is None:
+                    got = run_bwd(None)
+                    ref = fad.gated_residual_adaln_bwd_plain(
+                        want[0], delta, gate, scale, None, gx, gy)
+                    torch.cuda.synchronize()
+                    errs[bwd] = max(errs[bwd], check_adaln_bwd(
+                        bwd, f"[{b}, {l}, {d}] gamma=False", GR_BWD_NAMES,
+                        got, ref, GR_BWD_TOLS))
+                    del got, ref
+                ms = cuda_ms(lambda: run_bwd(gm))
+                bms, by = adaln_bwd_bound(b, l, d, 2, gm is not None, True)
+                log(f"[kernels] {bwd} [{b}, {l}, {d}] gamma={gm is not None}:"
+                    f" kernel {ms:.4f} ms, bound {bms:.4f} ms ({by}), "
+                    f"{6 * n * 2 / ms / 1e6:.1f} GB/s of rows")
+                if gm is None:
+                    plain_ms = cuda_ms(
+                        lambda: fad.gated_residual_adaln_bwd_plain(
+                            want[0], delta, gate, scale, gm, gx, gy), iters=10)
+                    log(f"[kernels] {bwd} [{b}, {l}, {d}] gamma=False: twin "
+                        f"{plain_ms:.4f} ms, no single library call")
+                    rows[bwd] = dict(
+                        name=bwd, route="cuda",
+                        source="video_diffusion_speedrun_tpu_torch/csrc/"
+                               "adaln_bwd.cu",
+                        replaces=rep.format("adaln", 379), ms=ms,
+                        plain_ms=plain_ms, bound_ms=bms, bound_by=by,
+                        library_ms=None)
     row(fwd, "adaln", 281, *fwd_times, None)
+    rows[bwd]["max_abs_err"] = errs[bwd]
 
     # rows 15–16: the MLP's variant at its shapes, bias_gelu on both dtypes
     mlp, fwd, bwd = fg.BLOCK, "bias_gelu_fwd", "bias_gelu_bwd"
@@ -1482,11 +1592,13 @@ def profile_step(model, context, lat, tag: str, ring=None):
 
 # profile rows grouped by kernel name: (kind, substrings), first match wins
 KERNEL_KINDS = (
+    ("AdaLN backward kernel (csrc/adaln_bwd.cu)", ("adaln_bwd_kernel",)),
     ("attention kernels (csrc/attention_{fwd,bwd}.cuh)",
      ("short_attention", "long_attention", "fwd_kernel", "bwd_kernel",
       "dq_store", "dkv_reduce", "prep_q", "prep_k", "rope_rotate")),
-    ("AdaLN kernels (Triton)", ("adaln_rms_modulate",)),
-    ("gated-residual AdaLN kernels (Triton)", ("gated_residual_adaln",)),
+    ("AdaLN forward kernels (Triton)", ("adaln_rms_modulate",)),
+    ("gated-residual AdaLN forward kernels (Triton)",
+     ("gated_residual_adaln",)),
     ("bias+GELU kernels (Triton)", ("bias_gelu",)),
     ("AdamW kernel (csrc/adamw_multi_tensor.cu)", ("adamw_multi_tensor",)),
     ("GEMMs (cuBLAS)", ("nvjet", "gemm", "cutlass", "xmma")),
@@ -2132,6 +2244,133 @@ def ab_fwd_rows(dev):
     torch.cuda.empty_cache()
 
 
+def ab_adaln_rows(dev):
+    """The AdaLN backward rows at the main path's shapes, each timed once
+    (`cuda_ms`) through the wrapper of whichever package is first on
+    sys.path, after a check against its twin (the kernels line's limits)
+    and against a second launch bit for bit: row 12 at [64, 528, 512] (x
+    strided as the final layer passes it) and [2, 8208, 512], row 14 at
+    [64, 528, 512], each with γ and without (the main path's case). Logs
+    `[ab] <row> <ms> ms` lines."""
+    from video_diffusion_speedrun_tpu_torch.ops import fused_adaln as fad
+
+    gen = torch.Generator(device=dev).manual_seed(8)
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen, device=dev).bfloat16()
+
+    def row(name, fn, plain, names, tols):
+        got, want = fn(), plain()
+        torch.cuda.synchronize()
+        for gname, a, w in zip(names, got, want):
+            if w is None:
+                continue
+            rtol, rel, _ = tols[gname]
+            err = (a.float() - w.float()).abs()
+            lim = rtol * w.float().abs() + rel * w.float().abs().max()
+            if not bool((err <= lim).all()):
+                raise AssertionError(f"{name}: {gname} |err| "
+                                     f"{err.max().item()} against the twin")
+        if not all((a is None and b is None) or torch.equal(a, b)
+                   for a, b in zip(got, fn())):
+            raise AssertionError(f"{name}: a second launch gives other bits")
+        del got, want
+        log(f"[ab] {name} {cuda_ms(fn, iters=20, warmup=3):.4f} ms")
+
+    for tag, b, l, strided in (("528", T_BATCH, T_L, True),
+                               ("8208", 2, LONG_L, False)):
+        d = T_WIDTH
+        x = randn(b, l + 16, d)
+        x = x[:, 16:] if strided else x[:, :l]
+        mod, g = randn(b, 9 * d), randn(b, l, d)
+        shift, scale = mod[:, :d], mod[:, d:2 * d]
+        for gamma in (torch.randn(d, generator=gen, device=dev), None):
+            args = (x, shift, scale, gamma, g)
+            row(f"row12-{tag}{'-gamma' if gamma is not None else ''}",
+                lambda: fad.adaln_rms_modulate_bwd(*args),
+                lambda: fad.adaln_rms_modulate_bwd_plain(*args),
+                ADALN_BWD_NAMES, ADALN_BWD_TOLS)
+    b, l, d = T_BATCH, T_L, T_WIDTH
+    x_new, delta, gx, gy = (randn(b, l, d) for _ in range(4))
+    mod = randn(b, 9 * d)
+    gate, scale = mod[:, 2 * d:3 * d], mod[:, d:2 * d]
+    for gamma in (torch.randn(d, generator=gen, device=dev), None):
+        args = (x_new, delta, gate, scale, gamma, gx, gy)
+        row(f"row14-528{'-gamma' if gamma is not None else ''}",
+            lambda: fad.gated_residual_adaln_bwd(*args),
+            lambda: fad.gated_residual_adaln_bwd_plain(*args),
+            GR_BWD_NAMES, GR_BWD_TOLS)
+    torch.cuda.empty_cache()
+
+
+def adaln_configs(dev) -> int:
+    """`--adaln-configs`: the AdaLN backward's design choices, measured —
+    rows 12 and 14 at [64, 528, 512] and row 12 at [2, 8208, 512], with γ
+    and without, under the default configuration and others: the ring's
+    stages (2, 3, 4 where they fit), 4 consumer warps a CTA (two or three
+    CTAs an SM, where 8 warps leave room for one), and the masked loads;
+    each checked against its twin first."""
+    from video_diffusion_speedrun_tpu_torch.ops import fused_adaln as fad
+
+    gen = torch.Generator(device=dev).manual_seed(9)
+    bf = torch.bfloat16
+    d = T_WIDTH
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen, device=dev).to(bf)
+
+    cases = []
+    for b, l in ((T_BATCH, T_L), (2, LONG_L)):
+        x, g, mod = randn(b, l, d), randn(b, l, d), randn(b, 9 * d)
+        for gamma in (torch.randn(d, generator=gen, device=dev), None):
+            cases.append((f"row12 [{b}, {l}, {d}] gamma={gamma is not None}",
+                          (x, g, mod[:, d:2 * d], gamma, 1e-6, (bf,) * 3), {},
+                          lambda x=x, g=g, mod=mod, gamma=gamma:
+                          fad.adaln_rms_modulate_bwd_plain(
+                              x, mod[:, :d], mod[:, d:2 * d], gamma, g),
+                          (0, 2, 3, 5)))
+    x_new, delta, gx, gy = (randn(T_BATCH, T_L, d) for _ in range(4))
+    mod = randn(T_BATCH, 9 * d)
+    for gamma in (torch.randn(d, generator=gen, device=dev), None):
+        cases.append((f"row14 [{T_BATCH}, {T_L}, {d}] gamma={gamma is not None}",
+                      (x_new, gy, mod[:, d:2 * d], gamma, 1e-6, (bf,) * 3),
+                      dict(gx=gx, delta=delta, gate=mod[:, 2 * d:3 * d]),
+                      lambda gamma=gamma: fad.gated_residual_adaln_bwd_plain(
+                          x_new, delta, mod[:, 2 * d:3 * d], mod[:, d:2 * d],
+                          gamma, gx, gy),
+                      (0, 1, 4, 2, 3, 5)))
+    for name, args, kw, plain, order in cases:
+        want = plain()
+        gated = "gx" in kw
+        default = fad._bwd_config(d, 2, 2, gated, args[3] is not None, True)
+        configs = [("default", None)]
+        configs += [(f"8 warps, {st} stages", (fad.C16, 8, st))
+                    for st in (2, 3, 4) if (fad.C16, 8, st) != default
+                    and fad._bwd_smem(fad.C16, d, 8, st, 2, 2, gated,
+                                      args[3] is not None) <= fad._SMEM_LIMIT]
+        configs += [("4 warps, 4 stages", (fad.C16, 4, 4)),
+                    ("masked loads, 8 warps", (fad.MASKED, 8, 0))]
+        for what, cfg in configs:
+            got = fad._bwd_cuda(*args, config=cfg, **kw)
+            got = [got[i] for i in order]
+            torch.cuda.synchronize()
+            tols = GR_BWD_TOLS if gated else ADALN_BWD_TOLS
+            check_adaln_bwd("adaln_bwd", f"{name} {what}",
+                            GR_BWD_NAMES if gated else ADALN_BWD_NAMES, got,
+                            want, tols)
+            ms = cuda_ms(lambda: fad._bwd_cuda(*args, config=cfg, **kw))
+            occ = fad._occupancy.get((args[0].device.index, int(gated),
+                                      int(args[3] is not None), 1,
+                                      int(gated), *(cfg or default), d))
+            log(f"[adaln-configs] {name} {what} {cfg or default}: "
+                f"{ms:.4f} ms, {occ} CTA(s) an SM")
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True)
+    print(smi.stdout.strip())
+    return 0
+
+
 AB_PATTERNS = (
     (r"\[ab\] (\S+) ([0-9.]+) ms", lambda m: (m[1], float(m[2]))),
     (r"\[serve-long\] request 0 seed \d+: .* ([0-9.]+) ms per Euler step",
@@ -2139,9 +2378,10 @@ AB_PATTERNS = (
     (r"\[serve-long-profile\] one forward: [0-9.]+ ms wall \(profiled\), "
      r"device busy ([0-9.]+) ms",
      lambda m: ("serve-long busy ms", float(m[1]))),
-    (r"\[(train|train-long)\] steady state ([0-9.]+) ms",
+    (r"\[(train|train-long|train-fr)\] steady state ([0-9.]+) ms",
      lambda m: (m[1] + " step ms", float(m[2]))),
-    (r"\[(train|train-long)-profile\] one train step: [0-9.]+ ms wall "
+    (r"\[(train|train-long|train-fr)-profile\] one train step: [0-9.]+ ms "
+     r"wall "
      r"\(profiled\), device busy ([0-9.]+) ms",
      lambda m: (m[1] + " busy ms", float(m[2]))),
 )
@@ -2150,8 +2390,10 @@ AB_PATTERNS = (
 def ab_child(tree: str, what: str) -> int:
     """One turn of the A/B in a process of its own, with the package of
     `tree` first on sys.path and this file's measurements: `build` its
-    kernels; or time the backward and forward `rows`, and then serve one
-    serve-long request (`serve`), and then run the `train` steps too."""
+    kernels; or, for `what` a "+"-joined list, time the backward, forward
+    and AdaLN backward `rows`, serve one serve-long request (`serve`) and
+    run the `train` steps (L = 528, L = 8208 and L = 528 with
+    `fused_residual`)."""
     sys.path.insert(0, tree)
     from video_diffusion_speedrun_tpu_torch.ops import fused_attention as fa
 
@@ -2161,20 +2403,23 @@ def ab_child(tree: str, what: str) -> int:
     phase_build()
     if what == "build":
         return 0
+    parts = what.split("+")
     ab_rows(dev)
     ab_fwd_rows(dev)
-    if what == "rows":
-        return 0
-    model, context = build_demo(dev)
-    phase_serve(dev, model, context, LONG_PX, LONG_FRAMES, LONG_STEPS,
-                SEEDS[:1], "serve-long")
-    del model, context
-    torch.cuda.empty_cache()
-    if what == "train":
+    ab_adaln_rows(dev)
+    if "serve" in parts:
+        model, context = build_demo(dev)
+        phase_serve(dev, model, context, LONG_PX, LONG_FRAMES, LONG_STEPS,
+                    SEEDS[:1], "serve-long")
+        del model, context
+        torch.cuda.empty_cache()
+    if "train" in parts:
         phase_train(dev, T_BATCH, T_LATENT, T_STEPS, (), "train",
                     evaluate=False)
         phase_train(dev, TL_BATCH, TL_LATENT, TL_STEPS,
                     ("--moments_dtype", "bf16"), "train-long", evaluate=False)
+        phase_train(dev, T_BATCH, T_LATENT, FR_STEPS, (), "train-fr",
+                    evaluate=False, fused_residual=True)
     return 0
 
 
@@ -2203,9 +2448,10 @@ def main_ab(argv) -> int:
     readings = [dict(), dict()]  # tree → name → [ms per turn]
     for i in range(pairs):
         for idx in ((0, 1) if i % 2 == 0 else (1, 0)):
+            parts = (["rows"] + ["serve"] * (i < serve_pairs)
+                     + ["train"] * (i < train_pairs))
             cmd = [sys.executable, __file__, "--ab-child", trees[idx],
-                   "train" if i < train_pairs else
-                   "serve" if i < serve_pairs else "rows"]
+                   "+".join(parts)]
             run = subprocess.run(cmd, capture_output=True, text=True)
             if run.returncode:
                 print(run.stdout[-2000:], run.stderr[-4000:])
@@ -2320,6 +2566,13 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--adaln-configs"]:
+        if not torch.cuda.is_available():
+            print("chip_smoke: no CUDA device is available", file=sys.stderr)
+            sys.exit(1)
+        sys.path.insert(0, str(ROOT))
+        phase_build()
+        sys.exit(adaln_configs(torch.device("cuda")))
     if sys.argv[1:2] == ["--ab"]:
         sys.exit(main_ab(sys.argv[2:]))
     if sys.argv[1:2] == ["--ab-child"]:

@@ -180,15 +180,23 @@ def test_attention_autograd_launches_both_kernels(dev):
     assert qkv.grad[..., 2 * h * d:].abs().sum() > 0  # dv through the view
 
 
-@pytest.mark.parametrize("l,with_gamma,strided", [(528, False, True),
-                                                  (333, True, False)])
-def test_adaln_bwd_kernel_matches_twin(dev, l, with_gamma, strided):
-    """dx, dshift, dscale, dγ of the Triton backward against the twin, fp32
+# (B, L, D, γ, x strided): the train shape; L = 333; B = 1; L shorter than
+# one ring stage (8 rows); runs that cross many b boundaries (L = 7); the
+# final layer's strided x at D = 2048 (partials in shared memory); D = 100
+# (rows of 200 bytes: the masked loads); D = 520 (32 columns a lane)
+ADALN_BWD_CASES = [(8, 528, 512, False, True), (8, 333, 512, True, False),
+                   (1, 528, 512, True, True), (4, 3, 512, True, False),
+                   (5, 7, 512, True, True), (2, 333, 2048, True, True),
+                   (3, 37, 100, True, True), (2, 40, 520, False, False)]
+
+
+@pytest.mark.parametrize("b,l,d,with_gamma,strided", ADALN_BWD_CASES)
+def test_adaln_bwd_kernel_matches_twin(dev, b, l, d, with_gamma, strided):
+    """dx, dshift, dscale, dγ of the CUDA backward against the twin, fp32
     inside on both sides: dx within one bf16 ulp (2^-7 relative) plus 1% of
     its scale for cancellation in dn − n·mean(n·dn); the column sums differ
     in summation order (bf16 outputs: one ulp; dγ fp32: 1e-4)."""
     gen = torch.Generator(device=dev).manual_seed(3)
-    b, d = 8, 512
     x = torch.randn(b, l + 16, d, generator=gen, device=dev).bfloat16()
     x = x[:, 16:] if strided else x[:, :l].contiguous()
     mod = torch.randn(b, 9 * d, generator=gen, device=dev).bfloat16()
@@ -211,6 +219,77 @@ def test_adaln_bwd_kernel_matches_twin(dev, l, with_gamma, strided):
         torch.testing.assert_close(got[3], want[3], rtol=1e-4, atol=1e-3)
     else:
         assert got[3] is None
+
+
+def _bwd_args(dev, gated, b=16, l=528, d=512):
+    gen = torch.Generator(device=dev).manual_seed(21)
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen, device=dev).bfloat16()
+
+    mod, gamma = randn(b, 9 * d), torch.randn(d, generator=gen, device=dev)
+    if gated:
+        return (randn(b, l, d), randn(b, l, d), mod[:, 2 * d:3 * d],
+                mod[:, d:2 * d], gamma, randn(b, l, d), randn(b, l, d))
+    return randn(b, l, d), mod[:, :d], mod[:, d:2 * d], gamma, randn(b, l, d)
+
+
+@pytest.mark.parametrize("gated", [False, True])
+def test_adaln_bwd_kernel_is_deterministic(dev, gated):
+    """50 launches give the same bits: the column sums add in a fixed
+    order (CTAs, groups, b's), with no float atomics."""
+    fn = tad.gated_residual_adaln_bwd if gated else tad.adaln_rms_modulate_bwd
+    args = _bwd_args(dev, gated)
+    first = fn(*args)
+    for _ in range(50):
+        again = fn(*args)
+        assert all(torch.equal(a, b) for a, b in zip(first, again))
+
+
+@pytest.mark.parametrize("gated", [False, True])
+def test_adaln_autograd_launches_one_backward_kernel(dev, gated):
+    """The autograd path's backward is one kernel launch and nothing else
+    on the device (after the first call, which zeroes the tickets)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    args = [t.detach().clone().requires_grad_() for t in _bwd_args(dev, gated)]
+    if gated:
+        ins, cot = args[:5], (args[5].detach(), args[6].detach())
+        ins = ins[:3] + [ins[3].detach().clone().requires_grad_()] + ins[3:]
+        run = lambda: tad.gated_residual_adaln(*ins)  # noqa: E731
+        counter = tad.gated_residual_adaln_bwd
+    else:
+        ins, cot = args[:4], (args[4].detach(),)
+        run = lambda: (tad.adaln_rms_modulate(*ins),)  # noqa: E731
+        counter = tad.adaln_rms_modulate_bwd
+    torch.autograd.backward(run(), cot)  # warm-up: build, tickets
+    for t in ins:  # no accumulation into earlier gradients below
+        t.grad = None
+    outs = run()
+    torch.cuda.synchronize()
+    before = counter.launches
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        torch.autograd.backward(outs, cot)
+        torch.cuda.synchronize()
+    assert counter.launches == before + 1
+    kernels = [e.name for e in prof.events()
+               if e.device_type == DeviceType.CUDA]
+    assert len(kernels) == 1 and "adaln_bwd_kernel" in kernels[0], kernels
+
+
+def test_adaln_bwd_smem_matches_the_kernel_layout(dev):
+    """The wrapper sizes the kernel's shared memory as the kernel lays it
+    out (`_bwd_smem` against `adaln_bwd_smem`)."""
+    lib = tad._library()
+    for d in (100, 512, 520, 2048, 8192):
+        for t, td, gated in ((2, 2, 0), (4, 4, 0), (2, 4, 1), (4, 2, 1)):
+            for has_gamma in (0, 1):
+                for mode in (tad.C16, tad.C32, tad.SMEM, tad.MASKED):
+                    assert tad._bwd_smem(mode, d, 8, 3, t, td, gated,
+                                         has_gamma) == lib.adaln_bwd_smem(
+                        gated, has_gamma, int(t == 2), int(td == 2), mode, d,
+                        8, 3)
 
 
 @pytest.mark.parametrize("moments", [torch.float32, torch.bfloat16])
@@ -310,10 +389,23 @@ def test_long_autograd_launches_both_kernels(dev):
                for i in range(3))
 
 
-@pytest.mark.parametrize("b,l,d,with_gamma", [(2, 1040, 2048, False),
-                                              (8, 528, 512, True),
-                                              (3, 333, 512, False)])
-def test_gated_residual_kernels_match_twins(dev, b, l, d, with_gamma):
+# (B, L, D, γ, dtype of x, dtype of δ): the serve and train shapes; L = 333;
+# B = 1; L shorter than one ring stage; runs across many b boundaries;
+# D = 100 (the masked loads); fp32 rows; fp32 δ beside bf16 x
+GR_CASES = [(2, 1040, 2048, False, torch.bfloat16, torch.bfloat16),
+            (8, 528, 512, True, torch.bfloat16, torch.bfloat16),
+            (3, 333, 512, False, torch.bfloat16, torch.bfloat16),
+            (1, 528, 512, True, torch.bfloat16, torch.bfloat16),
+            (4, 3, 512, True, torch.bfloat16, torch.bfloat16),
+            (5, 7, 512, False, torch.bfloat16, torch.bfloat16),
+            (3, 37, 100, True, torch.bfloat16, torch.bfloat16),
+            (2, 100, 512, True, torch.float32, torch.float32),
+            (2, 100, 512, False, torch.bfloat16, torch.float32)]
+
+
+@pytest.mark.parametrize("b,l,d,with_gamma,dtype,ddtype", GR_CASES)
+def test_gated_residual_kernels_match_twins(dev, b, l, d, with_gamma, dtype,
+                                            ddtype):
     """Rows 13–14 against their twins, fp32 inside on both sides: x_new and
     y within one bf16 ulp (y + 1e-2 for the row-sum order, as row 3); dx
     and dδ one ulp + 1% of scale, the [B, D] sums one ulp + 0.1% of scale,
@@ -321,11 +413,11 @@ def test_gated_residual_kernels_match_twins(dev, b, l, d, with_gamma):
     views of a 9-way modulation, as the model passes them."""
     gen = torch.Generator(device=dev).manual_seed(10)
 
-    def randn(*shape):
-        return torch.randn(*shape, generator=gen, device=dev).bfloat16()
+    def randn(*shape, dt=dtype):
+        return torch.randn(*shape, generator=gen, device=dev).to(dt)
 
     x = randn(b, l + 16, d)[:, 16:]
-    delta, gx, gy = randn(b, l, d), randn(b, l, d), randn(b, l, d)
+    delta, gx, gy = randn(b, l, d, dt=ddtype), randn(b, l, d), randn(b, l, d)
     mod = randn(b, 9 * d)
     gate, shift, scale = mod[:, 2 * d:3 * d], mod[:, :d], mod[:, d:2 * d]
     gamma = randn(d).float() if with_gamma else None

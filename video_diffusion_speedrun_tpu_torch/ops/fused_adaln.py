@@ -4,61 +4,57 @@
 
 `adaln_rms_modulate` is a `torch.autograd.Function` (the JAX `_adaln_rms`
 custom_vjp). Its forward replaces the Pallas `_forward`
-(`ops/fused_adaln.py:68`, kernels `_fwd_kernel` / `_fwd_kernel_nogamma`),
-its backward the Pallas `_backward` (`:156`, kernels `_bwd_kernel` /
-`_bwd_kernel_nogamma`). On CUDA tensors both launch the Triton kernels
-below; on CPU tensors they run the plain twins `adaln_rms_modulate_plain`
-and `adaln_rms_modulate_bwd_plain`.
+(`ops/fused_adaln.py:68`, kernels `_fwd_kernel` / `_fwd_kernel_nogamma`)
+with the Triton kernel below; its backward replaces the Pallas `_backward`
+(`:156`, kernels `_bwd_kernel` / `_bwd_kernel_nogamma`) with the CUDA
+kernel of `csrc/adaln_bwd.cu`. On CPU tensors both run the plain twins
+`adaln_rms_modulate_plain` and `adaln_rms_modulate_bwd_plain`.
 
 What bounds it on the card: one row reduction plus one elementwise pass, so
 it is bandwidth-bound — it must read x and write y once (~17 MB at
 2×1040×2048 bf16), a few flops a byte, far below the tensor cores' line.
-The design is therefore the plain one: each program owns one whole row in
-registers (one read of x, one write of y, fp32 in between); tensor cores and
-shared-memory staging buy nothing. x may be a strided row view (the final
-layer strips the registers with a slice), and shift/scale may be column
-views of the AdaLN projection, so nothing is copied before the kernel.
+The forward's design is therefore the plain one: each program owns one
+whole row in registers (one read of x, one write of y, fp32 in between);
+tensor cores and shared-memory staging buy nothing. x may be a strided row
+view (the final layer strips the registers with a slice), and shift/scale
+may be column views of the AdaLN projection, so nothing is copied before
+the kernel.
 
 The backward is bandwidth-bound too: it must read x and the output
 gradient g and write dx (~104 MB at 64×528×512 bf16). Per row it recomputes
 r = rsqrt(mean(x²)+eps), n = x·r and writes dx = r·(dn − n·mean(n·dn)),
-dn = g·(1+scale)·γ?. The column sums over L (dshift = Σg, dscale =
-Σg·n·γ?, dγ = Σg·n·(1+scale)) cannot carry across Triton programs the way
-the TPU kernel carries them across its row grid in VMEM; each program
-walks 64 rows in tiles of a few rows, keeps the column partials as 2-D
-register accumulators (one cross-row reduction at the end instead of one
-per tile), and writes fp32 partials [B, programs, D]; one torch sum over
-the small partials finishes them (JAX also sums its per-b dγ partials
-outside the kernel).
+dn = g·(1+scale)·γ?, and it sums the columns over L (dshift = Σg, dscale =
+Σg·n·γ?, dγ = Σg·n·(1+scale)). Its kernel (`csrc/adaln_bwd.cu`, whose
+note gives the design) keeps the next rows of every input in flight by
+bulk copies into a shared-memory ring while it computes a row, and
+finishes the column sums in the same launch in a fixed order: one launch
+per backward, the same bits every launch. The host plans its work
+(`_bwd_plan`, `_bwd_config`).
 
 `gated_residual_adaln` fuses the block's residual join with the next
 sub-layer's norm (the JAX `_gr_adaln` custom_vjp, `DiTConfig.fused_residual`):
 x_new = x + δ·gate in fp32, stored in x's dtype, and y the modulated norm of
 the unrounded fp32 x_new. Its forward replaces the Pallas `_gr_forward`
-(`ops/fused_adaln.py:281`, kernels `_gr_fwd_kernel*`), one program per row
-as row 3 (read x and δ once, write x_new and y once); its backward the
-Pallas `_gr_backward` (`:379`, `_gr_bwd_kernel*`), row 12's scheme with the
-residual cotangent gx added to dx, dδ = dx·gate, and dgate = Σ_L dx·δ as a
-fourth column partial. It saves the rounded x_new, not x, as JAX does.
+(`ops/fused_adaln.py:281`, kernels `_gr_fwd_kernel*`), one Triton program
+per row as row 3 (read x and δ once, write x_new and y once); its backward
+the Pallas `_gr_backward` (`:379`, `_gr_bwd_kernel*`), the same CUDA
+kernel as row 12 with the residual cotangent gx added to dx, dδ = dx·gate,
+and dgate = Σ_L dx·δ as a fourth column sum. It saves the rounded x_new,
+not x, as JAX does.
 """
 
-from typing import Optional
+import ctypes
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
+
+from video_diffusion_speedrun_tpu_torch.ops import _build
 
 # bound at the first launch (triton is imported there, never at import:
 # the CPU tests import this module on a machine without triton)
 tl = None
 _kernel = None
-_bwd_kernel = None
 _gr_kernel = None
-_gr_bwd_kernel = None
-# backward launch shape: rows a program covers before writing its column
-# partials, rows per register tile (at D=512; scaled by 512/D), warps —
-# the fastest shape tried on the H100 at [64, 528, 512]
-_BWD_ROWS = 64
-_BWD_TILE_ROWS = 4
-_BWD_WARPS = 4
 
 
 def adaln_rms_modulate_plain(x: torch.Tensor, shift: torch.Tensor,
@@ -130,70 +126,6 @@ def _triton_kernel():
     return _kernel
 
 
-def _triton_bwd_kernel():
-    global tl, _bwd_kernel
-    if _bwd_kernel is None:
-        import triton
-        import triton.language as tl
-
-        @triton.jit
-        def adaln_rms_modulate_bwd(x_ptr, g_ptr, scale_ptr, gamma_ptr,
-                                   dx_ptr, part_ptr, L, D, x_sb, x_sl,
-                                   mod_sb, eps, n_prog,
-                                   HAS_GAMMA: tl.constexpr,
-                                   ROWS: tl.constexpr, ITERS: tl.constexpr,
-                                   BLOCK_D: tl.constexpr):
-            pid = tl.program_id(0)
-            b = tl.program_id(1)
-            cols = tl.arange(0, BLOCK_D)
-            cmask = cols < D
-            ops = 1.0 + tl.load(scale_ptr + b * mod_sb + cols, mask=cmask,
-                                other=0.0).to(tl.float32)
-            if HAS_GAMMA:
-                gam = tl.load(gamma_ptr + cols, mask=cmask,
-                              other=0.0).to(tl.float32)
-                mul = ops * gam
-            else:
-                mul = ops
-            # column partials stay 2-D in registers across the row tiles;
-            # one cross-row reduction at the end
-            dsh = tl.zeros([ROWS, BLOCK_D], dtype=tl.float32)
-            dsc = tl.zeros([ROWS, BLOCK_D], dtype=tl.float32)
-            dga = tl.zeros([ROWS, BLOCK_D], dtype=tl.float32)
-            for it in range(ITERS):
-                rows = (pid * ITERS + it) * ROWS + tl.arange(0, ROWS)
-                mask = (rows < L)[:, None] & cmask[None, :]
-                x_off = (b.to(tl.int64) * x_sb + rows[:, None].to(tl.int64)
-                         * x_sl + cols[None, :])
-                x = tl.load(x_ptr + x_off, mask=mask, other=0.0).to(tl.float32)
-                row_off = ((b.to(tl.int64) * L + rows[:, None]) * D
-                           + cols[None, :])
-                g = tl.load(g_ptr + row_off, mask=mask,
-                            other=0.0).to(tl.float32)
-                r = tl.rsqrt(tl.sum(x * x, axis=1) / D + eps)
-                n = x * r[:, None]
-                gn = g * n
-                dsh += g
-                if HAS_GAMMA:
-                    dsc += gn * gam[None, :]
-                    dga += gn * ops[None, :]
-                else:
-                    dsc += gn
-                dn = g * mul[None, :]
-                dot = tl.sum(n * dn, axis=1)
-                dx = r[:, None] * (dn - n * dot[:, None] / D)
-                tl.store(dx_ptr + row_off, dx.to(dx_ptr.dtype.element_ty),
-                         mask=mask)
-            part = part_ptr + ((b * n_prog + pid) * 3).to(tl.int64) * D
-            tl.store(part + cols, tl.sum(dsh, axis=0), mask=cmask)
-            tl.store(part + D + cols, tl.sum(dsc, axis=0), mask=cmask)
-            if HAS_GAMMA:
-                tl.store(part + 2 * D + cols, tl.sum(dga, axis=0), mask=cmask)
-
-        _bwd_kernel = adaln_rms_modulate_bwd
-    return _bwd_kernel
-
-
 def _check_operands(x, shift, scale, gamma) -> None:
     b, l, d = x.shape
     operands = [("shift", shift), ("scale", scale)]
@@ -228,35 +160,298 @@ def _forward(x, shift, scale, gamma, eps: float) -> torch.Tensor:
     return y
 
 
+# ---------------------------------------------------------------------------
+# the backward kernel of rows 12 and 14: csrc/adaln_bwd.cu
+# ---------------------------------------------------------------------------
+
+_LIB = "adaln_bwd"
+# the kernel's instantiations: column partials in registers (16 or 32
+# columns a lane, D ≤ 1024) or in shared memory, all with rows bulk-copied
+# into the ring; or loads from global memory, each column checked (MASKED)
+C16, C32, SMEM, MASKED = range(4)
+_MAX_D = 8192
+_SMEM_LIMIT = 232448  # dynamic shared memory of one block on sm_90
+_RPW = 2  # rows a consumer warp takes from one stage (the kernel's RPW)
+_DTYPES = (torch.bfloat16, torch.float32)
+
+
+class _Params(ctypes.Structure):
+    """`AdaLNBwdParams` of csrc/adaln_bwd.cu, field for field."""
+    _fields_ = ([(n, ctypes.c_void_p) for n in (
+        "x", "g", "gx", "dl", "scale", "gate", "gamma", "dx", "dd", "dshift",
+        "dscale", "dgate", "dgamma", "part", "ticket")]
+        + [(n, ctypes.c_longlong) for n in (
+            "x_sb", "x_sl", "g_sb", "g_sl", "gx_sb", "gx_sl", "dl_sb",
+            "dl_sl", "scale_sb", "gate_sb")]
+        + [(n, ctypes.c_int) for n in (
+            "B", "L", "D", "ctas", "base", "rem", "stages", "warps")]
+        + [("eps", ctypes.c_float)]
+        + [(n, ctypes.c_int) for n in (
+            "scale_bf16", "gate_bf16", "gamma_bf16", "dshift_bf16",
+            "dscale_bf16", "dgate_bf16", "dgamma_bf16")])
+
+
+class _BwdPlan(NamedTuple):
+    """The backward's work over the B·L rows, as the kernel does it: CTA c
+    owns the contiguous run [start(c), start(c + 1)), runs differing by at
+    most one row; its rows of one b form a segment, whose column partials
+    go to slot c + b. b's finish adds its CTAs' slots in CTA order, in
+    groups of GROUP (CTAs c with c // GROUP equal; one group's sum is
+    slot kg + b of the group slots), then the group sums in order; dγ adds
+    the b's in b order, in groups of GROUP b's and then the groups. A
+    CTA's warp w takes rows lo + w, lo + w + nw, ... of each segment."""
+    b: int
+    l: int
+    ctas: int
+    base: int  # rows of a run; the first `rem` runs hold one more
+    rem: int
+
+    GROUP = 8  # the kernel's GROUP
+
+    def start(self, c: int) -> int:
+        return c * self.base + min(c, self.rem)
+
+    def cta_of(self, r: int) -> int:
+        cut = self.rem * (self.base + 1)
+        if r < cut:
+            return r // (self.base + 1)
+        return self.rem + (r - cut) // self.base
+
+    def segments(self, c: int):
+        """(b, first row, end row) of CTA c's run, cut at the b boundaries."""
+        lo, end = self.start(c), self.start(c + 1)
+        while lo < end:
+            hi = min(end, (lo // self.l + 1) * self.l)
+            yield lo // self.l, lo, hi
+            lo = hi
+
+    def finish_groups(self, bi: int):
+        """b's CTAs in the groups whose slots the finish adds, in order."""
+        c0 = self.cta_of(bi * self.l)
+        c1 = self.cta_of((bi + 1) * self.l - 1)
+        return [list(range(max(c0, k * self.GROUP),
+                           min(c1, k * self.GROUP + self.GROUP - 1) + 1))
+                for k in range(c0 // self.GROUP, c1 // self.GROUP + 1)]
+
+    @property
+    def slots(self) -> int:
+        """(CTA, b) slots, indexed c + b."""
+        return self.ctas + self.b - 1
+
+    @property
+    def group_slots(self) -> int:
+        """(group, b) slots and tickets, indexed c // GROUP + b."""
+        return _build.cdiv(self.ctas, self.GROUP) + self.b - 1
+
+    @property
+    def b_groups(self) -> int:
+        """Groups of GROUP b's whose dγ rows add first."""
+        return _build.cdiv(self.b, self.GROUP)
+
+    @property
+    def tickets(self) -> int:
+        """(group, b), b, group of b's, dγ."""
+        return self.group_slots + self.b + self.b_groups + 1
+
+    def scratch(self, ns: int, d: int) -> int:
+        """fp32 scratch of the finish: the slots and group slots of ns
+        sums, dγ rows of the b's and of the groups of b's."""
+        return (self.slots + self.group_slots) * ns * d \
+            + (self.b + self.b_groups) * d
+
+
+def _bwd_plan(b: int, l: int, ctas: int) -> _BwdPlan:
+    """The plan of a launch of `ctas` CTAs (at most one a row) over B·L rows."""
+    rows = b * l
+    ctas = max(1, min(ctas, rows))
+    return _BwdPlan(b, l, ctas, rows // ctas, rows % ctas)
+
+
+def _align16(n: int) -> int:
+    return (n + 15) & ~15
+
+
+def _bwd_smem(mode: int, d: int, nw: int, stages: int, t_size: int,
+              td_size: int, gated: bool, has_gamma: bool) -> int:
+    """Shared memory of one CTA, the layout of `smem_bytes` in the kernel:
+    the ring (stages of RPW·nw row slots) and its mbarriers, the per-b
+    constants, the warps' partials."""
+    vec = 16 // t_size
+    ns = 2 + gated  # Σg, Σg·n (dscale and dγ), Σdx·δ
+    nc = 1 + has_gamma + gated
+    nk = _build.cdiv(d, vec)
+    cpl = _build.cdiv(nk, 32) * vec
+    n = 0
+    if mode != MASKED:
+        slot = d * (t_size * (3 if gated else 2) + (td_size if gated else 0))
+        n = _align16(_RPW * nw * stages * slot) + stages * 16
+    n = _align16(n + nc * nk * vec * 4)
+    n = _align16(n + nw * ns * cpl * 32 * 4)
+    return n + 16
+
+
+def _bwd_config(d: int, t_size: int, td_size: int, gated: bool,
+                has_gamma: bool, aligned: bool) -> Tuple[int, int, int]:
+    """(mode, consumer warps a CTA, ring stages) of the backward. Rows that
+    bulk copies can take get a ring of two stages and the most warps (8)
+    whose ring fits a block's shared memory: on the H100 three or four
+    stages were no faster and four warps a CTA slower (`chip_smoke.py
+    --adaln-configs`). Others, or rows too wide for two stages, get the
+    masked loads."""
+    vec = 16 // t_size
+    if aligned and d * t_size % 16 == 0 and d * td_size % 16 == 0:
+        cpl = _build.cdiv(_build.cdiv(d, vec), 32) * vec
+        mode = C16 if cpl <= 16 else C32 if cpl <= 32 else SMEM
+        for nw in (8, 4, 2, 1):
+            if _bwd_smem(mode, d, nw, 2, t_size, td_size, gated,
+                         has_gamma) <= _SMEM_LIMIT:
+                return mode, nw, 2
+    for nw in (8, 4, 2, 1):
+        if _bwd_smem(MASKED, d, nw, 0, t_size, td_size, gated,
+                     has_gamma) <= _SMEM_LIMIT:
+            return MASKED, nw, 0
+    raise ValueError(f"the AdaLN backward takes D ≤ {_MAX_D}, got {d}")
+
+
+# (device, flags, mode, warps, stages, D) → CTAs an SM holds
+_occupancy: Dict[tuple, int] = {}
+# (device, stream) → int32 tickets, zero between launches
+_tickets: Dict[Tuple[int, int], torch.Tensor] = {}
+
+
+def _library() -> ctypes.CDLL:
+    lib = _build.load(_LIB)
+    if lib.adaln_bwd.argtypes is None:
+        lib.adaln_bwd.argtypes = ([ctypes.POINTER(_Params)]
+                                  + [ctypes.c_int] * 5
+                                  + [ctypes.c_void_p,
+                                     ctypes.POINTER(ctypes.c_int)])
+        lib.adaln_bwd.restype = ctypes.c_int
+        lib.adaln_bwd_smem.argtypes = [ctypes.c_int] * 8
+        lib.adaln_bwd_smem.restype = ctypes.c_longlong
+    return lib
+
+
+def _bulk_aligned(t: torch.Tensor) -> bool:
+    """Whether every row of t starts on 16 bytes."""
+    return t.data_ptr() % 16 == 0 and all(
+        n == 1 or s * t.element_size() % 16 == 0
+        for n, s in zip(t.shape[:2], t.stride()[:2]))
+
+
+def _bwd_cuda(x, g, scale, gamma, eps: float, sum_dtypes, gx=None,
+              delta=None, gate=None, config=None):
+    """One launch of csrc/adaln_bwd.cu: (dx, dδ, dshift, dscale, dgate,
+    dγ), dδ and dgate None for row 12 (gx is None), dγ None without γ.
+    sum_dtypes: the dtypes of dshift, dscale and dgate. config (mode,
+    warps, stages) overrides `_bwd_config`, to measure the design's
+    choices. Raises on what the kernel does not take."""
+    b, l, d = x.shape
+    gated, has_gamma = gx is not None, gamma is not None
+    rows = (x, g, gx, delta) if gated else (x, g)
+    for t in rows:
+        if t.dtype not in _DTYPES:
+            raise TypeError(f"the AdaLN backward takes bf16 or fp32 rows, "
+                            f"got {t.dtype}")
+        if t.shape != x.shape or t.device != x.device or t.stride(-1) != 1:
+            raise ValueError("the rows must be [B, L, D] on x's device with "
+                             "a unit column stride")
+    if g.dtype != x.dtype or (gated and gx.dtype != x.dtype):
+        raise TypeError("the cotangents must have x's dtype")
+    for t in (scale, gamma, gate):
+        if t is not None and t.dtype not in _DTYPES:
+            raise TypeError(f"scale, γ and gate must be bf16 or fp32, got "
+                            f"{t.dtype}")
+    if not 0 < d <= _MAX_D or b * l == 0 or b * l >= 2 ** 31:
+        raise ValueError(f"the AdaLN backward takes 0 < D ≤ {_MAX_D} and "
+                         f"0 < B·L < 2^31, got {tuple(x.shape)}")
+    t_size = x.element_size()
+    td_size = delta.element_size() if gated else t_size
+    mode, nw, stages = config or _bwd_config(
+        d, t_size, td_size, gated, has_gamma,
+        all(_bulk_aligned(t) for t in rows))
+    flags = (int(gated), int(has_gamma), int(x.dtype == torch.bfloat16),
+             int(gated and delta.dtype == torch.bfloat16), mode)
+    lib = _library()
+    dev = x.device
+    p = _Params(D=d, stages=stages, warps=nw)
+    with torch.cuda.device(dev):
+        key = (dev.index, *flags, nw, stages, d)
+        occ = _occupancy.get(key)
+        if occ is None:
+            n = ctypes.c_int(0)
+            _build.check(_LIB, lib.adaln_bwd(ctypes.byref(p), *flags, None,
+                                             ctypes.byref(n)))
+            if n.value < 1:
+                raise ValueError(f"no CTA of the AdaLN backward fits an SM "
+                                 f"at D = {d}, {nw} warps, {stages} stages")
+            occ = _occupancy[key] = n.value
+        n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+        plan = _bwd_plan(b, l, occ * n_sm)
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        tickets = _tickets.get((dev.index, stream))
+        if tickets is None or tickets.numel() < plan.tickets:
+            tickets = torch.zeros(max(plan.tickets, 1024), dtype=torch.int32,
+                                  device=dev)
+            _tickets[(dev.index, stream)] = tickets
+        ns = 2 + gated  # Σg, Σg·n (dscale and dγ), Σdx·δ
+        part = torch.empty(plan.scratch(ns, d), dtype=torch.float32,
+                           device=dev)
+        dx = torch.empty((b, l, d), dtype=x.dtype, device=dev)
+        dd = (torch.empty((b, l, d), dtype=delta.dtype, device=dev)
+              if gated else None)
+        dshift = torch.empty((b, d), dtype=sum_dtypes[0], device=dev)
+        dscale = torch.empty((b, d), dtype=sum_dtypes[1], device=dev)
+        dgate = (torch.empty((b, d), dtype=sum_dtypes[2], device=dev)
+                 if gated else None)
+        dgamma = (torch.empty(d, dtype=gamma.dtype, device=dev)
+                  if has_gamma else None)
+
+        def ptr(t):
+            return None if t is None else t.data_ptr()
+
+        def bf16(t):
+            return int(t is not None and t.dtype == torch.bfloat16)
+
+        p.x, p.g, p.gx, p.dl = ptr(x), ptr(g), ptr(gx), ptr(delta)
+        p.scale, p.gate, p.gamma = ptr(scale), ptr(gate), ptr(gamma)
+        p.dx, p.dd, p.dshift, p.dscale = ptr(dx), ptr(dd), ptr(dshift), \
+            ptr(dscale)
+        p.dgate, p.dgamma, p.part = ptr(dgate), ptr(dgamma), ptr(part)
+        p.ticket = ptr(tickets)
+        p.x_sb, p.x_sl = x.stride(0), x.stride(1)
+        p.g_sb, p.g_sl = g.stride(0), g.stride(1)
+        if gated:
+            p.gx_sb, p.gx_sl = gx.stride(0), gx.stride(1)
+            p.dl_sb, p.dl_sl = delta.stride(0), delta.stride(1)
+            p.gate_sb = gate.stride(0)
+        p.scale_sb = scale.stride(0)
+        p.B, p.L = b, l
+        p.ctas, p.base, p.rem = plan.ctas, plan.base, plan.rem
+        p.eps = eps
+        p.scale_bf16, p.gate_bf16, p.gamma_bf16 = bf16(scale), bf16(gate), \
+            bf16(gamma)
+        p.dshift_bf16, p.dscale_bf16 = bf16(dshift), bf16(dscale)
+        p.dgate_bf16, p.dgamma_bf16 = bf16(dgate), bf16(dgamma)
+        err = lib.adaln_bwd(ctypes.byref(p), *flags, stream, None)
+    _build.check(_LIB, err)
+    return dx, dd, dshift, dscale, dgate, dgamma
+
+
 def adaln_rms_modulate_bwd(x, shift, scale, gamma, g, eps: float = 1e-6):
     """The backward: (dx, dshift, dscale, dγ or None) in the dtypes of x,
-    shift, scale and γ. The Triton kernel on CUDA, the twin on the CPU."""
+    shift, scale and γ. One launch of csrc/adaln_bwd.cu on CUDA tensors
+    (g is copied first only if its columns are strided), the twin on CPU
+    tensors."""
     if not x.is_cuda:
         return adaln_rms_modulate_bwd_plain(x, shift, scale, gamma, g, eps)
     _check_operands(x, shift, scale, gamma)
-    b, l, d = x.shape
-    g = g.contiguous()
-    dx = torch.empty((b, l, d), dtype=x.dtype, device=x.device)
-    block = max(16, 1 << (d - 1).bit_length())
-    rows = max(1, min(_BWD_ROWS, _BWD_TILE_ROWS * 512 // block))
-    iters = _BWD_ROWS // rows
-    n_prog = -(-l // _BWD_ROWS)
-    part = torch.empty((b, n_prog, 3, d), dtype=torch.float32,
-                       device=x.device)
-    kernel = _triton_bwd_kernel()
-    with torch.cuda.device(x.device):
-        kernel[(n_prog, b)](x, g, scale, x if gamma is None else gamma, dx,
-                            part, l, d, x.stride(0), x.stride(1),
-                            scale.stride(0), eps, n_prog,
-                            HAS_GAMMA=gamma is not None, ROWS=rows,
-                            ITERS=iters, BLOCK_D=block,
-                            num_warps=_BWD_WARPS)
+    if g.stride(-1) != 1:
+        g = g.contiguous()
+    dx, _, dshift, dscale, _, dgamma = _bwd_cuda(
+        x, g, scale, gamma, eps, (shift.dtype, scale.dtype, None))
     adaln_rms_modulate_bwd.launches += 1
-    sums = part.sum(dim=1)  # [B, 3, D]
-    dgamma = None
-    if gamma is not None:
-        dgamma = sums[:, 2].sum(dim=0).to(gamma.dtype)
-    return dx, sums[:, 0].to(shift.dtype), sums[:, 1].to(scale.dtype), dgamma
+    return dx, dshift, dscale, dgamma
 
 
 adaln_rms_modulate_bwd.launches = 0
@@ -343,10 +538,10 @@ def gated_residual_adaln_bwd_plain(x_new, delta, gate, scale, gamma, gx, gy,
             dshift.to(gy.dtype), dscale.to(gy.dtype), dgamma)
 
 
-def _triton_gr_kernels():
-    global tl, _gr_kernel, _gr_bwd_kernel
+def _triton_gr_kernel():
+    global tl, _gr_kernel
     if _gr_kernel is not None:
-        return _gr_kernel, _gr_bwd_kernel
+        return _gr_kernel
     import triton
     import triton.language as tl
 
@@ -383,73 +578,8 @@ def _triton_gr_kernels():
         tl.store(y_ptr + out_row + cols, y.to(y_ptr.dtype.element_ty),
                  mask=mask)
 
-    @triton.jit
-    def gated_residual_adaln_bwd(xn_ptr, d_ptr, gx_ptr, gy_ptr, gate_ptr,
-                                 scale_ptr, gamma_ptr, dx_ptr, dd_ptr,
-                                 part_ptr, L, D, d_sb, d_sl, mod_sb, eps,
-                                 n_prog, HAS_GAMMA: tl.constexpr,
-                                 ROWS: tl.constexpr, ITERS: tl.constexpr,
-                                 BLOCK_D: tl.constexpr):
-        pid = tl.program_id(0)
-        b = tl.program_id(1)
-        cols = tl.arange(0, BLOCK_D)
-        cmask = cols < D
-        ops = 1.0 + tl.load(scale_ptr + b * mod_sb + cols, mask=cmask,
-                            other=0.0).to(tl.float32)
-        if HAS_GAMMA:
-            gam = tl.load(gamma_ptr + cols, mask=cmask,
-                          other=0.0).to(tl.float32)
-            mul = ops * gam
-        else:
-            mul = ops
-        gate = tl.load(gate_ptr + b * mod_sb + cols, mask=cmask,
-                       other=0.0).to(tl.float32)
-        # column partials stay 2-D in registers across the row tiles
-        dga = tl.zeros([ROWS, BLOCK_D], dtype=tl.float32)
-        dsh = tl.zeros([ROWS, BLOCK_D], dtype=tl.float32)
-        dsc = tl.zeros([ROWS, BLOCK_D], dtype=tl.float32)
-        dgm = tl.zeros([ROWS, BLOCK_D], dtype=tl.float32)
-        for it in range(ITERS):
-            rows = (pid * ITERS + it) * ROWS + tl.arange(0, ROWS)
-            mask = (rows < L)[:, None] & cmask[None, :]
-            row_off = ((b.to(tl.int64) * L + rows[:, None]) * D
-                       + cols[None, :])
-            x = tl.load(xn_ptr + row_off, mask=mask, other=0.0).to(tl.float32)
-            gy = tl.load(gy_ptr + row_off, mask=mask,
-                         other=0.0).to(tl.float32)
-            r = tl.rsqrt(tl.sum(x * x, axis=1) / D + eps)
-            n = x * r[:, None]
-            gn = gy * n
-            dsh += gy
-            if HAS_GAMMA:
-                dsc += gn * gam[None, :]
-                dgm += gn * ops[None, :]
-            else:
-                dsc += gn
-            dn = gy * mul[None, :]
-            dot = tl.sum(n * dn, axis=1)
-            dx = r[:, None] * (dn - n * dot[:, None] / D)
-            dx += tl.load(gx_ptr + row_off, mask=mask,
-                          other=0.0).to(tl.float32)
-            tl.store(dx_ptr + row_off, dx.to(dx_ptr.dtype.element_ty),
-                     mask=mask)
-            tl.store(dd_ptr + row_off,
-                     (dx * gate[None, :]).to(dd_ptr.dtype.element_ty),
-                     mask=mask)
-            d_off = (b.to(tl.int64) * d_sb + rows[:, None].to(tl.int64) * d_sl
-                     + cols[None, :])
-            dga += dx * tl.load(d_ptr + d_off, mask=mask,
-                                other=0.0).to(tl.float32)
-        part = part_ptr + ((b * n_prog + pid) * 4).to(tl.int64) * D
-        tl.store(part + cols, tl.sum(dga, axis=0), mask=cmask)
-        tl.store(part + D + cols, tl.sum(dsh, axis=0), mask=cmask)
-        tl.store(part + 2 * D + cols, tl.sum(dsc, axis=0), mask=cmask)
-        if HAS_GAMMA:
-            tl.store(part + 3 * D + cols, tl.sum(dgm, axis=0), mask=cmask)
-
-    _gr_kernel, _gr_bwd_kernel = (gated_residual_adaln_fwd,
-                                  gated_residual_adaln_bwd)
-    return _gr_kernel, _gr_bwd_kernel
+    _gr_kernel = gated_residual_adaln_fwd
+    return _gr_kernel
 
 
 def _check_gr_operands(x, delta, gate, shift, scale, gamma) -> None:
@@ -474,7 +604,7 @@ def _gr_forward(x, delta, gate, shift, scale, gamma, eps: float):
     x_new = torch.empty((b, l, d), dtype=x.dtype, device=x.device)
     y = torch.empty_like(x_new)
     block = max(16, 1 << (d - 1).bit_length())
-    kernel, _ = _triton_gr_kernels()
+    kernel = _triton_gr_kernel()
     with torch.cuda.device(x.device):
         kernel[(l, b)](x, delta, gate, shift, scale,
                        x if gamma is None else gamma, x_new, y, l, d,
@@ -489,38 +619,20 @@ def _gr_forward(x, delta, gate, shift, scale, gamma, eps: float):
 def gated_residual_adaln_bwd(x_new, delta, gate, scale, gamma, gx, gy,
                              eps: float = 1e-6):
     """The backward from the saved x_new: (dx, dδ, dgate, dshift, dscale,
-    dγ or None). The Triton kernel on CUDA, the twin on the CPU."""
+    dγ or None). One launch of csrc/adaln_bwd.cu on CUDA tensors (gx / gy
+    copied first only if their columns are strided), the twin on CPU
+    tensors."""
     if not x_new.is_cuda:
         return gated_residual_adaln_bwd_plain(x_new, delta, gate, scale,
                                               gamma, gx, gy, eps)
     _check_gr_operands(x_new, delta, gate, scale, scale, gamma)
-    if not x_new.is_contiguous():
-        raise ValueError("x_new must be contiguous (the forward's output)")
-    b, l, d = x_new.shape
-    gx, gy = gx.contiguous(), gy.contiguous()
-    dx = torch.empty_like(x_new)
-    ddelta = torch.empty((b, l, d), dtype=delta.dtype, device=x_new.device)
-    block = max(16, 1 << (d - 1).bit_length())
-    rows = max(1, min(_BWD_ROWS, _BWD_TILE_ROWS * 512 // block))
-    n_prog = -(-l // _BWD_ROWS)
-    part = torch.empty((b, n_prog, 4, d), dtype=torch.float32,
-                       device=x_new.device)
-    _, kernel = _triton_gr_kernels()
-    with torch.cuda.device(x_new.device):
-        kernel[(n_prog, b)](x_new, delta, gx, gy, gate, scale,
-                            x_new if gamma is None else gamma, dx, ddelta,
-                            part, l, d, delta.stride(0), delta.stride(1),
-                            scale.stride(0), eps, n_prog,
-                            HAS_GAMMA=gamma is not None, ROWS=rows,
-                            ITERS=_BWD_ROWS // rows, BLOCK_D=block,
-                            num_warps=_BWD_WARPS)
+    gx = gx if gx.stride(-1) == 1 else gx.contiguous()
+    gy = gy if gy.stride(-1) == 1 else gy.contiguous()
+    dx, ddelta, dshift, dscale, dgate, dgamma = _bwd_cuda(
+        x_new, gy, scale, gamma, eps, (gy.dtype, gy.dtype, gate.dtype),
+        gx=gx, delta=delta, gate=gate)
     gated_residual_adaln_bwd.launches += 1
-    sums = part.sum(dim=1)  # [B, 4, D]
-    dgamma = None
-    if gamma is not None:
-        dgamma = sums[:, 3].sum(dim=0).to(gamma.dtype)
-    return (dx, ddelta, sums[:, 0].to(gate.dtype), sums[:, 1].to(gy.dtype),
-            sums[:, 2].to(gy.dtype), dgamma)
+    return dx, ddelta, dgate, dshift, dscale, dgamma
 
 
 gated_residual_adaln_bwd.launches = 0
