@@ -98,12 +98,36 @@ Run from the root of a checkout. Phases, each of which raises on failure:
              at L = 2064, training at L = 528 and 2064;
 17. nccl-ring — `DistRing` over NCCL between 2 processes against
              `LocalRing(2)` where the machine has 2 cards; else one line
-             says why it did not run.
+             says why it did not run;
+18. t2v    — the text-to-video request through the sampler CLI's `main`:
+             T5-XXL (random bf16 weights, byte-fallback tokenizer) on the
+             prompt, the demo DiT (random weights) for 8 of the default 50
+             Euler steps at 512×512×16 (L = 8208), the default Cosmos
+             decoder (random weights) in chunks of 4 latent frames → 61
+             frames of 512², written as `video.npy` to a temporary
+             directory and read back; per-stage times, peak memory, and
+             the DiT's launches, which must equal serve-long's; then the
+             steady encode, the decode with and without `cudnn.benchmark`
+             and the two group-norm forms timed, one chunk profiled;
+19. t2v parity — card (bf16) vs CPU (fp32) on the same weights: T5 at
+             XXL width with 2 layers, the decoder at full width on 3
+             latent frames of 16×16, and the whole request at depth 2
+             (64×64, 4 latent frames);
+20. ckpt   — the canonical DiT (batch 64, L = 528) through the Trainer: 4
+             steps at once against 2 steps, a DCP save, a fresh Trainer
+             that resumes, 2 more — losses, parameters, moments and
+             generator state bit for bit; save/restore seconds and size on
+             disk; the checkpoint then feeds the sampler CLI
+             (`--checkpoint`, `restore_params_for_inference`);
+21. train-t5 — 3 train steps of the canonical DiT with `--use_t5 true
+             --smoke_encoder xxl`: T5-XXL re-encodes the 64 captions every
+             step, timed beside the step.
 
 Every run of the DiT's MLP launches the bias+GELU kernels. The kernels JSON
-lists every kernel with `launches` summed over the ten main-path runs
+lists every kernel with `launches` summed over the thirteen main-path runs
 (serve, serve-long, serve-cp over 4 and 2, serve with `fused_residual`,
-train, train-long, train-cp over 4 and 8, train with `fused_residual`),
+t2v, train, train-long, train-cp over 4 and 8, train with
+`fused_residual`, ckpt, train-t5),
 each run with the counters set to 0 just before it and read just after;
 the long kernels' kv-bias launches (the ring's fallback) are rows of their
 own. The next-to-last
@@ -214,6 +238,26 @@ CP_REL_L2 = 5e-2
 # card vs CPU parity over LocalRing(4) at depth 2 (chunk 528 at L = 2064,
 # 144 at L = 528): the limits of the other parity phases
 CP_PARITY = 4
+# the text-to-video request (t2v): the sampler CLI at its defaults —
+# 512×512×16 latent frames, the demo DiT, T5-XXL, the default Cosmos
+# decoder in chunks of 4 latent frames → 61 frames — with random weights
+# and T2V_STEPS of the default 50 Euler steps
+T2V_STEPS = 8
+T2V_PROMPT = "a golden retriever running on a beach at sunset"
+T2V_FRAMES = 4 * (LONG_FRAMES - 1) + 1  # 61
+# t2v parity, card (bf16) vs CPU (fp32) on the same weights, relative L2:
+# T5 at XXL width with 2 layers — bf16 products and norms through 2
+# layers, ~10 roundings of 2^-8 each; the decoder at full width on 3
+# latent frames of 16×16 — ~25 bf16 convs, renormalised by each group
+# norm, before a tanh; the whole request (T5 → 2 Euler steps of the DiT at
+# depth 2 → decode of 4 latent frames at 8×8) — the DiT parity phases'
+# 5e-2 on the latent update, which the decoder carries to the video
+T2V_T5_REL_L2, T2V_DECODE_REL_L2, T2V_REQUEST_REL_L2 = 3e-2, 5e-2, 5e-2
+# ckpt: the canonical DiT, CKPT_STEPS steps at once against half of them,
+# a save, a fresh Trainer that resumes, and the rest — bit for bit
+CKPT_STEPS = 4
+# train-t5: the canonical DiT on the T5-XXL encoding of its captions
+T5_TRAIN_STEPS = 3
 
 
 def log(msg: str) -> None:
@@ -1601,6 +1645,8 @@ KERNEL_KINDS = (
      ("gated_residual_adaln",)),
     ("bias+GELU kernels (Triton)", ("bias_gelu",)),
     ("AdamW kernel (csrc/adamw_multi_tensor.cu)", ("adamw_multi_tensor",)),
+    ("convolutions (cuDNN)", ("fprop", "implicit_convolve", "conv3d",
+                              "convolve_sgemm", "winograd")),
     ("GEMMs (cuBLAS)", ("nvjet", "gemm", "cutlass", "xmma")),
     ("PyTorch elementwise, reductions and copies", ("at::native",)),
 )
@@ -1756,17 +1802,73 @@ def grad_rel_l2(grads, ref):
                  .item())
 
 
+def train_step_launches(l: int, fused_residual: bool = False, ring=None):
+    """Kernel → launches of one train step of the canonical DiT at L."""
+    from video_diffusion_speedrun_tpu_torch.ops import fused_attention as fa
+
+    short = l <= fa.SHORT_MAX_KV
+    # AdaLN norms per block: 3, or only norm1 beside 2 gated-residual joins
+    norms, joins = (1, 2) if fused_residual else (3, 0)
+    # self-attention: the short or long kernels, or over a ring cp² chunk
+    # calls a layer, each kernel up to its ceiling (forward 4096, backward
+    # 2048 kv rows) and the long kernel with the kv-bias above
+    fwd_k, bwd_k, per_layer = ("short_attention_fwd<rope>" if short
+                               else "long_attention_fwd",
+                               "short_attention_bwd<rope>" if short
+                               else "long_attention_bwd", 1)
+    if ring is not None:
+        chunk, _ = fa.ring_layout(l, ring.size)
+        fwd_k = ("ring_attention_fwd" if chunk <= fa._RING_FULLK_MAX_FWD
+                 else "long_attention_fwd<bias>")
+        bwd_k = ("ring_attention_bwd" if chunk <= fa._RING_FULLK_MAX_BWD
+                 else "long_attention_bwd<bias>")
+        per_layer = ring.size ** 2
+    per_step = dict.fromkeys(counters(), 0)
+    per_step.update({
+        # forward + remat recompute; the final layer's AdaLN runs once
+        fwd_k: 2 * T_DEPTH * per_layer,
+        "short_attention_fwd<norope>": 2 * T_DEPTH,
+        "adaln_rms_modulate_fwd": 2 * norms * T_DEPTH + 1,
+        "gated_residual_adaln_fwd": 2 * joins * T_DEPTH,
+        "bias_gelu_fwd": 2 * T_DEPTH,
+        bwd_k: T_DEPTH * per_layer,
+        "short_attention_bwd<norope>": T_DEPTH,
+        "adaln_rms_modulate_bwd": norms * T_DEPTH + 1,
+        "gated_residual_adaln_bwd": joins * T_DEPTH,
+        "bias_gelu_bwd": T_DEPTH,
+        "adamw_multi_tensor": 1})
+    return per_step
+
+
+class TimedEncoder:
+    """A prompt encoder whose calls are timed between synchronisations
+    (the T5 ms of each train step's batch)."""
+
+    def __init__(self, encoder):
+        self.encoder, self.ms = encoder, []
+
+    def __call__(self, prompts, return_index: int = -1):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = self.encoder(prompts, return_index=return_index)
+        torch.cuda.synchronize()
+        self.ms.append(1e3 * (time.perf_counter() - t0))
+        return out
+
+
 def phase_train(dev, batch: int, latent, steps: int, extra, tag: str,
-                evaluate: bool, ring=None, probe: bool = False, **overrides):
+                evaluate: bool, ring=None, probe: bool = False,
+                prompt_encoder=None, **overrides):
     """The canonical DiT (its config with `overrides`) through the port's
     Trainer (over `ring` if given): `steps` timed steps of `train_step`
     with the launch counters set to 0 just before and read just after,
     optionally one evaluation, one profiled step. With `probe` the
     zero-initialised layers are made random, so that the loss and every
     gradient go through attention, and the first step's gradients are
-    taken before the timed steps (`first_step_grads`). Returns the counts,
-    the losses and those gradients (None without `probe`)."""
-    from video_diffusion_speedrun_tpu_torch.ops import fused_attention as fa
+    taken before the timed steps (`first_step_grads`). With a
+    `prompt_encoder` (a `TimedEncoder`) the context of each batch is the
+    T5 encoding of its captions, timed apart from the step. Returns the
+    counts, the losses and those gradients (None without `probe`)."""
     from video_diffusion_speedrun_tpu_torch.train.__main__ import (
         build_config,
         parse_args,
@@ -1785,7 +1887,8 @@ def phase_train(dev, batch: int, latent, steps: int, extra, tag: str,
                                   cfg.data, synthetic_shape=tuple(latent)))
     l = latent_len(latent)
     t0 = time.perf_counter()
-    trainer = Trainer(cfg, device=dev, context_parallel=ring)
+    trainer = Trainer(cfg, device=dev, context_parallel=ring,
+                      prompt_encoder=prompt_encoder)
     if probe:
         randomize_zero_layers(trainer.model,
                               torch.Generator(device=dev).manual_seed(1))
@@ -1814,42 +1917,14 @@ def phase_train(dev, batch: int, latent, steps: int, extra, tag: str,
         torch.cuda.synchronize()
         step_ms.append(1e3 * (time.perf_counter() - t0))
         losses.append(float(m["loss"]))
+        t5 = "" if prompt_encoder is None else (
+            f"; T5 encode of its {batch} captions × 512 tokens "
+            f"{prompt_encoder.ms[-1]:.2f} ms before it")
         log(f"[{tag}] step {step}: loss {losses[-1]:.5f}, lr scale "
-            f"{m['lr_scale']:.4f}, {step_ms[-1]:.2f} ms")
+            f"{m['lr_scale']:.4f}, {step_ms[-1]:.2f} ms{t5}")
     launches = read_counters()
     peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
-    short = l <= fa.SHORT_MAX_KV
-    # AdaLN norms per block: 3, or only norm1 beside 2 gated-residual joins
-    fr = cfg.model.fused_residual
-    norms, joins = (1, 2) if fr else (3, 0)
-    # self-attention: the short or long kernels, or over a ring cp² chunk
-    # calls a layer, each kernel up to its ceiling (forward 4096, backward
-    # 2048 kv rows) and the long kernel with the kv-bias above
-    fwd_k, bwd_k, per_layer = ("short_attention_fwd<rope>" if short
-                               else "long_attention_fwd",
-                               "short_attention_bwd<rope>" if short
-                               else "long_attention_bwd", 1)
-    if ring is not None:
-        chunk, _ = fa.ring_layout(l, ring.size)
-        fwd_k = ("ring_attention_fwd" if chunk <= fa._RING_FULLK_MAX_FWD
-                 else "long_attention_fwd<bias>")
-        bwd_k = ("ring_attention_bwd" if chunk <= fa._RING_FULLK_MAX_BWD
-                 else "long_attention_bwd<bias>")
-        per_layer = ring.size ** 2
-    per_step = dict.fromkeys(launches, 0)
-    per_step.update({
-        # forward + remat recompute; the final layer's AdaLN runs once
-        fwd_k: 2 * T_DEPTH * per_layer,
-        "short_attention_fwd<norope>": 2 * T_DEPTH,
-        "adaln_rms_modulate_fwd": 2 * norms * T_DEPTH + 1,
-        "gated_residual_adaln_fwd": 2 * joins * T_DEPTH,
-        "bias_gelu_fwd": 2 * T_DEPTH,
-        bwd_k: T_DEPTH * per_layer,
-        "short_attention_bwd<norope>": T_DEPTH,
-        "adaln_rms_modulate_bwd": norms * T_DEPTH + 1,
-        "gated_residual_adaln_bwd": joins * T_DEPTH,
-        "bias_gelu_bwd": T_DEPTH,
-        "adamw_multi_tensor": 1})
+    per_step = train_step_launches(l, cfg.model.fused_residual, ring)
     want = {k: steps * v for k, v in per_step.items()}
     skip = 2 if steps >= 6 else 1  # warm-up steps (cuBLAS, Triton, caches)
     steady = float(np.median(step_ms[skip:]))
@@ -1859,6 +1934,13 @@ def phase_train(dev, batch: int, latent, steps: int, extra, tag: str,
         f"per step → MFU "
         f"{mfu(flops, steady / 1e3, torch.cuda.get_device_name(0)):.4f} of "
         f"one card; peak memory {peak_gb:.2f} GB")
+    if prompt_encoder is not None:
+        t5_ms = float(np.median(prompt_encoder.ms[skip:steps]))
+        log(f"[{tag}] T5-XXL encode {t5_ms:.2f} ms per step (median of "
+            f"steps {skip}–{steps - 1}; {T_BATCH} captions × 512 tokens, "
+            f"re-encoded every step as the reference does) beside "
+            f"{steady:.2f} ms of train step: "
+            f"{100 * t5_ms / (t5_ms + steady):.1f}% of the two")
     log(f"[{tag}] launches {launches}, expected {want}")
     if not all(np.isfinite(losses)):
         raise AssertionError(f"non-finite training loss {losses}")
@@ -2097,6 +2179,464 @@ def phase_nccl_ring(dev):
 
 
 # ---- A/B of two checkouts on one card: `python3 chip_smoke.py --ab A B` ----
+
+def rel_l2(got, want) -> float:
+    """‖got − want‖ / ‖want‖ in fp32 on the host."""
+    got, want = got.float().cpu(), want.float().cpu()
+    return ((got - want).norm() / want.norm()).item()
+
+
+def decoder_conv_flops(cfg, latent_shape) -> float:
+    """Conv FLOPs (2 per multiply-add) of one `CosmosDecoder(cfg)` call on
+    a latent of `latent_shape`, counted on the meta device from each
+    causal conv's output shape."""
+    from video_diffusion_speedrun_tpu_torch.models import cosmos_vae as cv
+
+    model = cv.CosmosDecoder(cfg, device="meta")
+    total = [0.0]
+
+    def count(mod, _, out):
+        w = mod.conv3d.weight
+        total[0] += 2.0 * out.numel() * w[0].numel()
+
+    for mod in model.modules():
+        if isinstance(mod, cv.CausalConv3d):
+            mod.register_forward_hook(count)
+    model(torch.empty(latent_shape, device="meta"))
+    return total[0]
+
+
+def t5_flops(cfg, tokens: int) -> float:
+    """Matmul FLOPs of one T5 encode of `tokens` tokens."""
+    d, inner, f = cfg.d_model, cfg.inner_dim, cfg.d_ff
+    proj = 2 * tokens * d * inner * 4 + 2 * tokens * d * f * 3
+    attn = 2 * 2 * cfg.num_heads * tokens * tokens * cfg.d_kv
+    return float(cfg.num_layers * (proj + attn))
+
+
+def group_norm_moments(x, norm):
+    """The per-frame group norm with explicit fp32 moments over a [B, g,
+    c/g, T, H·W] view (the JAX expression): the alternative timed against
+    the port's `F.group_norm` over [B·T, C, H, W]."""
+    b, c, t, h, w = x.shape
+    g = norm.num_groups
+    xf = x.float().view(b, g, c // g, t, h * w)
+    var, mean = torch.var_mean(xf, dim=(2, 4), unbiased=False, keepdim=True)
+    xf = ((xf - mean) * torch.rsqrt(var + norm.eps)).view(b, c, t, h, w)
+    return (xf * norm.weight.float().view(1, c, 1, 1, 1)
+            + norm.bias.float().view(1, c, 1, 1, 1)).to(x.dtype)
+
+
+def upsample_interpolate(x):
+    """Nearest ×2 in T, H and W by `F.interpolate` (the alternative timed
+    against the port's broadcast copy), the first frame dropped."""
+    _, _, t, h, w = x.shape
+    return torch.nn.functional.interpolate(
+        x, size=(2 * t, 2 * h, 2 * w), mode="nearest")[:, :, 1:]
+
+
+def phase_t2v(dev, serve_long_launches):
+    """The text-to-video request through the sampler CLI's `main`: T5-XXL
+    and the demo DiT with random weights, T2V_STEPS Euler steps at
+    512×512×16, the default Cosmos decoder in chunks of 4, the frames
+    written to a temporary directory and read back; counters set to 0 just
+    before and read just after (the DiT forwards must launch what
+    serve-long's do). Then the steady T5 encode, the decode with and
+    without `cudnn.benchmark`, and the two group-norm forms, each timed;
+    one decoded chunk profiled. Returns the counts."""
+    import shutil
+    import tempfile
+
+    from video_diffusion_speedrun_tpu_torch import sample
+    from video_diffusion_speedrun_tpu_torch.models import cosmos_vae as cv
+    from video_diffusion_speedrun_tpu_torch.sampling.decode import to_frames
+    from video_diffusion_speedrun_tpu_torch.text.encoder import smoke_encoder
+
+    out_dir = tempfile.mkdtemp(prefix="t2v-")
+    try:
+        argv = ["--prompt", T2V_PROMPT, "--smoke_encoder", "xxl",
+                "--inference_steps", str(T2V_STEPS), "--height",
+                str(LONG_PX), "--width", str(LONG_PX), "--num_latent_frames",
+                str(LONG_FRAMES), "--context_dim", str(CTX_DIM),
+                "--output", out_dir, "--name", "t2v"]
+        report = {}
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        reset_counters()
+        t0 = time.perf_counter()
+        latents = sample.main(argv, report)
+        torch.cuda.synchronize()
+        total_s = time.perf_counter() - t0
+        launches = read_counters()
+        peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+        ctx, video = report["context"], report["video"]
+        frames = np.load(Path(report["path"]) / "video.npy")
+        want_frames = to_frames(video.float().cpu().numpy())
+        step_ms = 1e3 * report["sample_s"] / T2V_STEPS
+        log(f"[t2v] T5-XXL encode {1e3 * report['encode_s']:.2f} ms (one "
+            f"prompt, 512 tokens, first call); {step_ms:.2f} ms per Euler "
+            f"step ({T2V_STEPS} steps at L={LONG_L}, the first's warm-up "
+            f"included); decode {report['decode_s']:.2f} s, "
+            f"{T2V_FRAMES / report['decode_s']:.2f} frames/s; write "
+            f"{report['write_s']:.2f} s ({report['path']}); whole request "
+            f"{total_s:.2f} s with the models' set-up; peak memory "
+            f"{peak_gb:.2f} GB")
+        log(f"[t2v] launches {launches}, serve-long's {serve_long_launches}")
+        checks = {
+            "context [1, 512, 4096]": tuple(ctx.shape) == (1, CTX_LEN,
+                                                           CTX_DIM),
+            "latents [1, 16, 16, 64, 64]": tuple(latents.shape) == (
+                1, 16, LONG_FRAMES, LONG_PX // 8, LONG_PX // 8),
+            "video [3, 61, 512, 512]": tuple(video.shape) == (
+                3, T2V_FRAMES, LONG_PX, LONG_PX),
+            "finite": all(bool(torch.isfinite(t).all())
+                          for t in (ctx, latents, video)),
+            "video within [-1, 1]": float(video.float().abs().max()) <= 1.0,
+            "frames read back": np.array_equal(frames, want_frames),
+            "DiT launches = serve-long's": launches == serve_long_launches,
+        }
+        log(f"[t2v] checks {checks}")
+        if not all(checks.values()):
+            raise AssertionError(f"t2v request failed: {checks}")
+        del report, video, ctx
+
+        encoder = smoke_encoder("xxl", CTX_DIM, dev)
+        enc_ms = cuda_ms(lambda: encoder([T2V_PROMPT]), iters=10, warmup=2)
+        flops = t5_flops(encoder.cfg, CTX_LEN)
+        bound_ms, by = bound(2 * 4.762e9, flops, 0)
+        log(f"[t2v] T5-XXL encode steady {enc_ms:.3f} ms ({flops / 1e12:.2f} "
+            f"TFLOP → {flops / enc_ms / 1e9:.1f} TFLOP/s; bound "
+            f"{bound_ms:.3f} ms by {by})")
+        profile_device(lambda: encoder([T2V_PROMPT]), "one T5-XXL encode "
+                       "(1 prompt × 512 tokens)", "t2v-t5", rows=8)
+        del encoder
+        torch.cuda.empty_cache()
+
+        decoder = sample.load_decoder(None, dev, say=lambda *a: None)
+        lat = latents[0].bfloat16()
+        first = lat[None, :, :sample.DECODE_CHUNK]
+        later = lat[None, :, sample.DECODE_CHUNK - 2:2 * sample.DECODE_CHUNK]
+        flops = (decoder_conv_flops(decoder.cfg, first.shape)
+                 + 3 * decoder_conv_flops(decoder.cfg, later.shape))
+
+        def decode():
+            return cv.decode_video(decoder, lat,
+                                   chunk_frames=sample.DECODE_CHUNK)
+
+        times = {}
+        for bench in (False, True):
+            with torch.backends.cudnn.flags(enabled=True, benchmark=bench):
+                for run in ("first", "again"):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    out = decode()
+                    torch.cuda.synchronize()
+                    times[bench, run] = time.perf_counter() - t0
+        log(f"[t2v] decode of 61 frames: {flops / 1e15:.3f} PFLOP of convs "
+            f"over 4 chunks; cudnn.benchmark off {times[False, 'first']:.3f}"
+            f" / {times[False, 'again']:.3f} s (first / again), on "
+            f"{times[True, 'first']:.3f} / {times[True, 'again']:.3f} s → "
+            f"{flops / times[True, 'again'] / 1e12:.1f} TFLOP/s")
+        if not bool(torch.isfinite(out).all()):
+            raise AssertionError("non-finite decode")
+        with torch.backends.cudnn.flags(enabled=True, benchmark=True):
+            profile_device(lambda: decoder(later), "one decoded chunk "
+                           "(6 latent frames → 21 frames)", "t2v-decode",
+                           rows=10)
+        # the largest group norm: 256 channels × 21 frames × 512²
+        norm = decoder.decoder.up[0].block[1].norm1.norm
+        x = torch.randn(1, norm.num_channels, 21, LONG_PX, LONG_PX,
+                        device=dev).bfloat16()
+        got = cv.group_norm(x, norm.weight, norm.bias, norm.num_groups,
+                            norm.eps)
+        alt = group_norm_moments(x, norm)
+        gn_ms = cuda_ms(lambda: cv.group_norm(x, norm.weight, norm.bias,
+                                              norm.num_groups, norm.eps),
+                        iters=5, warmup=1)
+        alt_ms = cuda_ms(lambda: group_norm_moments(x, norm), iters=5,
+                         warmup=1)
+        gn_bound, _ = bound(2 * x.numel() * 2, 0, 0)
+        diff = (got.float() - alt.float()).abs().max().item()
+        log(f"[t2v] group norm at {tuple(x.shape)} bf16: the port's "
+            f"(F.group_norm over a [B·T, C, H, W] permute) {gn_ms:.3f} ms, "
+            f"explicit fp32 moments over a [B, g, c/g, T, HW] view "
+            f"{alt_ms:.3f} ms, bound {gn_bound:.3f} ms; max |difference| "
+            f"{diff:.3e}")
+        del got, alt
+        # the largest temporal + spatial upsample: level 1's, 512 channels
+        # × 11 → 21 frames × 128² → 256²
+        up = decoder.decoder.up[1].upsample
+        del x
+        x = torch.randn(1, up.conv.conv3d.in_channels, 11, LONG_PX // 4,
+                        LONG_PX // 4, device=dev).bfloat16()
+        mine, alt = up(x), up.conv(upsample_interpolate(x))
+        if not torch.equal(mine, alt):
+            raise AssertionError("the upsample forms disagree")
+        up_ms = cuda_ms(lambda: up(x), iters=3, warmup=1)
+        alt_ms = cuda_ms(lambda: up.conv(upsample_interpolate(x)), iters=3,
+                         warmup=1)
+        log(f"[t2v] upsample + causal conv {tuple(x.shape)} → "
+            f"{tuple(mine.shape)}: the port's broadcast copy {up_ms:.3f} ms, "
+            f"F.interpolate {alt_ms:.3f} ms; the same outputs")
+        del x, mine, alt, decoder, out
+        torch.cuda.empty_cache()
+        return launches
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+
+
+def phase_t2v_parity(dev):
+    """The request's parts at full width and depth 2, card (bf16) against
+    the CPU (fp32) on the same weights: T5 at XXL width with 2 layers on
+    the prompt, 2 Euler steps of the demo DiT at depth 2 on that context
+    (64×64, 4 latent frames), the default decoder on the result, and the
+    decoder alone on 3 latent frames of 16×16."""
+    import dataclasses as dc
+
+    from video_diffusion_speedrun_tpu_torch.models.cosmos_vae import (
+        CosmosDecoder,
+        CosmosDecoderConfig,
+        decode_video,
+    )
+    from video_diffusion_speedrun_tpu_torch.models.dit import DiT
+    from video_diffusion_speedrun_tpu_torch.sample import demo_config
+    from video_diffusion_speedrun_tpu_torch.sampling.euler import (
+        euler_cfg_sample,
+    )
+    from video_diffusion_speedrun_tpu_torch.text.encoder import (
+        ByteFallbackTokenizer,
+        PromptEncoder,
+    )
+    from video_diffusion_speedrun_tpu_torch.text.t5 import (
+        T5Config,
+        T5Encoder,
+        init_t5,
+    )
+
+    t0 = time.perf_counter()
+    t5cfg = dc.replace(T5Config.xxl(), num_layers=2)
+    t5_cpu = init_t5(dc.replace(t5cfg, compute_dtype=torch.float32),
+                     device="cpu", generator=torch.Generator().manual_seed(0))
+    t5_card = T5Encoder(t5cfg, device=dev, dtype=torch.bfloat16)
+    t5_card.load_state_dict(t5_cpu.state_dict())
+    ctx_cpu = PromptEncoder(t5_cpu, ByteFallbackTokenizer())([T2V_PROMPT])
+    ctx_card = PromptEncoder(t5_card, ByteFallbackTokenizer())([T2V_PROMPT])
+    del t5_cpu, t5_card
+
+    cpu_model = DiT(demo_config(WIDTH, 2, HEAD_DIM, CTX_DIM,
+                                compute_dtype=torch.float32,
+                                attention_impl="fused", fused_adaln="fused"),
+                    device="cpu", init_std_factor=0.1, seed=0)
+    randomize_zero_layers(cpu_model, torch.Generator().manual_seed(1))
+    card_model = DiT(demo_config(WIDTH, 2, HEAD_DIM, CTX_DIM,
+                                 param_dtype=torch.bfloat16), device=dev)
+    card_model.load_state_dict(cpu_model.state_dict())
+    rng = np.random.default_rng(0)
+    noise = torch.from_numpy(rng.standard_normal((1, 16, 4, 8, 8),
+                                                 np.float32)).bfloat16()
+    lat_cpu = euler_cfg_sample(cpu_model, noise.float(), ctx_cpu,
+                               num_steps=2, cfg_scale=6.0)
+    lat_card = euler_cfg_sample(card_model, noise.to(dev), ctx_card,
+                                num_steps=2, cfg_scale=6.0)
+    del cpu_model, card_model
+
+    dec_cpu = CosmosDecoder(CosmosDecoderConfig(compute_dtype=torch.float32),
+                            device="cpu", seed=2)
+    dec_card = CosmosDecoder(CosmosDecoderConfig(), device=dev)
+    dec_card.load_state_dict(dec_cpu.state_dict())
+    video_cpu = decode_video(dec_cpu, lat_cpu[0], chunk_frames=4)
+    video_card = decode_video(dec_card, lat_card[0].bfloat16(),
+                              chunk_frames=4)
+    z = torch.from_numpy(rng.standard_normal((1, 16, 3, 16, 16), np.float32))
+    dec_rel = rel_l2(dec_card(z.to(dev)), dec_cpu(z))
+    rels = {"T5 (XXL width, 2 layers, 512 tokens)":
+            (rel_l2(ctx_card, ctx_cpu), T2V_T5_REL_L2),
+            "decoder (full width, 3 latent frames of 16×16 → 9 of 128²)":
+            (dec_rel, T2V_DECODE_REL_L2),
+            "whole request (T5 → 2 Euler steps, DiT depth 2 → decode of "
+            "4 latent frames → 13 of 64²)":
+            (rel_l2(video_card, video_cpu), T2V_REQUEST_REL_L2)}
+    ok = all(r <= tol for r, tol in rels.values()) and bool(
+        torch.isfinite(video_card).all())
+    for what, (r, tol) in rels.items():
+        log(f"[t2v-parity] {what}: relative L2 card vs CPU {r:.3e} (tol "
+            f"{tol})")
+    log(f"[t2v-parity] latent update relative L2 "
+        f"{rel_l2(lat_card - noise.to(dev).float(), lat_cpu - noise.float()):.3e}; "
+        f"{time.perf_counter() - t0:.1f} s {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("card and CPU text-to-video disagree")
+
+
+def phase_train_t5(dev):
+    """T5_TRAIN_STEPS steps of the canonical DiT (batch 64, L = 528) with
+    `--use_t5 true --smoke_encoder xxl`: each batch's context is T5-XXL's
+    encoding (random weights) of its 64 captions at `--return_index` -8,
+    re-encoded every step; the encode timed beside the step. Returns the
+    counts (the train steps' own)."""
+    from video_diffusion_speedrun_tpu_torch.text.encoder import smoke_encoder
+
+    encoder = TimedEncoder(smoke_encoder("xxl", CTX_DIM, dev))
+    launches = phase_train(dev, T_BATCH, T_LATENT, T5_TRAIN_STEPS,
+                           ("--use_t5", "true", "--smoke_encoder", "xxl"),
+                           "train-t5", evaluate=False,
+                           prompt_encoder=encoder)[0]
+    profile_device(lambda: encoder.encoder([T2V_PROMPT] * T_BATCH,
+                                           return_index=-8),
+                   f"one T5-XXL encode of a batch ({T_BATCH} × 512 tokens)",
+                   "train-t5-encode", rows=8)
+    del encoder
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_ckpt(dev):
+    """Checkpoints of the canonical DiT (batch 64, L = 528) through the
+    Trainer: CKPT_STEPS steps at once (counters set to 0 before, read
+    after; the evaluation after step 1 saves, as every evaluation does)
+    against half of them, a save, a fresh Trainer that resumes from the
+    run root and the rest — losses, parameters, moments, update count and
+    generator state bit for bit. Then `restore_params_for_inference`
+    feeds the sampler CLI (`--checkpoint`, tiny smoke T5, 256×256×8, 2
+    steps), whose latents must equal the restored weights' own. Returns
+    the continuous run's counts."""
+    import shutil
+    import tempfile
+
+    from video_diffusion_speedrun_tpu_torch import sample
+    from video_diffusion_speedrun_tpu_torch.core.config import (
+        SamplingConfig,
+    )
+    from video_diffusion_speedrun_tpu_torch.models.dit import DiT
+    from video_diffusion_speedrun_tpu_torch.sampling.euler import (
+        generate_latents,
+    )
+    from video_diffusion_speedrun_tpu_torch.train.__main__ import (
+        build_config,
+        parse_args,
+    )
+    from video_diffusion_speedrun_tpu_torch.train.checkpoint import (
+        restore_params_for_inference,
+    )
+    from video_diffusion_speedrun_tpu_torch.train.loop import Trainer
+
+    root = Path(tempfile.mkdtemp(prefix="ckpt-"))
+    try:
+        def trainer(name, *extra):
+            argv = train_argv(T_DEPTH, extra=(
+                "--log_every", "1", "--checkpoint_dir", str(root / name),
+                *extra))
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            t = Trainer(build_config(parse_args(argv)), device=dev)
+            torch.cuda.synchronize()
+            return t, time.perf_counter() - t0
+
+        def losses(t):
+            return [r["train/total_loss"] for r in t.history]
+
+        whole, build_s = trainer("whole")
+        torch.cuda.synchronize()
+        reset_counters()
+        t0 = time.perf_counter()
+        whole.train(until=CKPT_STEPS)
+        torch.cuda.synchronize()
+        whole_s = time.perf_counter() - t0
+        launches = read_counters()
+        per_step = train_step_launches(T_L)
+        want = {k: CKPT_STEPS * v for k, v in per_step.items()}
+        # the evaluation after step 1: one forward of the 40 test rows
+        for k, n in (("short_attention_fwd<rope>", T_DEPTH),
+                     ("short_attention_fwd<norope>", T_DEPTH),
+                     ("adaln_rms_modulate_fwd", 3 * T_DEPTH + 1),
+                     ("bias_gelu_fwd", T_DEPTH)):
+            want[k] += n
+
+        first, _ = trainer("first")
+        first.train(until=CKPT_STEPS // 2)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        path = Path(first.save_checkpoint())
+        save_s = time.perf_counter() - t0
+        size_gb = sum(f.stat().st_size for f in path.rglob("*")
+                      if f.is_file()) / 1e9
+        first_losses = losses(first)
+        del first
+        resumed, load_build_s = trainer("again", "--load_checkpoint",
+                                        str(path.parent))
+        step0 = resumed.step
+        resumed.train(until=CKPT_STEPS)
+        torch.cuda.synchronize()
+
+        names = [f"param {n}" for n, _ in whole.model.named_parameters()]
+        names += [f"m {n}" for n in whole.opt.names]
+        names += [f"v {n}" for n in whole.opt.names]
+
+        def tensors(t):
+            return ([p.detach() for p in t.model.parameters()] + t.opt.m
+                    + t.opt.v)
+
+        differ = [n for n, a, b in zip(names, tensors(whole),
+                                       tensors(resumed))
+                  if not torch.equal(a, b)]
+        checks = {
+            "resumed at step": step0 == CKPT_STEPS // 2,
+            "losses bit for bit": losses(whole) == first_losses
+            + losses(resumed),
+            "parameters and moments bit for bit": not differ,
+            "generator state": torch.equal(whole.generator.get_state(),
+                                           resumed.generator.get_state()),
+            "update count": whole.opt.count == resumed.opt.count
+            == CKPT_STEPS,
+            "launches": launches == want,
+        }
+        log(f"[ckpt] {CKPT_STEPS} steps at once {whole_s:.2f} s (the "
+            f"evaluation and save after step 1 included), losses "
+            f"{losses(whole)}; {CKPT_STEPS // 2} steps + save + resume + "
+            f"{CKPT_STEPS - step0}: {first_losses} + {losses(resumed)}")
+        log(f"[ckpt] save {save_s:.2f} s, {size_gb:.3f} GB on disk "
+            f"(parameters, fp32 moments, count, step, generator); a "
+            f"Trainer built with --load_checkpoint {load_build_s:.2f} s, "
+            f"without {build_s:.2f} s → restore ≈ "
+            f"{load_build_s - build_s:.2f} s")
+        log(f"[ckpt] launches {launches}, expected {want}")
+        log(f"[ckpt] checks {checks}"
+            + (f"; first tensors that differ {differ[:5]}" if differ else ""))
+        if not all(checks.values()):
+            raise AssertionError(f"resume is not the continuous run: "
+                                 f"{checks}")
+        del whole, resumed
+        torch.cuda.empty_cache()
+
+        run = str(path.parent)
+        report = {}
+        argv = ["--prompt", T2V_PROMPT, "--checkpoint", run,
+                "--smoke_encoder", "--model_width", str(T_WIDTH),
+                "--model_depth", str(T_DEPTH), "--model_head_dim",
+                str(T_HEAD_DIM), "--height", str(HEIGHT), "--width",
+                str(WIDTH_PX), "--num_latent_frames", str(FRAMES),
+                "--context_dim", str(CTX_DIM), "--inference_steps", "2",
+                "--output", str(root / "video"), "--name", "ckpt"]
+        lat = sample.main(argv, report)
+        mcfg = sample.demo_config(T_WIDTH, T_DEPTH, T_HEAD_DIM, CTX_DIM)
+        model = DiT(mcfg, device=dev)
+        model.load_state_dict(restore_params_for_inference(run, mcfg))
+        want_lat = generate_latents(model, report["context"], SamplingConfig(
+            inference_steps=2, height=HEIGHT, width=WIDTH_PX,
+            num_latent_frames=FRAMES))
+        same = torch.equal(lat, want_lat)
+        log(f"[ckpt] the sampler CLI on the step-{CKPT_STEPS // 2} "
+            f"checkpoint: latents {tuple(lat.shape)}, video "
+            f"{tuple(report['video'].shape)}; equal to the restored weights' "
+            f"own sampling: {same}")
+        if not same or not bool(torch.isfinite(report["video"]).all()):
+            raise AssertionError("the checkpoint did not feed the sampler")
+        del model, report
+        torch.cuda.empty_cache()
+        return launches
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
 
 AB_PAIRS = 10  # alternated pairs (A B, B A, ...): rows and serve-long
 AB_TRAIN_PAIRS = 2  # of which the first this many also run the train steps
@@ -2480,6 +3020,12 @@ def main_ab(argv) -> int:
 
 
 def main() -> int:
+    # the random-weight encoders ask transformers for local files only;
+    # make sure no hub lookup is ever attempted from the card machine
+    import os
+
+    os.environ.setdefault("HF_HUB_OFFLINE", "1")
+    os.environ.setdefault("TRANSFORMERS_OFFLINE", "1")
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 1
@@ -2511,6 +3057,7 @@ def main() -> int:
     runs.append(timed("serve-long", phase_serve, dev, model, context,
                       LONG_PX, LONG_FRAMES, LONG_STEPS, SEEDS[:1],
                       "serve-long")[0])
+    serve_long = runs[-1]
     runs += timed("serve-cp", phase_serve_cp, dev, model, context)
     del model
     torch.cuda.empty_cache()
@@ -2519,6 +3066,8 @@ def main() -> int:
                       FRAMES, STEPS, SEEDS, "serve-fr")[0])
     del model
     torch.cuda.empty_cache()
+    runs.append(timed("t2v", phase_t2v, dev, serve_long))
+    timed("t2v-parity", phase_t2v_parity, dev)
     timed("parity", phase_parity, dev, FRAMES, "parity")
     timed("long-parity", phase_parity, dev, LP_FRAMES, "long-parity")
     timed("parity-fr", phase_parity, dev, FRAMES, "parity-fr",
@@ -2534,6 +3083,8 @@ def main() -> int:
     runs.append(timed("train-fr", phase_train, dev, T_BATCH, T_LATENT,
                       FR_STEPS, (), "train-fr", evaluate=False,
                       fused_residual=True)[0])
+    runs.append(timed("ckpt", phase_ckpt, dev))
+    runs.append(timed("train-t5", phase_train_t5, dev))
     timed("train-parity", phase_train_parity, dev, T_WIDTH, T_LATENT, 4,
           "train-parity")
     timed("long-train-parity", phase_train_parity, dev, T_WIDTH, LP_LATENT,

@@ -238,16 +238,20 @@ def test_eval_batch_clamps_to_the_replicas(tmp_path):
     with socket.socket() as s:
         s.bind(("localhost", 0))
         port = s.getsockname()[1]
+    # run in tmp_path: the evaluation saves a checkpoint under the working
+    # directory's checkpoints/
     run = subprocess.run(
         [sys.executable, str(ROOT / "tests" / "_torch_cp_workers.py"),
          "eval", str(port), str(out)],
-        capture_output=True, text=True, timeout=300, cwd=ROOT)
+        capture_output=True, text=True, timeout=300, cwd=tmp_path)
     assert run.returncode == 0, run.stderr[-4000:]
     res = dict(np.load(out))
     assert float(res["eval_rows"][0]) == 39
     assert "eval batch clamped 48 -> 39 (test split has 40 rows)" in list(
         res["lines"])
     assert np.isfinite(res["loss"])
+    assert (tmp_path / "checkpoints" / "diffusion_repa" / "1" /
+            ".metadata").exists()
 
 
 def test_eval_batch_raises_when_the_split_cannot_fill_the_shards(

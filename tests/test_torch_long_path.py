@@ -205,7 +205,7 @@ def test_trainer_buckets_as_jax():
     assert {b["latent"].shape[2] for b in trainer.batches("test")} == {5}
 
 
-def test_entry_point_trains_on_three_lengths(monkeypatch):
+def test_entry_point_trains_on_three_lengths(monkeypatch, tmp_path):
     """`--synthetic_t_choices 5,9,17` on the CPU: steps on latents of 5, 9
     and 17 frames (L = 528, 1040 and 2064), finite losses."""
     seen = []
@@ -221,7 +221,7 @@ def test_entry_point_trains_on_three_lengths(monkeypatch):
                     "--model_head_dim", "32", "--context_dim", "32",
                     "--synthetic_rows", "24", "--log_every", "1",
                     "--evaluate_every", "100", "--synthetic_t_choices",
-                    "5,9,17"])
+                    "5,9,17", "--checkpoint_dir", str(tmp_path)])
     assert {s[2] for s in seen} == {5, 9, 17}, seen
     assert all(s[0] == 2 for s in seen) and len(seen) == 6
     assert np.isfinite(out["train/total_loss"])

@@ -89,11 +89,15 @@ TINY_ARGS = ["--height", "32", "--width", "32", "--num_latent_frames", "4",
              "--context_dim", "32"]
 
 
-def test_entry_point_runs_on_cpu(capsys):
-    lat = tsample.main(TINY_ARGS + ["--device", "cpu"])
+def test_entry_point_runs_on_cpu(capsys, tmp_path):
+    lat = tsample.main(TINY_ARGS + ["--device", "cpu", "--output",
+                                    str(tmp_path)])
     assert lat.shape == (1, 16, 4, 4, 4)
     assert bool(torch.isfinite(lat).all())
-    assert "latents (1, 16, 4, 4, 4), std" in capsys.readouterr().out
+    out = capsys.readouterr().out
+    assert "latents (1, 16, 4, 4, 4), std" in out
+    # the request goes on to the decoder: 4 latent frames → 13 frames
+    assert "decoded 13 frames" in out and "wrote " + str(tmp_path) in out
 
 
 def test_entry_point_defaults_to_the_card(monkeypatch):

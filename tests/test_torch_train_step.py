@@ -259,13 +259,17 @@ TINY_FLAGS = ["--max_steps", "3", "--batch_size", "2", "--model_width", "64",
               "--log_every", "1", "--evaluate_every", "100"]
 
 
-def test_entry_point_trains_on_cpu():
-    out = subprocess.run(ENTRY + TINY_FLAGS + ["--device", "cpu"],
+def test_entry_point_trains_on_cpu(tmp_path):
+    out = subprocess.run(ENTRY + TINY_FLAGS + ["--device", "cpu",
+                                               "--checkpoint_dir",
+                                               str(tmp_path)],
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     losses = [float(line.split("loss ")[1].split()[0])
               for line in out.stderr.splitlines() if " loss " in line]
     assert len(losses) == 3 and np.all(np.isfinite(losses)), out.stderr
+    # the evaluation after step 1 saved the train state
+    assert (tmp_path / "diffusion_repa" / "1" / ".metadata").exists()
 
 
 def test_entry_point_refuses_a_missing_card(monkeypatch):
@@ -275,8 +279,8 @@ def test_entry_point_refuses_a_missing_card(monkeypatch):
 
 
 @pytest.mark.parametrize("flags", [
-    ["--use_t5", "true"], ["--mesh_fsdp", "2"],
-    ["--dataset", "cosmos_openvid"], ["--load_checkpoint", "ckpt"],
+    ["--embeddings_dir", "emb"], ["--mesh_fsdp", "2"],
+    ["--dataset", "cosmos_openvid"], ["--nu_factored", "true"],
     ["--optimizer_in_backward", "true"], ["--wandb", "true"],
 ])
 def test_entry_point_refuses_later_slices(flags):

@@ -1,7 +1,7 @@
 """Configuration dataclasses (port of `video_diffusion_speedrun_tpu/core/config.py`).
 
-The model, sampler, optimizer, mesh and training configs, and the
-synthetic fields of the data config.
+The model, sampler, optimizer, mesh and training configs (with the
+checkpoint and T5 fields), and the synthetic fields of the data config.
 Dtypes are torch dtypes. Options of later slices raise where they are set.
 
 Kernel dispatch (`attention_impl`, `fused_adaln`):
@@ -245,10 +245,18 @@ class TrainConfig:
     max_steps: int = 10_000
     evaluate_every: int = 20
     eval_batches: int = 9
+    run_name: str = "diffusion_repa"
     seed: int = 0
     init_std_factor: float = 0.1
     time_shift_alpha: float = 8.0
     caption_dropout: float = 0.01
+    # T5 hidden-state index of the captions' context (sampling uses -1)
+    t5_return_index: int = -8
+    # a port checkpoint (run root or step dir) to resume, or a reference
+    # checkpoint (.pt or DCP dir) whose weights to start from
+    load_checkpoint: Optional[str] = None
+    # checkpoints go to checkpoint_dir/run_name/<step>/
+    checkpoint_dir: str = "checkpoints"
     log_every: int = 10
     log_grad_norm: bool = False
 

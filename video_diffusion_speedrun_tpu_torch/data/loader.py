@@ -122,15 +122,26 @@ class CoordinatedShapeBucketingCollate:
 
 
 def host_batches(dataset, sampler: ShardedSampler, num_epochs: int,
-                 collate: Callable = default_collate
+                 collate: Callable = default_collate, skip: int = 0
                  ) -> Iterator[Dict[str, Any]]:
     """Collated numpy batches, epoch after epoch; a collate that returns
-    None (no full bucket yet) emits nothing for that sampler batch."""
+    None (no full bucket yet) emits nothing for that sampler batch. The
+    first `skip` batches are not emitted (a resumed run's fast-forward,
+    `DataLoader.skip_batches` of the JAX loader): with the stateless
+    default collate their rows are never read; a bucketing collate is fed
+    and its batches discarded, so its state is the continuous run's."""
     for e in range(num_epochs):
         for idx in sampler.epoch(e):
+            if skip and collate is default_collate:
+                skip -= 1
+                continue
             batch = collate([dataset[int(i)] for i in idx])
-            if batch is not None:
-                yield batch
+            if batch is None:
+                continue
+            if skip:
+                skip -= 1
+                continue
+            yield batch
 
 
 def device_batches(batches: Iterator[Dict[str, Any]], device

@@ -1,4 +1,4 @@
-"""JAX parameter tree → the port's state dict (port of `models/convert.py`).
+"""JAX parameter trees → the port's state dicts (port of `models/convert.py`).
 
 Carries parameters of the JAX package (`init_dit` trees, checkpoints) into
 `models/dit.py:DiT`. The tree arrives as nested dicts of numpy arrays; no
@@ -6,6 +6,13 @@ JAX is needed. Linear weights [in, out] transpose to torch's [out, in], the
 flat patch kernel [C·pt·p·p, D] reshapes to the Conv3d weight
 [D, C, pt, p, p], and the depth-stacked `blocks` leaves split per block.
 The result equals the JAX package's `params_to_torch_dit` key for key.
+
+The same for the frozen modules of the text-to-video request: a JAX T5
+tree (`text/t5.py`) → transformers' `T5EncoderModel` names
+(`t5_state_dict_from_jax_params`), and a JAX Cosmos decoder tree, nested
+or as the flat dotted paths of a converted `.npz` → the Cosmos-Tokenizer
+names of `models/cosmos_vae.py:CosmosDecoder`
+(`cosmos_state_dict_from_jax_params`, through `models/cosmos_layer_map`).
 """
 
 from __future__ import annotations
@@ -88,4 +95,53 @@ def state_dict_from_jax_params(params: Mapping[str, Any],
                 out[f"{p}.{norm}.weight"] = _f32(np.asarray(scale)[i])
         if "lambda_param" in blocks:
             out[f"{p}.lambda_param"] = _f32(np.asarray(blocks["lambda_param"])[i])
+    return out
+
+
+def t5_state_dict_from_jax_params(params: Mapping[str, Any]
+                                  ) -> Dict[str, torch.Tensor]:
+    """A JAX T5 tree (`init_t5` / `convert_torch_t5` of the JAX package:
+    linears [in, out]) → the fp32 state dict of `text/t5.py:T5Encoder`
+    (transformers' names, linears [out, in])."""
+    emb = _f32(params["embed"])
+    out: Dict[str, torch.Tensor] = {
+        "shared.weight": emb, "encoder.embed_tokens.weight": emb,
+        "encoder.final_layer_norm.weight": _f32(params["final_ln"])}
+    for i, blk in enumerate(params["blocks"]):
+        pre = f"encoder.block.{i}.layer"
+        out[f"{pre}.0.layer_norm.weight"] = _f32(blk["ln1"])
+        out[f"{pre}.1.layer_norm.weight"] = _f32(blk["ln2"])
+        for name in ("q", "k", "v", "o"):
+            out[f"{pre}.0.SelfAttention.{name}.weight"] = _f32(
+                np.asarray(blk[name]).T)
+        if "relative_attention_bias" in blk:
+            out[f"{pre}.0.SelfAttention.relative_attention_bias.weight"] = \
+                _f32(blk["relative_attention_bias"])
+        for name in ("wi_0", "wi_1", "wi", "wo"):
+            if name in blk:
+                out[f"{pre}.1.DenseReluDense.{name}.weight"] = _f32(
+                    np.asarray(blk[name]).T)
+    return out
+
+
+def cosmos_state_dict_from_jax_params(params: Mapping[str, Any], cfg
+                                      ) -> Dict[str, torch.Tensor]:
+    """A JAX Cosmos decoder tree (`init_cosmos_decoder`), nested or as the
+    flat dotted paths of a converted `.npz` → the fp32 state dict of
+    `CosmosDecoder(cfg)` (`cfg`: a `CosmosDecoderConfig`). Every leaf the
+    config has must be present with its JAX shape."""
+    from video_diffusion_speedrun_tpu_torch.models import cosmos_layer_map
+
+    flat = dict(cosmos_layer_map.flatten(params))
+    n_up = len(cfg.channels_mult)
+    out: Dict[str, torch.Tensor] = {}
+    for path, shape in cosmos_layer_map.jax_leaf_shapes(cfg).items():
+        if path not in flat:
+            raise KeyError(f"missing weight: {path}")
+        arr = np.asarray(flat[path])
+        if tuple(arr.shape) != tuple(shape):
+            raise ValueError(f"{path}: shape {tuple(arr.shape)}, the config "
+                             f"expects {tuple(shape)}")
+        out[cosmos_layer_map.torch_name(path, n_up)] = _f32(
+            cosmos_layer_map.to_torch(arr))
     return out

@@ -309,8 +309,9 @@ class DiT(nn.Module):
                 self.positional_embedding = nn.Parameter(
                     torch.empty(1, cfg.max_tokens_no_rope, d))
         self.to_empty(device=device)
-        gen = torch.Generator(device=device).manual_seed(seed)
-        self._init_weights(gen, init_std_factor)
+        if device.type != "meta":  # meta: names and shapes only
+            gen = torch.Generator(device=device).manual_seed(seed)
+            self._init_weights(gen, init_std_factor)
         self.to(cfg.param_dtype)
 
     @torch.no_grad()

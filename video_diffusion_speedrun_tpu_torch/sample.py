@@ -1,32 +1,45 @@
-"""Sampling entry point of the port: Euler+CFG sampling of the demo DiT with
-random weights (the `--random_weights` smoke path of the JAX `sample.py`).
+"""Sampling entry point of the port: the text-to-video request — checkpoint
+→ T5 prompt encoding → Euler+CFG sampling of the demo DiT → Cosmos decode
+→ video file (the JAX `sample.py`).
 
-    python -m video_diffusion_speedrun_tpu_torch.sample --inference_steps 8
+    python -m video_diffusion_speedrun_tpu_torch.sample \\
+        --prompt "a mountain range in fog" --checkpoint ckpts/run1 \\
+        --decoder_weights decoder.npz --inference_steps 50 --seed 42
 
 samples at the default 512×512 with 16 latent frames (L = 8208 tokens, the
-long attention path); `--height 256 --width 256 --num_latent_frames 8`
-gives L = 1040, the short path. Runs on the card by default (`--device
-cuda`, which raises when no card is present); `--device cpu` runs on the
-CPU. Prints the shape and std of the sampled latents. Prompt encoding (T5)
-and the Cosmos decode come with later slices, so the context is seeded
-random noise.
+long attention path) and writes 61 frames of 512×512 to
+`--output/--name.mp4`, or `--output/--name/video.npy` (+ PNG frames where
+imageio can write them) when no h264 encoder is installed.
+`--checkpoint` takes a port checkpoint (a run root or a step directory of
+the train CLI), a torch reference DCP directory or a `.pt`; with
+`--rope_order auto` a reference checkpoint samples with the reference's
+(t, h, w) RoPE order. The prompt is encoded by the local FLUX.1-dev T5
+(`--return_index`, default -1). Without `--checkpoint` (or with
+`--random_weights`) the DiT has random weights and the context is seeded
+noise, unless `--smoke_encoder` (a tiny random T5) or `--smoke_encoder
+xxl` (T5-XXL with random weights), both with the byte-fallback tokenizer,
+encode the prompt. Without `--decoder_weights` (the `.npz` of
+`scripts/convert_cosmos.py`) the decoder has random weights and the video
+is noise. Runs on the card by default (`--device cuda`, which raises when
+no card is present); `--device cpu` runs on the CPU.
 
 Context parallelism splits the tokens of one video over N cards (a ring
 over `torch.distributed`; JAX's `--mesh_context`):
 
-    torchrun --nproc_per_node 4 -m video_diffusion_speedrun_tpu_torch.sample \
-        --mesh_context 4
+    torchrun --nproc_per_node 4 -m video_diffusion_speedrun_tpu_torch.sample \\
+        --mesh_context 4 --prompt "..."
 
 Each process runs on the card `LOCAL_RANK` and all of them sample the same
-request; rank 0 prints. `--mesh_context` must equal the number of
-processes (`WORLD_SIZE`): N > 1 without a launcher raises.
+request; rank 0 alone prints, decodes and writes. `--mesh_context` must
+equal the number of processes (`WORLD_SIZE`): N > 1 without a launcher
+raises.
 """
 
 from __future__ import annotations
 
 import argparse
 import time
-from typing import List, Optional
+from typing import Dict, List, Optional
 
 import torch
 
@@ -36,14 +49,35 @@ from video_diffusion_speedrun_tpu_torch.core.config import (
     SamplingConfig,
     resolve_device,
 )
+from video_diffusion_speedrun_tpu_torch.models.cosmos_vae import (
+    CosmosDecoder,
+    CosmosDecoderConfig,
+    decode_video,
+    load_decoder_params,
+)
 from video_diffusion_speedrun_tpu_torch.models.dit import DiT
 from video_diffusion_speedrun_tpu_torch.parallel import mesh as pmesh
 from video_diffusion_speedrun_tpu_torch.parallel.ring import DistRing
+from video_diffusion_speedrun_tpu_torch.sampling.decode import save_video
 from video_diffusion_speedrun_tpu_torch.sampling.euler import generate_latents
+from video_diffusion_speedrun_tpu_torch.train.checkpoint import (
+    is_port_checkpoint,
+    is_torch_reference_checkpoint,
+    load_reference_checkpoint,
+    restore_params_for_inference,
+)
+
+# latent frames per decoded chunk (`save_latents_to_video`'s default)
+DECODE_CHUNK = 4
 
 
 def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    p.add_argument("--prompt", default=None,
+                   help="the text to encode (needed whenever a T5 encodes)")
+    p.add_argument("--checkpoint", default=None,
+                   help="port checkpoint (run root or step dir), torch "
+                        "reference DCP dir, or .pt")
     p.add_argument("--inference_steps", type=int, default=50)
     p.add_argument("--cfg_scale", type=float, default=6.0)
     p.add_argument("--height", type=int, default=512)
@@ -53,9 +87,27 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     p.add_argument("--model_width", type=int, default=2048)
     p.add_argument("--model_depth", type=int, default=24)
     p.add_argument("--model_head_dim", type=int, default=128)
-    p.add_argument("--rope_order", choices=["matched", "reference"],
-                   default="matched")
-    p.add_argument("--context_dim", type=int, default=4096)
+    p.add_argument("--return_index", type=int, default=-1,
+                   help="T5 hidden-state index (sampling default -1)")
+    p.add_argument("--rope_order", choices=["auto", "matched", "reference"],
+                   default="auto",
+                   help="RoPE table token order; 'auto' = 'reference' for "
+                        "torch reference checkpoints, else 'matched'")
+    p.add_argument("--decoder_weights", default=None,
+                   help="converted Cosmos decoder .npz "
+                        "(scripts/convert_cosmos.py); without it the decoder "
+                        "runs with RANDOM weights")
+    p.add_argument("--output", default="./output")
+    p.add_argument("--name", default="test")
+    p.add_argument("--random_weights", action="store_true",
+                   help="skip the checkpoint (random DiT weights)")
+    p.add_argument("--context_dim", type=int, default=4096,
+                   help="cross-attention context width (4096 = T5-XXL)")
+    p.add_argument("--smoke_encoder", nargs="?", const="tiny",
+                   choices=["tiny", "xxl"], default=None,
+                   help="encode the prompt with a RANDOM-INIT T5 (tiny, or "
+                        "the XXL config) and the byte-fallback tokenizer; "
+                        "embeddings are garbage")
     p.add_argument("--device", default="cuda")
     p.add_argument("--mesh_context", type=int, default=1,
                    help="cards the tokens of one video are split over "
@@ -75,37 +127,137 @@ def demo_config(model_width: int, model_depth: int, model_head_dim: int,
         train_bias_and_rms=False, rope_order=rope_order, **overrides)
 
 
-def main(argv: Optional[List[str]] = None) -> torch.Tensor:
+def load_dit(checkpoint: Optional[str], model_cfg: DiTConfig,
+             device) -> DiT:
+    """The DiT with the weights of `checkpoint` (a port checkpoint, or the
+    reference's), checked against `model_cfg`; random weights (init std
+    factor 0.1, seed 0) without one."""
+    model = DiT(model_cfg, device=device, init_std_factor=0.1, seed=0)
+    if checkpoint is not None:
+        if is_port_checkpoint(checkpoint):
+            state = restore_params_for_inference(checkpoint, model_cfg)
+        else:
+            state = load_reference_checkpoint(checkpoint, model_cfg)
+        model.load_state_dict(state)
+    return model
+
+
+def load_decoder(decoder_weights: Optional[str], device,
+                 say=print) -> CosmosDecoder:
+    """The default-config Cosmos decoder: converted weights, or random ones
+    (seed 2) with a loud warning."""
+    cfg = CosmosDecoderConfig()
+    decoder = CosmosDecoder(cfg, device=device, seed=2)
+    if decoder_weights is not None:
+        decoder.load_state_dict(load_decoder_params(decoder_weights, cfg))
+        say(f"loaded Cosmos decoder weights from {decoder_weights}")
+    else:
+        say("WARNING: no --decoder_weights given — decoding with RANDOM "
+            "Cosmos decoder weights; the output video will be noise. Convert "
+            "the pretrained decoder with scripts/convert_cosmos.py first.")
+    return decoder
+
+
+def _sync(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def main(argv: Optional[List[str]] = None,
+         report: Optional[Dict] = None) -> torch.Tensor:
+    """Run one request; returns the sampled fp32 latents. A `report` dict
+    is filled with the request's parts and the seconds of each stage:
+    context, latents, video (rank 0), path, and encode_s, sample_s,
+    decode_s, write_s."""
     args = parse_args(argv)
     device = pmesh.init_distributed(resolve_device(args.device))
     mesh = pmesh.build_mesh(MeshConfig(fsdp=1, context=args.mesh_context),
                             device.type)
     group = pmesh.context_group(mesh)
     ring = None if group is None else DistRing(group)
-    say = print if pmesh.global_rank() == 0 else (lambda *a, **k: None)
+    main_rank = pmesh.global_rank() == 0
+    say = print if main_rank else (lambda *a, **k: None)
+    report = {} if report is None else report
+
+    rope_order = args.rope_order
+    if rope_order == "auto":
+        rope_order = "matched"
+        if args.checkpoint and is_torch_reference_checkpoint(args.checkpoint):
+            rope_order = "reference"
+            say("note: torch reference checkpoint -> rope_order='reference' "
+                "(its weights assume the (t,h,w) RoPE table order)")
     model_cfg = demo_config(args.model_width, args.model_depth,
-                            args.model_head_dim, args.context_dim,
-                            args.rope_order)
+                            args.model_head_dim, args.context_dim, rope_order)
     sampling = SamplingConfig(
         inference_steps=args.inference_steps, cfg_scale=args.cfg_scale,
         height=args.height, width=args.width,
         num_latent_frames=args.num_latent_frames, seed=args.seed)
 
-    say("using RANDOM weights (smoke mode)")
-    model = DiT(model_cfg, device=device, init_std_factor=0.1, seed=0)
-    gen = torch.Generator(device=device).manual_seed(1)
-    context = torch.randn(1, 512, args.context_dim, generator=gen,
-                          device=device).to(torch.bfloat16) * 0.05
+    checkpoint = None if args.random_weights else args.checkpoint
+    if checkpoint is None:
+        say("using RANDOM weights (smoke mode)")
+    model = load_dit(checkpoint, model_cfg, device)
+
+    encoder = None
+    if args.smoke_encoder is not None:
+        from video_diffusion_speedrun_tpu_torch.text.encoder import (
+            smoke_encoder,
+        )
+
+        say(f"smoke encoder: {args.smoke_encoder} RANDOM T5 (embeddings are "
+            f"garbage — pipeline exercise only)")
+        encoder = smoke_encoder(args.smoke_encoder, args.context_dim, device)
+    elif checkpoint is not None:
+        from video_diffusion_speedrun_tpu_torch.text.encoder import (
+            load_encoder,
+        )
+
+        encoder = load_encoder(device=device)
+    if encoder is None:
+        gen = torch.Generator(device=device).manual_seed(1)
+        context = torch.randn(1, 512, args.context_dim, generator=gen,
+                              device=device).to(torch.bfloat16) * 0.05
+    else:
+        if args.prompt is None:
+            raise ValueError("--prompt is required to encode a prompt")
+        _sync(device)
+        t0 = time.perf_counter()
+        context = encoder([args.prompt], return_index=args.return_index)
+        _sync(device)
+        report["encode_s"] = time.perf_counter() - t0
+        say(f"encoded the prompt: context {tuple(context.shape)} in "
+            f"{1e3 * report['encode_s']:.2f} ms")
+        del encoder  # frozen; not needed past the encoding
+    report["context"] = context
 
     say(f"sampling {args.inference_steps} steps, cfg {args.cfg_scale}"
         f"{f', tokens split over {ring.size} ranks' if ring else ''} ...")
+    _sync(device)
     t0 = time.perf_counter()
     latents = generate_latents(model, context, sampling,
                                context_parallel=ring)
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
+    _sync(device)
+    report["sample_s"] = time.perf_counter() - t0
+    report["latents"] = latents
     say(f"latents {tuple(latents.shape)}, std {float(latents.std()):.3f} "
-        f"({time.perf_counter() - t0:.2f} s on {device})")
+        f"({report['sample_s']:.2f} s on {device})")
+    del model
+
+    if main_rank:  # the ranks of a ring hold the same latents
+        decoder = load_decoder(args.decoder_weights, device, say)
+        _sync(device)
+        t0 = time.perf_counter()
+        video = decode_video(decoder, latents[0].to(torch.bfloat16),
+                             chunk_frames=DECODE_CHUNK)
+        _sync(device)
+        report["decode_s"] = time.perf_counter() - t0
+        report["video"] = video
+        t0 = time.perf_counter()
+        path = save_video(video, args.output, args.name)
+        report["write_s"] = time.perf_counter() - t0
+        report["path"] = path
+        say(f"decoded {video.shape[1]} frames in {report['decode_s']:.2f} s; "
+            f"wrote {path} ({report['write_s']:.2f} s)")
     pmesh.shutdown()
     return latents
 

@@ -11,8 +11,26 @@ the card by default (`--device cuda`, which raises when no card is
 present); `--device cpu` runs on the CPU. `--synthetic_t_choices 5,9,17`
 mixes clips of 5, 9 and 17 latent frames (L = 528, 1040 and 2064 at the
 default 32×32 latents) in shape-uniform batches; L > 2048 takes the long
-attention path. Flags of later slices (real data, checkpoints, T5,
-optimizer-in-backward, FSDP and tensor parallelism, wandb) raise.
+attention path. Flags of later slices (real data, precomputed
+embeddings, optimizer-in-backward, FSDP and tensor parallelism, wandb)
+raise.
+
+Checkpoints: every evaluation (`step % evaluate_every == 1`) saves the
+full train state to `--checkpoint_dir/--run_name/<step>/`;
+`--load_checkpoint` resumes one (a run root or a step directory), or
+starts from the weights of a torch reference checkpoint (`.pt` or DCP
+directory; `--rope_order auto` then takes the reference's order):
+
+    python -m video_diffusion_speedrun_tpu_torch.train ... \
+        --checkpoint_dir ckpts --run_name run1
+    python -m video_diffusion_speedrun_tpu_torch.train ... \
+        --checkpoint_dir ckpts --run_name run1 --load_checkpoint ckpts/run1
+
+`--use_t5 true` conditions on the T5 encoding of each batch's captions
+(hidden state `--return_index`, default -8) from the local FLUX.1-dev
+weights; `--smoke_encoder` (a tiny random T5) or `--smoke_encoder xxl`
+(T5-XXL with random weights), with the byte-fallback tokenizer, runs that
+path without weights.
 
 Across cards, one process per card under `torchrun`: `--mesh_replica R`
 data-parallel replicas, each of `--mesh_context C` cards that split the
@@ -80,10 +98,24 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     add("--moments_dtype", choices=["fp32", "bf16"], default="fp32")
     add("--param_dtype", choices=["fp32", "bf16"], default="fp32")
     add("--device", default="cuda")
+    add("--run_name", default="diffusion_repa")
+    add("--checkpoint_dir", default="checkpoints",
+        help="checkpoint root (run subdir = --run_name)")
+    add("--load_checkpoint", default=None,
+        help="a port checkpoint to resume (run root or step dir), or a "
+             "torch reference checkpoint (.pt or DCP dir): weights only")
+    add("--use_t5", type=_bool, default=False,
+        help="encode captions with T5 (local FLUX.1-dev weights)")
+    add("--return_index", type=int, default=-8,
+        help="T5 hidden-state index of the captions' context")
+    add("--smoke_encoder", nargs="?", const="tiny", choices=["tiny", "xxl"],
+        default=None,
+        help="with --use_t5: a RANDOM-INIT T5 (tiny, or the XXL config) "
+             "and the byte-fallback tokenizer; embeddings are garbage")
     # flags of later slices: accepted so that they can refuse
-    add("--load_checkpoint", default=None)
-    add("--use_t5", type=_bool, default=False)
+    add("--embeddings_dir", default=None)
     add("--optimizer_in_backward", type=_bool, default=False)
+    add("--nu_factored", type=_bool, default=False)
     add("--wandb", type=_bool, default=False)
     # the mesh (core/config.py:MeshConfig); fsdp and tensor > 1 raise
     for axis in ("replica", "fsdp", "context", "tensor"):
@@ -94,9 +126,10 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
 def build_config(args: argparse.Namespace) -> TrainConfig:
     """The TrainConfig of the JAX `train.py`, refusing what the port lacks."""
     later = {
-        "--load_checkpoint (checkpoints)": args.load_checkpoint is not None,
-        "--use_t5 (T5 slice)": args.use_t5,
+        "--embeddings_dir (precomputed embeddings, ROADMAP A7b)":
+            args.embeddings_dir is not None,
         "--optimizer_in_backward (ROADMAP A10)": args.optimizer_in_backward,
+        "--nu_factored (ROADMAP A10)": args.nu_factored,
         "--wandb (logging)": args.wandb,
         "--dataset cosmos_openvid (real-data slice)":
             args.dataset != "synthetic",
@@ -113,14 +146,29 @@ def build_config(args: argparse.Namespace) -> TrainConfig:
         raise ValueError("--param_dtype bf16 requires --optimizer_in_backward "
                          "true; use --moments_dtype bf16 to halve optimizer "
                          "memory instead")
+    if args.smoke_encoder is not None and not args.use_t5:
+        raise ValueError("--smoke_encoder chooses the encoder of --use_t5 "
+                         "true")
+    rope_order = args.rope_order
+    if rope_order == "auto":
+        from video_diffusion_speedrun_tpu_torch.train.checkpoint import (
+            is_torch_reference_checkpoint,
+        )
+
+        rope_order = "matched"
+        if args.load_checkpoint and is_torch_reference_checkpoint(
+                args.load_checkpoint):
+            rope_order = "reference"
+            print("note: torch reference checkpoint -> rope_order="
+                  "'reference' (its weights assume the (t,h,w) RoPE table "
+                  "order)")
     model = DiTConfig(
         in_channels=16, patch_size=2, time_patch_size=2,
         hidden_size=args.model_width, depth=args.model_depth,
         num_heads=args.model_width // args.model_head_dim, mlp_ratio=4.0,
         cross_attn_input_size=args.context_dim, residual_v=True,
         train_bias_and_rms=args.train_bias_and_rms, use_rope=True,
-        rope_order="matched" if args.rope_order == "auto" else args.rope_order,
-        remat=args.remat)
+        rope_order=rope_order, remat=args.remat)
     return TrainConfig(
         model=model,
         data=DataConfig(
@@ -137,8 +185,26 @@ def build_config(args: argparse.Namespace) -> TrainConfig:
                            else None)),
         num_epochs=args.num_epochs, batch_size=args.batch_size,
         grad_accum=args.grad_accum, max_steps=args.max_steps,
-        evaluate_every=args.evaluate_every, seed=args.seed,
-        init_std_factor=args.init_std_factor, log_every=args.log_every)
+        evaluate_every=args.evaluate_every, run_name=args.run_name,
+        seed=args.seed, init_std_factor=args.init_std_factor,
+        t5_return_index=args.return_index,
+        load_checkpoint=args.load_checkpoint,
+        checkpoint_dir=args.checkpoint_dir, log_every=args.log_every)
+
+
+def build_prompt_encoder(args: argparse.Namespace, device):
+    """The `--use_t5` encoder (None without it): the local FLUX.1-dev T5,
+    or with `--smoke_encoder` a random one."""
+    if not args.use_t5:
+        return None
+    from video_diffusion_speedrun_tpu_torch.text.encoder import (
+        load_encoder,
+        smoke_encoder,
+    )
+
+    if args.smoke_encoder is not None:
+        return smoke_encoder(args.smoke_encoder, args.context_dim, device)
+    return load_encoder(device=device)
 
 
 def main(argv: Optional[List[str]] = None) -> Dict[str, float]:
@@ -147,10 +213,13 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, float]:
     logging.basicConfig(level=logging.INFO, format="%(message)s")
     from video_diffusion_speedrun_tpu_torch.train.loop import Trainer
 
-    from video_diffusion_speedrun_tpu_torch.parallel.mesh import shutdown
+    from video_diffusion_speedrun_tpu_torch.parallel import mesh as pmesh
+    from video_diffusion_speedrun_tpu_torch.core.config import resolve_device
 
-    out = Trainer(cfg, device=args.device).train()
-    shutdown()
+    device = pmesh.init_distributed(resolve_device(args.device))
+    out = Trainer(cfg, device=device,
+                  prompt_encoder=build_prompt_encoder(args, device)).train()
+    pmesh.shutdown()
     return out
 
 
