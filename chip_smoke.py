@@ -121,13 +121,24 @@ Run from the root of a checkout. Phases, each of which raises on failure:
              (`--checkpoint`, `restore_params_for_inference`);
 21. train-t5 — 3 train steps of the canonical DiT with `--use_t5 true
              --smoke_encoder xxl`: T5-XXL re-encodes the 64 captions every
-             step, timed beside the step.
+             step, timed beside the step;
+22. train-real — the real-data path through the CLIs: a 256-row parquet
+             fixture of the dataset's columns (`data/fixture.py`), both
+             splits' T5-XXL embeddings (random weights) precomputed with
+             `data/precompute.py`, then 16 steps of the canonical DiT
+             through the train CLI's `main` with `--dataset cosmos_openvid
+             --hf_name … --embeddings_dir …`, one evaluation and
+             checkpoint; the precompute per 64 captions, ms per step
+             against `train`'s, the training thread's wait per batch, the
+             loader alone (rows/s) and `load_tensor` per row; the first
+             device batch against its host rows bit for bit, the JAX
+             metric keys in `metrics.jsonl`, the launches.
 
 Every run of the DiT's MLP launches the bias+GELU kernels. The kernels JSON
-lists every kernel with `launches` summed over the thirteen main-path runs
+lists every kernel with `launches` summed over the fourteen main-path runs
 (serve, serve-long, serve-cp over 4 and 2, serve with `fused_residual`,
 t2v, train, train-long, train-cp over 4 and 8, train with
-`fused_residual`, ckpt, train-t5),
+`fused_residual`, ckpt, train-t5, train-real),
 each run with the counters set to 0 just before it and read just after;
 the long kernels' kv-bias launches (the ring's fallback) are rows of their
 own. The next-to-last
@@ -258,6 +269,16 @@ T2V_T5_REL_L2, T2V_DECODE_REL_L2, T2V_REQUEST_REL_L2 = 3e-2, 5e-2, 5e-2
 CKPT_STEPS = 4
 # train-t5: the canonical DiT on the T5-XXL encoding of its captions
 T5_TRAIN_STEPS = 3
+# train-real: the canonical DiT through the train CLI on a Cosmos-OpenVid
+# parquet fixture of REAL_ROWS rows of T_LATENT (half less 40: 88 train
+# rows, one batch of 64 an epoch; 40 test rows, the eval batch) with
+# T5-XXL (random weights) context precomputed per split; REAL_STEPS
+# epochs of one step, the evaluation and checkpoint after step 1. The
+# loader fills its queues (about 5 batches) during that evaluation, so the
+# waits of the last REAL_TAIL batches are the steady state's
+REAL_ROWS, REAL_STEPS, REAL_TAIL = 256, 16, 8
+# batches timed through the loader alone (read, join, collate, pin, copy)
+REAL_LOADER_BATCHES = 8
 
 
 def log(msg: str) -> None:
@@ -1868,7 +1889,8 @@ def phase_train(dev, batch: int, latent, steps: int, extra, tag: str,
     taken before the timed steps (`first_step_grads`). With a
     `prompt_encoder` (a `TimedEncoder`) the context of each batch is the
     T5 encoding of its captions, timed apart from the step. Returns the
-    counts, the losses and those gradients (None without `probe`)."""
+    counts, the losses, those gradients (None without `probe`) and the
+    steady ms per step."""
     from video_diffusion_speedrun_tpu_torch.train.__main__ import (
         build_config,
         parse_args,
@@ -1957,7 +1979,7 @@ def phase_train(dev, batch: int, latent, steps: int, extra, tag: str,
                    tag + "-profile", rows=16)
     del trainer, loader
     torch.cuda.empty_cache()
-    return launches, losses, grads
+    return launches, losses, grads, steady
 
 
 def phase_train_parity(dev, width: int, latent, b: int, tag: str,
@@ -2084,13 +2106,13 @@ def phase_train_cp(dev):
     from video_diffusion_speedrun_tpu_torch.parallel.ring import LocalRing
 
     extra = ("--moments_dtype", "bf16")
-    _, ref_losses, ref_grads = phase_train(
+    _, ref_losses, ref_grads, _ = phase_train(
         dev, TL_BATCH, TL_LATENT, CP_TRAIN_STEPS, extra, "train-cp-ref",
         evaluate=False, probe=True)
     runs = []
     for cp in CP_TRAIN:
         tag = f"train-cp{cp}"
-        launches, losses, grads = phase_train(
+        launches, losses, grads, _ = phase_train(
             dev, TL_BATCH, TL_LATENT, CP_TRAIN_STEPS, extra, tag,
             evaluate=False, ring=LocalRing(cp), probe=True)
         rel = max(abs(a / w - 1) for a, w in zip(losses, ref_losses))
@@ -2473,7 +2495,8 @@ def phase_train_t5(dev):
     `--use_t5 true --smoke_encoder xxl`: each batch's context is T5-XXL's
     encoding (random weights) of its 64 captions at `--return_index` -8,
     re-encoded every step; the encode timed beside the step. Returns the
-    counts (the train steps' own)."""
+    counts (the train steps' own) and the median T5 ms of the steps after
+    the first."""
     from video_diffusion_speedrun_tpu_torch.text.encoder import smoke_encoder
 
     encoder = TimedEncoder(smoke_encoder("xxl", CTX_DIM, dev))
@@ -2485,9 +2508,294 @@ def phase_train_t5(dev):
                                            return_index=-8),
                    f"one T5-XXL encode of a batch ({T_BATCH} × 512 tokens)",
                    "train-t5-encode", rows=8)
+    t5_ms = float(np.median(encoder.ms[1:T5_TRAIN_STEPS]))
     del encoder
     torch.cuda.empty_cache()
-    return launches
+    return launches, t5_ms
+
+
+class WidenedOnHost:
+    """Rows of a precomputed-embedding join with the context widened to
+    fp32 on the host, as the JAX package's join gives them: the loader's
+    yardstick in train-real."""
+
+    def __init__(self, rows):
+        self.rows = rows
+
+    def __len__(self):
+        return len(self.rows)
+
+    def __getitem__(self, idx):
+        row = self.rows[idx]
+        row["context"] = row["context"].float()
+        return row
+
+
+def phase_train_real(dev, train_ms: float, t5_ms: float):
+    """The real-data path as a user runs it, at the canonical training
+    configuration: a parquet fixture of the dataset's columns
+    (`data/fixture.py`), both splits' T5-XXL embeddings (random weights,
+    hidden state -8) precomputed with `data/precompute.py`, then the train
+    CLI's `main` with `--dataset cosmos_openvid --hf_name … --embeddings_dir
+    …`. Timed: the precompute per 64 captions (against train-t5's
+    re-encode, `t5_ms`), each train step between synchronisations (against
+    the synthetic `train` phase's `train_ms`), the training thread's wait
+    for each batch, the loader alone (rows/s), `load_tensor` per row.
+    Checks: finite losses, the first device batch equal bit for bit to the
+    host rows it was made from, the JAX metric keys in `metrics.jsonl`, the
+    launches. Returns the counts of the CLI's run."""
+    import shutil
+    import tempfile
+
+    from video_diffusion_speedrun_tpu_torch.data import fixture, precompute
+    from video_diffusion_speedrun_tpu_torch.data.dataset import (
+        LatentDataset,
+    )
+    from video_diffusion_speedrun_tpu_torch.data.embeddings import (
+        PrecomputedEmbeddingJoin,
+    )
+    from video_diffusion_speedrun_tpu_torch.data.loader import (
+        DataLoader,
+        ShardedSampler,
+        device_batches,
+    )
+    from video_diffusion_speedrun_tpu_torch.data.serialization import (
+        load_tensor,
+    )
+    from video_diffusion_speedrun_tpu_torch.text import encoder as tenc
+    from video_diffusion_speedrun_tpu_torch.train import __main__ as cli
+    from video_diffusion_speedrun_tpu_torch.train import loop
+    from video_diffusion_speedrun_tpu_torch.utils.profiling import train_mfu
+
+    root = Path(tempfile.mkdtemp(prefix="real-"))
+    try:
+        fx, cache, emb = (str(root / "fixture.parquet"), str(root / "cache"),
+                          root / "emb")
+        t0 = time.perf_counter()
+        fixture.main(["--out", fx, "--rows", str(REAL_ROWS), "--frames",
+                      str(T_LATENT[1]), "--height", str(T_LATENT[2]),
+                      "--width", str(T_LATENT[3])])
+        log(f"[train-real] fixture: {REAL_ROWS} rows of {T_LATENT} bf16 "
+            f"in {time.perf_counter() - t0:.2f} s")
+
+        # the precompute, its encodes timed between synchronisations
+        enc_ms, enc_rows = [], []
+        encode = tenc.precompute_embeddings
+
+        def timed_encode(encoder, captions, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = encode(encoder, captions, **kw)
+            enc_ms.append(1e3 * (time.perf_counter() - t0))
+            enc_rows.append(len(captions))
+            return out
+
+        tenc.precompute_embeddings = timed_encode
+        try:
+            for split in ("train", "test"):
+                t0 = time.perf_counter()
+                precompute.main(["--split", split, "--hf_name", fx,
+                                 "--cache_dir", cache, "--smoke_encoder",
+                                 "xxl", "--out", str(emb / split)])
+                log(f"[train-real] precompute {split}: "
+                    f"{time.perf_counter() - t0:.2f} s in all (T5-XXL "
+                    f"built, {enc_rows[-1]} captions encoded in "
+                    f"{enc_ms[-1]:.2f} ms, fp16 shard written)")
+        finally:
+            tenc.precompute_embeddings = encode
+        torch.cuda.empty_cache()
+        per64 = [ms * 64 / n for ms, n in zip(enc_ms, enc_rows)]
+        shard_gb = sum(f.stat().st_size for f in emb.rglob("*.npy")) / 1e9
+        log(f"[train-real] precompute: {per64[0]:.2f} ms per 64 captions "
+            f"(train split, first encode), {per64[1]:.2f} (test split) — "
+            f"the encode to fp32 on the host; train-t5 re-encodes 64 "
+            f"captions in {t5_ms:.2f} ms every step; {shard_gb:.3f} GB of "
+            f"fp16 shards")
+
+        # the loader alone and the row decode, on the host's clock
+        train_rows = PrecomputedEmbeddingJoin(
+            LatentDataset("train", cache, fx), str(emb / "train"), "train")
+        blobs = [train_rows.base.dataset[i]["serialized_latent"]
+                 for i in range(len(train_rows))]
+        t0 = time.perf_counter()
+        for blob in blobs:
+            load_tensor(blob)
+        load_us = 1e6 * (time.perf_counter() - t0) / len(blobs)
+        t0 = time.perf_counter()
+        for i in range(len(train_rows)):
+            train_rows[i]
+        row_us = 1e6 * (time.perf_counter() - t0) / len(train_rows)
+        sampler = ShardedSampler(len(train_rows), T_BATCH, seed=0)
+
+        def loader_ms(rows):
+            """ms a batch through the loader and the staging alone."""
+            stream = device_batches(iter(DataLoader(
+                rows, sampler, num_workers=8, prefetch=2,
+                num_epochs=REAL_LOADER_BATCHES)), dev)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for batch in stream:
+                pass
+            torch.cuda.synchronize()
+            return 1e3 * (time.perf_counter() - t0) / REAL_LOADER_BATCHES, \
+                batch
+
+        # the context as the rows carry it (fp16), against JAX's join,
+        # which widens it to fp32 on the host, in turns
+        wide = WidenedOnHost(train_rows)
+        turns = [(name, *loader_ms(rows)) for name, rows in (
+            ("fp16", train_rows), ("fp32", wide), ("fp32", wide),
+            ("fp16", train_rows))]
+        ms16 = float(np.median([t[1] for t in turns if t[0] == "fp16"]))
+        ms32 = float(np.median([t[1] for t in turns if t[0] == "fp32"]))
+        batch = turns[-1][2]
+        batch_bytes = sum(v.numel() * v.element_size()
+                          for v in batch.values()
+                          if isinstance(v, torch.Tensor))
+        ctx_bytes = batch["context"].numel() * 2  # fp16, as in the shards
+        log(f"[train-real] loader alone ({REAL_LOADER_BATCHES} batches of "
+            f"{T_BATCH} rows, 8 readers, every shard in the page cache): "
+            f"{ms16:.2f} ms a batch → {1e3 * T_BATCH / ms16:.1f} rows/s "
+            f"with the fp16 context; widened to fp32 on the host (JAX's "
+            f"join) {ms32:.2f} ms → {1e3 * T_BATCH / ms32:.1f} rows/s; turns "
+            f"{[(t[0], round(t[1], 2)) for t in turns]}; load_tensor "
+            f"{load_us:.1f} µs a row of {len(blobs[0])} bytes, a joined row "
+            f"{row_us:.1f} µs on one thread")
+        log(f"[train-real] host bytes per step: {batch_bytes / 1e6:.1f} MB "
+            f"cross to the card (latent bf16 "
+            f"{batch['latent'].numel() * 2 / 1e6:.1f} MB, context "
+            f"{batch['context'].dtype} {ctx_bytes / 1e6:.1f} MB, widened to "
+            f"fp32 on the card); the context is read from the shards' pages, "
+            f"copied to rows, stacked and pinned: ≈ "
+            f"{4 * ctx_bytes / 1e9:.2f} GB of host copies a step")
+        if batch["context"].dtype != torch.float16:
+            raise AssertionError("the precomputed context left the host "
+                                 f"as {batch['context'].dtype}, not fp16")
+        del turns, batch
+
+        # the CLI's run, each step and each wait for a batch timed
+        step_ms, wait_ms, first, runs = [], [], {}, []
+        step_fn, batches_fn = loop.train_step, loop.Trainer.batches
+
+        def timed_step(*args, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            m = step_fn(*args, **kw)
+            torch.cuda.synchronize()
+            step_ms.append(1e3 * (time.perf_counter() - t0))
+            return m
+
+        def timed_batches(self, split):
+            stream = batches_fn(self, split)
+            if split != "train":
+                yield from stream
+                return
+            runs.append(self)
+            try:
+                while True:
+                    t0 = time.perf_counter()
+                    try:
+                        batch = next(stream)
+                    except StopIteration:
+                        return
+                    wait_ms.append(1e3 * (time.perf_counter() - t0))
+                    if not first:
+                        first.update({k: v.clone() for k, v in batch.items()})
+                    yield batch
+            finally:
+                stream.close()
+
+        loop.train_step, loop.Trainer.batches = timed_step, timed_batches
+        argv = train_argv(T_DEPTH, extra=(
+            "--dataset", "cosmos_openvid", "--hf_name", fx, "--cache_dir",
+            cache, "--embeddings_dir", str(emb), "--num_epochs",
+            str(REAL_STEPS), "--log_every", "1", "--checkpoint_dir",
+            str(root / "ckpt"), "--run_name", "real"))
+        torch.cuda.synchronize()
+        reset_counters()
+        t0 = time.perf_counter()
+        try:
+            out = cli.main(argv)
+        finally:
+            loop.train_step, loop.Trainer.batches = step_fn, batches_fn
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        launches = read_counters()
+        trainer = runs[0]
+        want = {k: REAL_STEPS * v for k, v in train_step_launches(T_L).items()}
+        for k, n in (("short_attention_fwd<rope>", T_DEPTH),
+                     ("short_attention_fwd<norope>", T_DEPTH),
+                     ("adaln_rms_modulate_fwd", 3 * T_DEPTH + 1),
+                     ("bias_gelu_fwd", T_DEPTH)):
+            want[k] += n  # the evaluation after step 1: one forward of 40
+
+        # the first device batch against the host rows it was made from
+        idx = ShardedSampler(len(train_rows), T_BATCH, seed=0).epoch(0)[0]
+        rows = [train_rows[int(i)] for i in idx]
+        # the context crosses in fp16 and is widened on the card (exact)
+        same = {k: torch.equal(first[k].cpu(),
+                               torch.stack([r[k] for r in rows]).to(
+                                   first[k].dtype))
+                for k in ("latent", "context")}
+        records = [json.loads(line) for line in
+                   (root / "ckpt" / "real" / "metrics.jsonl").open()]
+        train_keys = {"train/diffusion_loss", "train/total_loss",
+                      "train/learning_rate_scale", "train/step",
+                      *(f"train_binning/{k}" for k in range(10))}
+        test_keys = {"test/total_loss", "test/diffusion_loss",
+                     *(f"test_binning/{k}" for k in range(10))}
+        losses = [r["train/total_loss"] for r in records
+                  if "train/step" in r]
+        checks = {
+            "steps": len(step_ms) == REAL_STEPS == trainer.step,
+            "finite losses": bool(np.isfinite(losses).all())
+            and len(losses) == REAL_STEPS,
+            "first batch bit for bit": all(same.values()),
+            "first batch dtypes": (first["latent"].dtype == torch.bfloat16
+                                   and first["context"].dtype
+                                   == torch.float32),
+            "JAX keys": all(train_keys <= set(r) for r in records
+                            if "train/step" in r)
+            and any("train/avg_step_ms" in r for r in records)
+            and sum(test_keys <= set(r) for r in records) == 1,
+            "checkpoint": (root / "ckpt" / "real" / "1").is_dir(),
+            "launches": launches == want,
+        }
+        skip = 2
+        steady = float(np.median(step_ms[skip:]))
+        log(f"[train-real] the CLI: {REAL_STEPS} steps, the evaluation and "
+            f"a checkpoint in {run_s:.2f} s (the Trainer and the datasets "
+            f"built); losses {[round(x, 5) for x in losses]}, test loss "
+            f"{out['test/total_loss']:.5f}")
+        mfu = train_mfu(trainer.cfg.model, T_BATCH, *T_LATENT[1:],
+                        steady / 1e3)
+        log(f"[train-real] {steady:.2f} ms per step (median of steps "
+            f"{skip}–{REAL_STEPS - 1}, between synchronisations; the "
+            f"synthetic train phase {train_ms:.2f} ms), MFU {mfu:.4f}; "
+            f"steps {[round(x, 2) for x in step_ms]}")
+        tail = wait_ms[-REAL_TAIL:]
+        log(f"[train-real] the training thread's wait for a batch: mean "
+            f"{np.mean(wait_ms[1:]):.2f} ms, max {np.max(wait_ms[1:]):.2f} "
+            f"ms over batches 1–{len(wait_ms) - 1}; over the last "
+            f"{REAL_TAIL} (the queues filled during the evaluation drained) "
+            f"mean {np.mean(tail):.2f} ms, max {np.max(tail):.2f} ms; the "
+            f"first, with the loader's start, {wait_ms[0]:.2f} ms; each step "
+            f"synchronised; waits {[round(x, 2) for x in wait_ms]}")
+        log(f"[train-real] launches {launches}, expected {want}")
+        log(f"[train-real] checks {checks}")
+        if not all(checks.values()):
+            raise AssertionError(f"train-real failed: {checks}")
+        batch_t = {k: v for k, v in first.items()}
+        gen = torch.Generator(device=dev).manual_seed(1)
+        profile_device(lambda: step_fn(trainer.model, trainer.opt, batch_t,
+                                       gen, trainer.cfg),
+                       "one train step on the real data", "train-real-profile",
+                       rows=8)
+        del trainer, runs, first, batch_t
+        torch.cuda.empty_cache()
+        return launches
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
 
 
 def phase_ckpt(dev):
@@ -3026,6 +3334,7 @@ def main() -> int:
 
     os.environ.setdefault("HF_HUB_OFFLINE", "1")
     os.environ.setdefault("TRANSFORMERS_OFFLINE", "1")
+    os.environ.setdefault("HF_DATASETS_OFFLINE", "1")
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 1
@@ -3036,8 +3345,13 @@ def main() -> int:
     sys.path.insert(0, str(ROOT))
     dev = torch.device("cuda")
     t_start = time.perf_counter()
+    import datasets
+    import pyarrow
+
     log(f"[env] torch {torch.__version__}, CUDA {torch.version.cuda}, "
-        f"{torch.cuda.get_device_name(0)}")
+        f"{torch.cuda.get_device_name(0)}; datasets {datasets.__version__}, "
+        f"pyarrow {pyarrow.__version__}, numpy {np.__version__}, "
+        f"{os.cpu_count()} CPUs")
 
     def timed(tag, fn, *args, **kw):
         t0 = time.perf_counter()
@@ -3074,8 +3388,9 @@ def main() -> int:
           fused_residual=True)
     timed("cp-parity", phase_parity, dev, LP_FRAMES, "cp-parity",
           cp=CP_PARITY)
-    runs.append(timed("train", phase_train, dev, T_BATCH, T_LATENT, T_STEPS,
-                      (), "train", evaluate=True)[0])
+    train = timed("train", phase_train, dev, T_BATCH, T_LATENT, T_STEPS, (),
+                  "train", evaluate=True)
+    runs.append(train[0])
     runs.append(timed("train-long", phase_train, dev, TL_BATCH, TL_LATENT,
                       TL_STEPS, ("--moments_dtype", "bf16"), "train-long",
                       evaluate=False)[0])
@@ -3084,7 +3399,9 @@ def main() -> int:
                       FR_STEPS, (), "train-fr", evaluate=False,
                       fused_residual=True)[0])
     runs.append(timed("ckpt", phase_ckpt, dev))
-    runs.append(timed("train-t5", phase_train_t5, dev))
+    launches, t5_ms = timed("train-t5", phase_train_t5, dev)
+    runs.append(launches)
+    runs.append(timed("train-real", phase_train_real, dev, train[3], t5_ms))
     timed("train-parity", phase_train_parity, dev, T_WIDTH, T_LATENT, 4,
           "train-parity")
     timed("long-train-parity", phase_train_parity, dev, T_WIDTH, LP_LATENT,

@@ -19,10 +19,10 @@ from video_diffusion_speedrun_tpu.data.synthetic import (
     synthetic_context as j_context,
 )
 from video_diffusion_speedrun_tpu_torch.data.loader import (
+    DataLoader,
     ShardedSampler,
     default_collate,
     device_batches,
-    host_batches,
 )
 from video_diffusion_speedrun_tpu_torch.data.synthetic import (
     SyntheticLatentDataset,
@@ -57,7 +57,8 @@ def test_batch_order_matches_jax(shuffle):
 def test_collated_batches_reach_the_device_unchanged():
     ds = SyntheticLatentDataset(num_rows=6, latent_shape=(2, 3, 4, 4))
     sampler = ShardedSampler(len(ds), 2, seed=1)
-    batches = list(device_batches(host_batches(ds, sampler, 2), "cpu"))
+    batches = list(device_batches(iter(DataLoader(ds, sampler,
+                                                  num_epochs=2)), "cpu"))
     assert len(batches) == 6  # 3 per epoch, 2 epochs
     want = j_collate([ds[int(i)] for i in sampler.epoch(1)[0]])
     got = batches[3]

@@ -45,9 +45,9 @@ from video_diffusion_speedrun_tpu_torch.core.config import DiTConfig as TCfg
 from video_diffusion_speedrun_tpu_torch.core.config import TrainConfig
 from video_diffusion_speedrun_tpu_torch.data.loader import (
     CoordinatedShapeBucketingCollate,
+    DataLoader,
     ShapeBucketingCollate,
     ShardedSampler,
-    host_batches,
 )
 from video_diffusion_speedrun_tpu_torch.data.synthetic import (
     SyntheticLatentDataset,
@@ -176,8 +176,8 @@ def test_bucketing_collates_match_jax(kind):
         return (ShapeBucketingCollate if port else JBucketing)(batch)
 
     want = _stream(make(False), ds, JSampler(len(ds), batch, 0, 1, seed=2))
-    got = list(host_batches(ds, ShardedSampler(len(ds), batch, seed=2), 2,
-                            make(True)))
+    got = list(DataLoader(ds, ShardedSampler(len(ds), batch, seed=2),
+                          make(True), num_epochs=2))
     assert len(got) == len(want) > 10
     assert [b["latent"].shape for b in got] == \
         [b["latent"].shape for b in want]

@@ -3,6 +3,9 @@
 The trajectory is compared with the JAX `euler_cfg_sample` on the same
 weights (moved through `state_dict_from_jax_params`), the same injected
 latents and context, at CFG 6.0 and 1.0; fp32, atol 2e-4, rtol 1e-3.
+With RoPE jitter the JAX sampler draws one offset per Euler step from its
+key; the test recovers those offsets from the key and feeds them to the
+port's draws, and the trajectories agree within the same tolerance.
 """
 
 import jax
@@ -13,6 +16,9 @@ import torch
 
 from video_diffusion_speedrun_tpu.core.config import DiTConfig as JCfg
 from video_diffusion_speedrun_tpu.models.dit import init_dit
+from video_diffusion_speedrun_tpu.models.rope import (
+    random_rope_offsets as j_offsets,
+)
 from video_diffusion_speedrun_tpu.sampling import euler as jeuler
 from video_diffusion_speedrun_tpu_torch import sample as tsample
 from video_diffusion_speedrun_tpu_torch.core.config import DiTConfig as TCfg
@@ -70,6 +76,68 @@ def test_trajectory_matches_jax(cfg_scale):
     assert np.abs(np.asarray(want) - lat).max() > 1e-2  # the latents moved
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=2e-4,
                                rtol=1e-3)
+
+
+@pytest.mark.parametrize("cfg_scale", [6.0, 1.0])
+def test_jittered_trajectory_matches_jax(monkeypatch, cfg_scale):
+    """JAX splits its jitter key once per step and draws that step's
+    offsets from the second half (`euler.py:88-105`); the port draws one
+    `random_rope_offsets` per step from its generator, here fed JAX's."""
+    params, jcfg, model = _models()
+    r = np.random.default_rng(2)
+    lat = r.normal(size=(1, 4, 4, 8, 8)).astype(np.float32)
+    ctx = r.normal(size=(1, 6, 32)).astype(np.float32)
+    key = jax.random.PRNGKey(11)
+    want = jeuler.euler_cfg_sample(params, jcfg, jnp.asarray(lat),
+                                   jnp.asarray(ctx), num_steps=3,
+                                   cfg_scale=cfg_scale, rope_jitter_rng=key)
+    drawn, jrng = [], key
+    for _ in range(3):
+        jrng, step_key = jax.random.split(jrng)
+        drawn.append(np.asarray(j_offsets(step_key, 2, 4, 4)))
+    assert len({tuple(o) for o in drawn}) == 3  # the jitter moves
+    offsets = iter(drawn)
+    calls = []
+
+    def jax_draws(generator, *grid):
+        calls.append(grid)
+        return torch.from_numpy(next(offsets).astype(np.int64))
+
+    monkeypatch.setattr(teuler, "random_rope_offsets", jax_draws)
+    got = teuler.euler_cfg_sample(model, torch.from_numpy(lat),
+                                  torch.from_numpy(ctx), num_steps=3,
+                                  cfg_scale=cfg_scale,
+                                  jitter=torch.Generator().manual_seed(0))
+    assert calls == [(2, 4, 4, 128, 128, 128)] * 3
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=2e-4,
+                               rtol=1e-3)
+    # the jitter moves the trajectory by more than ten times the port's
+    # distance from JAX's, so the comparison sees the offsets
+    plain = jeuler.euler_cfg_sample(params, jcfg, jnp.asarray(lat),
+                                    jnp.asarray(ctx), num_steps=3,
+                                    cfg_scale=cfg_scale)
+    moved = np.abs(np.asarray(plain) - np.asarray(want)).max()
+    assert np.abs(got.numpy() - np.asarray(want)).max() < moved / 10
+
+
+def test_jitter_comes_from_its_generator():
+    """Jitter draws from the generator it is given (the same seed, the
+    same latents bit for bit; another trajectory than no jitter); without
+    one the trajectory is the unjittered one."""
+    _, _, model = _models()
+    sampling = SamplingConfig(inference_steps=2, height=64, width=64,
+                              num_latent_frames=4, seed=3)
+    ctx = torch.randn(1, 6, 32, generator=torch.Generator().manual_seed(1))
+
+    def run(jitter_seed):
+        jitter = (None if jitter_seed is None
+                  else torch.Generator().manual_seed(jitter_seed))
+        return teuler.generate_latents(model, ctx, sampling, jitter=jitter)
+
+    plain, a, b = run(None), run(5), run(5)
+    assert torch.equal(a, b)
+    assert not torch.equal(a, plain)
+    assert torch.equal(plain, teuler.generate_latents(model, ctx, sampling))
 
 
 def test_generate_latents_shape_and_seed():

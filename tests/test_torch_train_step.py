@@ -279,9 +279,8 @@ def test_entry_point_refuses_a_missing_card(monkeypatch):
 
 
 @pytest.mark.parametrize("flags", [
-    ["--embeddings_dir", "emb"], ["--mesh_fsdp", "2"],
-    ["--dataset", "cosmos_openvid"], ["--nu_factored", "true"],
-    ["--optimizer_in_backward", "true"], ["--wandb", "true"],
+    ["--mesh_fsdp", "2"], ["--mesh_tensor", "2"], ["--nu_factored", "true"],
+    ["--optimizer_in_backward", "true"],
 ])
 def test_entry_point_refuses_later_slices(flags):
     with pytest.raises(NotImplementedError, match="not ported yet"):

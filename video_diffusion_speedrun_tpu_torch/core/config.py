@@ -1,8 +1,7 @@
 """Configuration dataclasses (port of `video_diffusion_speedrun_tpu/core/config.py`).
 
-The model, sampler, optimizer, mesh and training configs (with the
-checkpoint and T5 fields), and the synthetic fields of the data config.
-Dtypes are torch dtypes. Options of later slices raise where they are set.
+The model, sampler, data, optimizer, mesh and training configs. Dtypes
+are torch dtypes. Options of later slices raise where they are set.
 
 Kernel dispatch (`attention_impl`, `fused_adaln`):
   "fused" — the port's fused op: on a CUDA tensor it launches the hand-written
@@ -124,9 +123,18 @@ class SamplingConfig:
 
 @dataclass(frozen=True)
 class DataConfig:
-    """The synthetic-data fields of the JAX `DataConfig`."""
+    """Dataset and loader config (the JAX `DataConfig`)."""
 
+    dataset: str = "synthetic"  # synthetic | cosmos_openvid
+    # a hub dataset, or a local parquet of its columns (data/fixture.py)
+    hf_name: str = "fal/cosmos-openvid-1m"
+    cache_dir: str = "./cache"
+    # the hub dataset's pinned row count (data/dataset.py splits it)
+    total_rows: int = 1_979_810
     test_rows: int = 40
+    # threads reading rows, and batches read ahead of the step
+    num_workers: int = 8
+    prefetch: int = 2
     shuffle_seed: int = 0
     synthetic_rows: int = 4096
     # [C, T, H, W]: Cosmos CV4x8x8 latents of 17-frame 256px clips
@@ -138,6 +146,12 @@ class DataConfig:
     bucket_by_shape: bool = False
     caption_tokens: int = 512
     context_dim: int = 4096
+    # a real dataset with no precomputed embeddings and no prompt encoder
+    # trains on random stand-in context only when this is set (smoke runs)
+    allow_random_context: bool = False
+    # shard_*.npy + manifest.json from data/precompute.py, one subdir per
+    # split (or flat): rows arrive with their `context`, no T5 runs
+    embeddings_dir: Optional[str] = None
 
 
 @dataclass(frozen=True)
@@ -232,7 +246,8 @@ class MeshConfig:
 @dataclass(frozen=True)
 class TrainConfig:
     """Training config: the fields of the JAX `TrainConfig` that the port
-    has."""
+    has (all but `distributed`: `torchrun`'s environment starts the process
+    group)."""
 
     model: DiTConfig = field(default_factory=DiTConfig)
     data: DataConfig = field(default_factory=DataConfig)
@@ -246,6 +261,7 @@ class TrainConfig:
     evaluate_every: int = 20
     eval_batches: int = 9
     run_name: str = "diffusion_repa"
+    project_name: str = "test_diffusion_test"
     seed: int = 0
     init_std_factor: float = 0.1
     time_shift_alpha: float = 8.0
@@ -258,6 +274,10 @@ class TrainConfig:
     # checkpoints go to checkpoint_dir/run_name/<step>/
     checkpoint_dir: str = "checkpoints"
     log_every: int = 10
+    # metrics go to checkpoint_dir/run_name/metrics.jsonl, and to wandb
+    wandb: bool = False
+    # write step 0's latent, context and timesteps to test_data/
+    capture_fixtures: bool = False
     log_grad_norm: bool = False
 
     def __post_init__(self):

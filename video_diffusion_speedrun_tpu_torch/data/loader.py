@@ -1,4 +1,4 @@
-"""Host-side batches for one process (port of part of `data/loader.py`).
+"""Host-side batches for one process (port of `data/loader.py`).
 
 `ShardedSampler.epoch` (its one-process case) and `default_collate` keep
 the JAX row order (`loader.py:33-82`): epoch e is
@@ -6,16 +6,29 @@ the JAX row order (`loader.py:33-82`): epoch e is
 mixed-length clips, `ShapeBucketingCollate` and
 `CoordinatedShapeBucketingCollate` (`loader.py:84-176`) turn each sampler
 batch into at most one shape-uniform batch, carrying the rest; with the
-same seed they emit the JAX package's batch shapes in its order.
-`device_batches` copies each collated batch from pinned host memory with
-`non_blocking=True` (the JAX `device_prefetch`), so the copy queues behind
-the running step. Worker threads come with the real-data loader.
-Across data-parallel replicas every process draws the same global batches
-and `replica_rows` keeps its replica's rows (`local_batch_slice`).
+same seed they emit the JAX package's batch shapes in its order. The
+collates stack numpy arrays (synthetic rows) and torch tensors (the
+dataset's bf16 latents, precomputed context) alike.
+
+`DataLoader` (`loader.py:179-288`) reads and collates on a look-ahead
+thread with a pool of `num_workers` row readers, `prefetch` batches
+ahead; `device_batches` (the JAX `device_prefetch`) moves them to the
+device on a staging thread: from pinned memory with non-blocking copies
+on a stream of its own, which the consumer's stream waits for, so the
+copy of batch n+1 runs under step n. A producer's error is raised in the
+consumer; closing a stream (or leaving its loop) stops its thread and
+waits for it at most 5 s. Across data-parallel replicas every process
+draws the same global batches and `replica_rows` keeps its replica's rows
+(`local_batch_slice`).
 """
 
 from __future__ import annotations
 
+import queue
+import sys
+import threading
+import time
+from concurrent.futures import ThreadPoolExecutor
 from typing import Any, Callable, Dict, Iterator, Optional, Sequence
 
 import numpy as np
@@ -48,13 +61,17 @@ class ShardedSampler:
 
 
 def default_collate(rows: Sequence[Dict]) -> Dict[str, Any]:
-    """Stack arrays, keep everything else (captions) as lists."""
+    """Stack arrays and tensors, keep everything else (captions) as
+    lists."""
     out: Dict[str, Any] = {}
     for key, val in rows[0].items():
+        vals = [r[key] for r in rows]
         if isinstance(val, np.ndarray):
-            out[key] = np.stack([r[key] for r in rows])
+            out[key] = np.stack(vals)
+        elif isinstance(val, torch.Tensor):
+            out[key] = torch.stack(vals)
         else:
-            out[key] = [r[key] for r in rows]
+            out[key] = vals
     return out
 
 
@@ -121,45 +138,178 @@ class CoordinatedShapeBucketingCollate:
         return default_collate(batch_rows)
 
 
-def host_batches(dataset, sampler: ShardedSampler, num_epochs: int,
-                 collate: Callable = default_collate, skip: int = 0
-                 ) -> Iterator[Dict[str, Any]]:
-    """Collated numpy batches, epoch after epoch; a collate that returns
-    None (no full bucket yet) emits nothing for that sampler batch. The
-    first `skip` batches are not emitted (a resumed run's fast-forward,
-    `DataLoader.skip_batches` of the JAX loader): with the stateless
-    default collate their rows are never read; a bucketing collate is fed
-    and its batches discarded, so its state is the continuous run's."""
-    for e in range(num_epochs):
-        for idx in sampler.epoch(e):
-            if skip and collate is default_collate:
-                skip -= 1
-                continue
-            batch = collate([dataset[int(i)] for i in idx])
-            if batch is None:
-                continue
-            if skip:
-                skip -= 1
-                continue
-            yield batch
+class _Fault:
+    """A producer thread's exception, carried to the consumer and raised
+    there, so that a dataset, collate or copy error fails the loop instead
+    of ending the stream like an epoch boundary."""
+
+    __slots__ = ("exc",)
+
+    def __init__(self, exc: BaseException):
+        self.exc = exc
 
 
-def device_batches(batches: Iterator[Dict[str, Any]], device
-                   ) -> Iterator[Dict[str, Any]]:
-    """Arrays to `device` tensors (pinned, non-blocking on CUDA); other
-    values pass through."""
+_END = object()  # end of a stream (a collate may return None itself)
+_WIND_DOWN_S = 5.0  # longest wait for a producer thread at close
+
+
+def _put(q: "queue.Queue", item, stop: threading.Event) -> bool:
+    """Put `item` unless `stop` is set first; whether it was put."""
+    while not stop.is_set():
+        try:
+            q.put(item, timeout=0.2)
+            return True
+        except queue.Full:
+            continue
+    return False
+
+
+def _threaded(source: Iterator, depth: int, name: str,
+              fn: Optional[Callable] = None) -> Iterator:
+    """`fn` of the items of `source` (or the items), made on a thread of
+    their own `depth` items ahead. The thread closes the source when the
+    stream ends, fails or is closed; closing waits for the thread at most
+    5 s (one stuck in a read is abandoned, as a daemon)."""
+    source = iter(source)
+    q: "queue.Queue" = queue.Queue(maxsize=max(1, depth))
+    stop = threading.Event()
+
+    def run():
+        payload = _END
+        try:
+            for item in source:
+                if fn is not None:
+                    item = fn(item)
+                if not _put(q, item, stop):
+                    return
+        except BaseException as exc:  # raised again by the consumer
+            # only a teardown race (consumer gone, interpreter exiting)
+            # is swallowed
+            if not stop.is_set() and not sys.is_finalizing():
+                payload = _Fault(exc)
+        finally:
+            close = getattr(source, "close", None)
+            if close is not None:
+                close()
+            _put(q, payload, stop)
+
+    thread = threading.Thread(target=run, name=name, daemon=True)
+    thread.start()
+    monotonic = time.monotonic  # kept alive for a close at exit
+    try:
+        while True:
+            item = q.get()
+            if isinstance(item, _Fault):
+                raise item.exc
+            if item is _END:
+                return
+            yield item
+    finally:
+        stop.set()
+        deadline = monotonic() + _WIND_DOWN_S
+        while thread.is_alive() and monotonic() < deadline:
+            while True:  # free a producer blocked in put
+                try:
+                    q.get_nowait()
+                except queue.Empty:
+                    break
+            thread.join(timeout=0.2)
+
+
+class DataLoader:
+    """Threaded look-ahead loader over (dataset, sampler): epochs of
+    collated batches, `num_workers` threads reading the rows of a batch,
+    `prefetch` batches ready ahead of the consumer.
+
+    `skip_batches` (a resumed run): the stream starts where a continuous
+    run would be after that many batches. With the default collate (one
+    sampler batch, one batch) the skipped rows are never read; a bucketing
+    collate is fed and its batches discarded, so its state is the
+    continuous run's."""
+
+    def __init__(self, dataset, sampler: ShardedSampler,
+                 collate: Callable = default_collate, num_workers: int = 4,
+                 prefetch: int = 2, num_epochs: Optional[int] = None,
+                 skip_batches: int = 0):
+        self.dataset = dataset
+        self.sampler = sampler
+        self.collate = collate
+        self.num_workers = max(1, num_workers)
+        self.prefetch = max(1, prefetch)
+        self.num_epochs = num_epochs
+        self.skip_batches = skip_batches
+
+    def _epochs(self) -> Iterator[int]:
+        e = 0
+        while self.num_epochs is None or e < self.num_epochs:
+            yield e
+            e += 1
+
+    def _batches(self) -> Iterator[Dict[str, Any]]:
+        index_skip = self.collate is default_collate
+        to_skip = self.skip_batches
+        with ThreadPoolExecutor(self.num_workers,
+                                thread_name_prefix="vds-rows") as pool:
+            for e in self._epochs():
+                for idx in self.sampler.epoch(e):
+                    if to_skip and index_skip:
+                        to_skip -= 1
+                        continue
+                    batch = self.collate(list(pool.map(
+                        self.dataset.__getitem__, (int(i) for i in idx))))
+                    if batch is None:
+                        continue
+                    if to_skip:
+                        to_skip -= 1
+                        continue
+                    yield batch
+
+    def __iter__(self) -> Iterator[Dict[str, Any]]:
+        return _threaded(self._batches(), self.prefetch, "vds-loader")
+
+
+def _to_device(batch: Dict[str, Any], device: torch.device, stream):
+    """(the batch with its arrays and tensors on `device`, the event after
+    their copies on `stream`, or None without a stream)."""
+    out = {}
+    for key, val in batch.items():
+        if isinstance(val, np.ndarray):
+            val = torch.from_numpy(val)
+        if isinstance(val, torch.Tensor) and stream is not None:
+            with torch.cuda.stream(stream):
+                val = val.pin_memory().to(device, non_blocking=True)
+        elif isinstance(val, torch.Tensor):
+            val = val.to(device)
+        out[key] = val
+    if stream is None:
+        return out, None
+    event = torch.cuda.Event()
+    event.record(stream)
+    return out, event
+
+
+def device_batches(batches: Iterator[Dict[str, Any]], device,
+                   depth: int = 2) -> Iterator[Dict[str, Any]]:
+    """Arrays and tensors of each batch to `device`, other values passed
+    through, staged on a thread `depth` batches ahead. On a CUDA device
+    the copies run from pinned memory on a stream of their own; each
+    batch's tensors are handed to the consumer's current stream, which
+    waits for them."""
     device = torch.device(device)
-    pin = device.type == "cuda"
-    for batch in batches:
-        out = {}
-        for key, val in batch.items():
-            if isinstance(val, np.ndarray):
-                t = torch.from_numpy(val)
-                if pin:
-                    t = t.pin_memory()
-                val = t.to(device, non_blocking=pin)
-            out[key] = val
-        yield out
+    stream = (torch.cuda.Stream(device) if device.type == "cuda" else None)
+    staged = _threaded(batches, depth, "vds-stage",
+                       lambda b: _to_device(b, device, stream))
+    try:
+        for out, event in staged:
+            if event is not None:
+                current = torch.cuda.current_stream(device)
+                current.wait_event(event)
+                for val in out.values():
+                    if isinstance(val, torch.Tensor):
+                        val.record_stream(current)
+            yield out
+    finally:
+        staged.close()
 
 
 def replica_rows(batches: Iterator[Dict[str, Any]], rank: int, local: int

@@ -6,6 +6,11 @@ cond and uncond run as one forward at batch 2B (cond first); the
 accumulator is fp32 and each step's model input is `acc` cast to the
 latents' dtype. The context K/V is projected once per trajectory.
 
+RoPE crop jitter (`euler.py:60-112` of the JAX sampler) is off by default
+(zero offsets, deterministic sampling); given a `jitter` generator, each
+Euler step draws one `random_rope_offsets` from it and its single batched
+CFG forward uses it for cond and uncond alike.
+
 Under context parallelism (`context_parallel`, a ring of
 `parallel/ring.py`; JAX's `token_sharding`, `euler.py:63-113`) every rank
 of the ring runs the same trajectory on the same noise and context: each
@@ -21,6 +26,7 @@ import torch
 
 from video_diffusion_speedrun_tpu_torch.core.config import SamplingConfig
 from video_diffusion_speedrun_tpu_torch.models.dit import DiT
+from video_diffusion_speedrun_tpu_torch.models.rope import random_rope_offsets
 from video_diffusion_speedrun_tpu_torch.train.loss import time_shift
 
 
@@ -48,11 +54,15 @@ def euler_cfg_sample(model: DiT, latents: torch.Tensor,
                      context: torch.Tensor, *, num_steps: int = 50,
                      cfg_scale: float = 6.0,
                      alpha: float = 8.0,
-                     context_parallel=None) -> torch.Tensor:
+                     context_parallel=None,
+                     jitter: Optional[torch.Generator] = None
+                     ) -> torch.Tensor:
     """Run the Euler trajectory; returns the fp32 accumulator.
 
     `latents` [B, C, T, h, w], `context` [B, Lc, ctx_dim] (the conditional
-    embedding; the uncond branch is zeros), both on the model's device."""
+    embedding; the uncond branch is zeros), both on the model's device.
+    `jitter`: the generator of each step's RoPE crop offsets (None: no
+    jitter)."""
     ts, dts = schedule(num_steps, alpha)
     acc = latents.float()
     do_cfg = cfg_scale > 1.0
@@ -62,16 +72,25 @@ def euler_cfg_sample(model: DiT, latents: torch.Tensor,
             else context
         ckv = model.precompute_context_kv(ctx)
     b = acc.shape[0]
+    mcfg = model.cfg
+    grid = (latents.shape[2] // mcfg.time_patch_size,
+            latents.shape[3] // mcfg.patch_size,
+            latents.shape[4] // mcfg.patch_size)
     for t, dt in zip(ts.tolist(), dts.tolist()):
         lat = acc.to(latents.dtype)
         tvec = torch.full((b,), t, dtype=torch.float32, device=acc.device)
+        offsets = None
+        if jitter is not None:
+            offsets = random_rope_offsets(jitter, *grid, mcfg.rope_max_t,
+                                          mcfg.rope_max_h, mcfg.rope_max_w)
         if do_cfg:
             out2 = model(torch.cat([lat, lat]), None, torch.cat([tvec, tvec]),
-                         context_kv=ckv, context_parallel=context_parallel)
+                         rope_offsets=offsets, context_kv=ckv,
+                         context_parallel=context_parallel)
             cond, uncond = out2.float().chunk(2)
             out = uncond + cfg_scale * (cond - uncond)
         else:
-            out = model(lat, None, tvec, context_kv=ckv,
+            out = model(lat, None, tvec, rope_offsets=offsets, context_kv=ckv,
                         context_parallel=context_parallel).float()
         acc = acc + dt * out
     return acc
@@ -80,10 +99,13 @@ def euler_cfg_sample(model: DiT, latents: torch.Tensor,
 def generate_latents(model: DiT, context: torch.Tensor,
                      sampling: SamplingConfig,
                      generator: Optional[torch.Generator] = None,
-                     context_parallel=None) -> torch.Tensor:
+                     context_parallel=None,
+                     jitter: Optional[torch.Generator] = None
+                     ) -> torch.Tensor:
     """Seeded initial noise → sampled fp32 latents. The noise comes from
     `generator`, by default one on the model's device seeded with
-    `sampling.seed` (the same noise on every rank of a context ring)."""
+    `sampling.seed` (the same noise on every rank of a context ring);
+    `jitter` as in `euler_cfg_sample`."""
     if generator is None:
         device = next(model.parameters()).device
         generator = torch.Generator(device=device).manual_seed(sampling.seed)
@@ -93,4 +115,4 @@ def generate_latents(model: DiT, context: torch.Tensor,
                             num_steps=sampling.inference_steps,
                             cfg_scale=sampling.cfg_scale,
                             alpha=sampling.time_shift_alpha,
-                            context_parallel=context_parallel)
+                            context_parallel=context_parallel, jitter=jitter)

@@ -1,19 +1,35 @@
 """Training entry point of the port: muP-AdamW rectified-flow training of
-the video DiT on synthetic Cosmos-shaped latents.
+the video DiT on Cosmos latents, real or synthetic.
 
     python -m video_diffusion_speedrun_tpu_torch.train --batch_size 64 \\
         --learning_rate 0.015625 --max_steps 5004 --evaluate_every 500 \\
         --model_width 512 --model_depth 24 --model_head_dim 128 \\
         --lr_scheduler_type linear
 
-Flags keep the names and defaults of the JAX package's `train.py`. Runs on
-the card by default (`--device cuda`, which raises when no card is
-present); `--device cpu` runs on the CPU. `--synthetic_t_choices 5,9,17`
-mixes clips of 5, 9 and 17 latent frames (L = 528, 1040 and 2064 at the
-default 32×32 latents) in shape-uniform batches; L > 2048 takes the long
-attention path. Flags of later slices (real data, precomputed
-embeddings, optimizer-in-backward, FSDP and tensor parallelism, wandb)
-raise.
+Flags keep the names and defaults of the JAX package's `train.py` (its
+`--platform`, a JAX backend override, has no counterpart; `--scan_blocks`,
+an XLA compile option, is accepted and changes nothing). Runs on the card
+by default (`--device cuda`, which raises when no card is present);
+`--device cpu` runs on the CPU. `--synthetic_t_choices 5,9,17` mixes
+clips of 5, 9 and 17 latent frames (L = 528, 1040 and 2064 at the default
+32×32 latents) in shape-uniform batches; L > 2048 takes the long
+attention path. Flags of later slices (optimizer-in-backward, FSDP and
+tensor parallelism) raise.
+
+The dataset (`--dataset cosmos_openvid`): `--hf_name` a local parquet of
+its columns (`python -m video_diffusion_speedrun_tpu_torch.data.fixture`
+writes one) or the hub dataset, with the T5 context precomputed per split
+(`python -m video_diffusion_speedrun_tpu_torch.data.precompute --split
+train --out emb/train`, the same for test):
+
+    python -m video_diffusion_speedrun_tpu_torch.train \\
+        --dataset cosmos_openvid --hf_name fixture.parquet \\
+        --embeddings_dir emb ...
+
+(`--use_t5` encodes the captions every step instead; with neither,
+`--allow_random_context true` trains on random context, smoke runs only.)
+Metrics go to `--checkpoint_dir/--run_name/metrics.jsonl`, and to wandb
+(`--project_name`) with `--wandb true`.
 
 Checkpoints: every evaluation (`step % evaluate_every == 1`) saves the
 full train state to `--checkpoint_dir/--run_name/<step>/`;
@@ -44,7 +60,6 @@ the number of processes, and the global `--batch_size` must divide by R:
 from __future__ import annotations
 
 import argparse
-import logging
 from typing import Dict, List, Optional
 
 import torch
@@ -87,6 +102,21 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
         default="auto")
     add("--dataset", choices=["synthetic", "cosmos_openvid"],
         default="synthetic")
+    add("--hf_name", default="fal/cosmos-openvid-1m",
+        help="HF dataset name, or a local parquet file/dir with the same "
+             "columns (data/fixture.py)")
+    add("--cache_dir", default="./cache", help="HF datasets cache dir")
+    add("--embeddings_dir", default=None,
+        help="dir of shard_*.npy + manifest.json from data/precompute.py "
+             "(per-split subdirs or flat): rows get their context, no "
+             "per-step T5 encode runs")
+    add("--allow_random_context", type=_bool, default=False,
+        help="permit random stand-in context when rows carry none and no "
+             "prompt encoder is configured (smoke runs only)")
+    add("--project_name", default="test_diffusion_test")
+    add("--wandb", type=_bool, default=False)
+    add("--scan_blocks", type=_bool, default=True,
+        help="the JAX package's block scan; accepted, no effect")
     add("--synthetic_rows", type=int, default=4096)
     add("--synthetic_t_choices", default="",
         help="comma-separated latent frame counts for variable-length "
@@ -113,10 +143,8 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
         help="with --use_t5: a RANDOM-INIT T5 (tiny, or the XXL config) "
              "and the byte-fallback tokenizer; embeddings are garbage")
     # flags of later slices: accepted so that they can refuse
-    add("--embeddings_dir", default=None)
     add("--optimizer_in_backward", type=_bool, default=False)
     add("--nu_factored", type=_bool, default=False)
-    add("--wandb", type=_bool, default=False)
     # the mesh (core/config.py:MeshConfig); fsdp and tensor > 1 raise
     for axis in ("replica", "fsdp", "context", "tensor"):
         add(f"--mesh_{axis}", type=int, default=-1 if axis == "fsdp" else 1)
@@ -126,13 +154,8 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
 def build_config(args: argparse.Namespace) -> TrainConfig:
     """The TrainConfig of the JAX `train.py`, refusing what the port lacks."""
     later = {
-        "--embeddings_dir (precomputed embeddings, ROADMAP A7b)":
-            args.embeddings_dir is not None,
         "--optimizer_in_backward (ROADMAP A10)": args.optimizer_in_backward,
         "--nu_factored (ROADMAP A10)": args.nu_factored,
-        "--wandb (logging)": args.wandb,
-        "--dataset cosmos_openvid (real-data slice)":
-            args.dataset != "synthetic",
     }
     refused = [flag for flag, on in later.items() if on]
     if refused:
@@ -172,10 +195,14 @@ def build_config(args: argparse.Namespace) -> TrainConfig:
     return TrainConfig(
         model=model,
         data=DataConfig(
+            dataset=args.dataset, hf_name=args.hf_name,
+            cache_dir=args.cache_dir,
             synthetic_rows=args.synthetic_rows, context_dim=args.context_dim,
             synthetic_t_choices=tuple(
                 int(t) for t in args.synthetic_t_choices.split(",") if t),
-            bucket_by_shape=bool(args.synthetic_t_choices)),
+            bucket_by_shape=bool(args.synthetic_t_choices),
+            allow_random_context=args.allow_random_context,
+            embeddings_dir=args.embeddings_dir),
         mesh=MeshConfig(replica=args.mesh_replica, fsdp=args.mesh_fsdp,
                         context=args.mesh_context, tensor=args.mesh_tensor),
         optimizer=OptimizerConfig(
@@ -186,6 +213,7 @@ def build_config(args: argparse.Namespace) -> TrainConfig:
         num_epochs=args.num_epochs, batch_size=args.batch_size,
         grad_accum=args.grad_accum, max_steps=args.max_steps,
         evaluate_every=args.evaluate_every, run_name=args.run_name,
+        project_name=args.project_name, wandb=args.wandb,
         seed=args.seed, init_std_factor=args.init_std_factor,
         t5_return_index=args.return_index,
         load_checkpoint=args.load_checkpoint,
@@ -210,13 +238,13 @@ def build_prompt_encoder(args: argparse.Namespace, device):
 def main(argv: Optional[List[str]] = None) -> Dict[str, float]:
     args = parse_args(argv)
     cfg = build_config(args)
-    logging.basicConfig(level=logging.INFO, format="%(message)s")
-    from video_diffusion_speedrun_tpu_torch.train.loop import Trainer
-
-    from video_diffusion_speedrun_tpu_torch.parallel import mesh as pmesh
     from video_diffusion_speedrun_tpu_torch.core.config import resolve_device
+    from video_diffusion_speedrun_tpu_torch.parallel import mesh as pmesh
+    from video_diffusion_speedrun_tpu_torch.train.loop import Trainer
+    from video_diffusion_speedrun_tpu_torch.utils.logging import make_logger
 
     device = pmesh.init_distributed(resolve_device(args.device))
+    make_logger()
     out = Trainer(cfg, device=device,
                   prompt_encoder=build_prompt_encoder(args, device)).train()
     pmesh.shutdown()

@@ -2,25 +2,37 @@
 
 Keeps the JAX loop's semantics: an epoch × step loop bounded by
 `max_steps`; metrics every `log_every` steps, read back one log interval
-late so the host never stalls the card to print (`loop.py:410-418`);
-evaluation with a fixed-seed generator on `eval_batches` batches of the
-test split, then a checkpoint of the full train state
-(`train/checkpoint.py`, `checkpoint_dir/run_name/<step>/`), when
-`step % evaluate_every == 1`; timestep-decile loss bins.
-Synthetic data only: train rows seeded 0 (with `synthetic_t_choices`, of
-mixed lengths), test rows seeded 1. The context is drawn on the device
-inside the step, or, with a `prompt_encoder` (the CLI's `--use_t5`), it
-is the T5 encoding of each batch's captions at `t5_return_index`, encoded
-every step as the reference does. With `bucket_by_shape` both splits go
-through the coordinated shape-bucketing collate, as
-`loop.py:100-110,164-180` of the JAX package.
+late so the host never stalls the card to print (`loop.py:410-418`), with
+the mean step time of each interval (`StepTimer`); evaluation with a
+fixed-seed generator on `eval_batches` batches of the test split, then a
+checkpoint of the full train state (`train/checkpoint.py`,
+`checkpoint_dir/run_name/<step>/`), when `step % evaluate_every == 1`;
+timestep-decile loss bins. Records go to `history` and, on rank 0, to
+`checkpoint_dir/run_name/metrics.jsonl` (and wandb) under the JAX keys.
+
+Data (`loop.py:98-241`): the synthetic rows (train seeded 0, with
+`synthetic_t_choices` of mixed lengths; test seeded 1) or the
+Cosmos-OpenVid latents (`data/dataset.py`, `hf_name` a hub name or a local
+parquet), read by the threaded `DataLoader` and staged to the device on a
+thread of their own. A batch's context comes from, in this order: the
+precomputed embeddings of `embeddings_dir/<split>` (or a flat
+`embeddings_dir`) joined onto its rows; the `prompt_encoder` (the CLI's
+`--use_t5`) on its captions, encoded every step as the reference does;
+for synthetic rows, a draw on the device inside the step; with
+`allow_random_context`, 0.05·N(0, 1) from numpy seeded by (seed + 17,
+batch index); else a `RuntimeError`. Precomputed context crosses to the
+device in fp16 and is widened to JAX's fp32 there. With
+`bucket_by_shape` mixed lengths go through the coordinated
+shape-bucketing collate where the dataset declares its shapes, else the
+one-process `ShapeBucketingCollate` (`loop.py:163-178`).
 
 `load_checkpoint` resumes a port checkpoint: parameters, moments, the
 update count, the step and the training generator's state come back, and
 the train stream skips exactly the restored step's batches (through the
-collate, so a bucketing collate's state is the continuous run's), so the
-resumed run computes what the continuous run computes. A reference
-checkpoint loads weights only (`loop.py:243-265`).
+collate, so a bucketing collate's state is the continuous run's; the
+random context follows its batch index), so the resumed run computes what
+the continuous run computes. A reference checkpoint loads weights only
+(`loop.py:243-265`).
 
 Across processes (started by `torchrun`: NCCL on `cuda:{LOCAL_RANK}`,
 gloo with `--device cpu`) the Trainer builds the mesh of `cfg.mesh`
@@ -35,11 +47,13 @@ it.
 
 from __future__ import annotations
 
+import dataclasses
 import logging
 import os
 import time
 from typing import Dict, Iterator, List, Optional
 
+import numpy as np
 import torch
 
 from video_diffusion_speedrun_tpu_torch.core.config import (
@@ -48,15 +62,16 @@ from video_diffusion_speedrun_tpu_torch.core.config import (
 )
 from video_diffusion_speedrun_tpu_torch.data.loader import (
     CoordinatedShapeBucketingCollate,
+    DataLoader,
     ShapeBucketingCollate,
     ShardedSampler,
     default_collate,
     device_batches,
-    host_batches,
     replica_rows,
 )
 from video_diffusion_speedrun_tpu_torch.data.synthetic import (
     SyntheticLatentDataset,
+    synthetic_context,
 )
 from video_diffusion_speedrun_tpu_torch.models.dit import DiT
 from video_diffusion_speedrun_tpu_torch.parallel import mesh as pmesh
@@ -73,6 +88,10 @@ from video_diffusion_speedrun_tpu_torch.train.checkpoint import (
 )
 from video_diffusion_speedrun_tpu_torch.train.optim import MupAdamW
 from video_diffusion_speedrun_tpu_torch.train.step import eval_step, train_step
+from video_diffusion_speedrun_tpu_torch.utils.logging import (
+    MetricsLogger,
+    StepTimer,
+)
 
 logger = logging.getLogger("video_diffusion_speedrun_tpu_torch.train")
 
@@ -102,22 +121,26 @@ class Trainer:
                             cfg.optimizer)
         self.n_params = sum(p.numel() for p in self.model.parameters())
         self._log("param_count: %.2fM", self.n_params / 1e6)
-        dcfg = cfg.data
-        self.datasets = {
-            split: SyntheticLatentDataset(
-                num_rows=rows, latent_shape=dcfg.synthetic_shape, seed=seed,
-                t_choices=dcfg.synthetic_t_choices if split == "train" else ())
-            for split, rows, seed in (("train", dcfg.synthetic_rows, 0),
-                                      ("test", dcfg.test_rows, 1))}
+        # synthetic rows with no other context source get theirs drawn on
+        # the device inside the step
+        self.device_context = (cfg.data.dataset == "synthetic"
+                               and prompt_encoder is None
+                               and cfg.data.embeddings_dir is None)
+        # split → dataset, built on first use
+        self.datasets: Dict[str, object] = {}
         self.step = 0
         # the stream every training draw comes from, saved with the state
         self.generator = self._generator(cfg.seed + 1)
         # every logged train record, in order
         self.history: List[Dict[str, float]] = []
-        self.ckpt = CheckpointManager(
-            os.path.join(cfg.checkpoint_dir, cfg.run_name))
+        run_dir = os.path.join(cfg.checkpoint_dir, cfg.run_name)
+        self.ckpt = CheckpointManager(run_dir)
         if cfg.load_checkpoint is not None:
             self._load_checkpoint(cfg.load_checkpoint)
+        self.metrics = MetricsLogger(
+            project=cfg.project_name, run_name=cfg.run_name,
+            config=dataclasses.asdict(cfg), out_dir=run_dir,
+            use_wandb=cfg.wandb)
 
     def _log(self, *args) -> None:
         if self.main:
@@ -127,13 +150,74 @@ class Trainer:
         return torch.Generator(device=self.device).manual_seed(
             seed + REPLICA_SEED_STRIDE * self.data_rank)
 
+    def dataset(self, split: str):
+        """The split's rows (`loop.py:98-130`), built on first use: the
+        synthetic rows or the Cosmos-OpenVid latents, with the precomputed
+        embeddings of `embeddings_dir/<split>` (else of a flat
+        `embeddings_dir`, whose manifest must name the split) joined on."""
+        if split in self.datasets:
+            return self.datasets[split]
+        dcfg = self.cfg.data
+        if dcfg.dataset == "synthetic":
+            train = split == "train"
+            ds = SyntheticLatentDataset(
+                num_rows=dcfg.synthetic_rows if train else dcfg.test_rows,
+                latent_shape=dcfg.synthetic_shape, seed=0 if train else 1,
+                t_choices=dcfg.synthetic_t_choices if train else ())
+        else:
+            from video_diffusion_speedrun_tpu_torch.data.dataset import (
+                LatentDataset,
+            )
+
+            ds = LatentDataset(split=split, cache_dir=dcfg.cache_dir,
+                               hf_name=dcfg.hf_name)
+        if dcfg.embeddings_dir is not None:
+            from video_diffusion_speedrun_tpu_torch.data.embeddings import (
+                PrecomputedEmbeddingJoin,
+            )
+
+            split_dir = os.path.join(dcfg.embeddings_dir, split)
+            emb_dir = (split_dir if os.path.isdir(split_dir)
+                       else dcfg.embeddings_dir)
+            ds = PrecomputedEmbeddingJoin(ds, emb_dir, expected_split=split)
+        self.datasets[split] = ds
+        return ds
+
+    def _random_context(self, batches: Iterator[Dict], start: int
+                        ) -> Iterator[Dict]:
+        """Batches without a context source get JAX's smoke context
+        (`loop.py:_encode_stream`): 0.05·N(0, 1) from numpy seeded by
+        (seed + 17, batch index), so a resumed run draws the continuous
+        run's; without `allow_random_context` that raises."""
+        warned = False
+        dcfg = self.cfg.data
+        for index, batch in enumerate(batches, start=start):
+            if ("context" not in batch and self.prompt_encoder is None
+                    and not self.device_context):
+                if not dcfg.allow_random_context:
+                    raise RuntimeError(
+                        "no context source: rows carry no embeddings and "
+                        "no prompt encoder is configured. Pass use_t5 / "
+                        "precomputed embeddings, or set "
+                        "data.allow_random_context=True for a smoke run.")
+                if not warned:
+                    logger.warning("allow_random_context: training against "
+                                   "random context embeddings (smoke only)")
+                    warned = True
+                rng = np.random.default_rng((self.cfg.seed + 17, index))
+                batch["context"] = synthetic_context(
+                    rng, batch["latent"].shape[0], dcfg.caption_tokens,
+                    dcfg.context_dim)
+            yield batch
+
     def batches(self, split: str) -> Iterator[Dict[str, torch.Tensor]]:
         """This replica's rows of the split's global batches as device
         tensors, epoch after epoch; the train split from the batch after
-        the restored step on. With a prompt encoder the captions become the
-        `context`; without one they are dropped (the context is drawn on
-        the device)."""
-        ds = self.datasets[split]
+        the restored step on. Rows without a context get the prompt
+        encoder's encoding of their captions, the smoke context, or none
+        (drawn on the device in the step); captions are dropped."""
+        dcfg = self.cfg.data
+        ds = self.dataset(split)
         batch = self.cfg.batch_size
         if split != "train" and batch > len(ds):
             # the test split is 40 rows; clamp the global batch to the
@@ -147,63 +231,100 @@ class Trainer:
                     f"slice per data shard ({shards} shards)")
             self._log("eval batch clamped %d -> %d (test split has %d rows)",
                       self.cfg.batch_size, batch, len(ds))
-        sampler = ShardedSampler(len(ds), batch, self.cfg.data.shuffle_seed,
+        sampler = ShardedSampler(len(ds), batch, dcfg.shuffle_seed,
                                  shuffle=split == "train")
-        epochs = self.cfg.num_epochs if split == "train" else 1
         collate = default_collate
-        if self.cfg.data.bucket_by_shape:
+        if dcfg.bucket_by_shape:
             shapes = getattr(ds, "latent_shapes", lambda: None)()
             collate = (ShapeBucketingCollate(batch) if shapes is None else
                        CoordinatedShapeBucketingCollate(
-                           batch, shapes,
-                           seed=self.cfg.data.shuffle_seed + 101))
+                           batch, shapes, seed=dcfg.shuffle_seed + 101))
         local = pmesh.local_batch_slice(self.mesh, batch)
         skip = self.step if split == "train" else 0
-        rows = replica_rows(host_batches(ds, sampler, epochs, collate, skip),
+        loader = DataLoader(
+            ds, sampler, collate, num_workers=dcfg.num_workers,
+            prefetch=dcfg.prefetch,
+            num_epochs=self.cfg.num_epochs if split == "train" else 1,
+            skip_batches=skip)
+        rows = replica_rows(self._random_context(iter(loader), skip),
                             self.data_rank, local)
-        for batch in device_batches(rows, self.device):
-            if self.prompt_encoder is not None:
-                batch["context"] = self.prompt_encoder(
-                    batch["caption"], return_index=self.cfg.t5_return_index)
-            yield {k: v for k, v in batch.items()
-                   if isinstance(v, torch.Tensor)}
+        stream = device_batches(rows, self.device, dcfg.prefetch)
+        try:
+            for batch in stream:
+                ctx = batch.get("context")
+                if ctx is not None and ctx.dtype == torch.float16:
+                    # precomputed rows cross to the device in the shards'
+                    # fp16; widened here, they are JAX's fp32 batch
+                    batch["context"] = ctx.float()
+                if "context" not in batch and self.prompt_encoder is not None:
+                    batch["context"] = self.prompt_encoder(
+                        batch["caption"],
+                        return_index=self.cfg.t5_return_index)
+                yield {k: v for k, v in batch.items()
+                       if isinstance(v, torch.Tensor)}
+        finally:
+            # an abandoned stream (eval_batches, max_steps) joins its
+            # threads now, not at garbage collection
+            stream.close()
 
     def evaluate(self) -> Dict[str, float]:
         """Mean test loss and per-decile losses, with a fixed-seed
         generator (the reference's seeded eval)."""
         gen = self._generator(self.cfg.seed + 1000)
         losses, sums, counts = [], 0.0, 0.0
-        for idx, batch in enumerate(self.batches("test")):
-            m = eval_step(self.model, batch, gen, self.cfg,
-                          self.context_parallel)
-            losses.append(m["loss"])
-            sums = sums + m["bin_sums"]
-            counts = counts + m["bin_counts"]
-            if idx + 1 >= self.cfg.eval_batches:
-                break
+        stream = self.batches("test")
+        try:
+            for idx, batch in enumerate(stream):
+                m = eval_step(self.model, batch, gen, self.cfg,
+                              self.context_parallel)
+                losses.append(m["loss"])
+                sums = sums + m["bin_sums"]
+                counts = counts + m["bin_counts"]
+                if idx + 1 >= self.cfg.eval_batches:
+                    break
+        finally:
+            stream.close()
         loss = torch.stack(losses).mean()
         all_reduce_([loss], self.data_group, mean=True)
         all_reduce_([sums, counts], self.data_group)
         bins = (sums / counts.clamp(min=1)).tolist()
-        out = {"test/total_loss": float(loss)}
+        out = {"test/total_loss": float(loss),
+               "test/diffusion_loss": float(loss)}
         out.update({f"test_binning/{k}": bins[k] for k in range(10)})
         return out
 
     def _record(self, m: Dict, step: int,
                 avg_ms: Optional[float]) -> Dict[str, float]:
-        bins = (m["bin_sums"] / m["bin_counts"].clamp(min=1)).tolist()
-        rec = {"train/step": step, "train/total_loss": float(m["loss"]),
-               "train/learning_rate_scale": float(m["lr_scale"])}
+        """The train record of `step` under the JAX keys
+        (`loop.py:344-369`), logged and kept in `history`."""
+        loss = float(m["loss"])
+        rec = {"train/diffusion_loss": loss, "train/total_loss": loss,
+               "train/learning_rate_scale": float(m["lr_scale"]),
+               "train/step": step}
         if "grad_norm" in m:
             rec["train/grad_norm"] = float(m["grad_norm"])
+        bins = (m["bin_sums"] / m["bin_counts"].clamp(min=1)).tolist()
         rec.update({f"train_binning/{k}": bins[k] for k in range(10)})
         if avg_ms is not None:
             rec["train/avg_step_ms"] = avg_ms
-        self._log("step %d/%d loss %.4f%s", step, self.cfg.max_steps,
-                  rec["train/total_loss"],
+        self.metrics.log(rec, step)
+        self._log("step %d/%d loss %.4f%s", step, self.cfg.max_steps, loss,
                   f" avg_step {avg_ms:.1f}ms" if avg_ms else "")
         self.history.append(rec)
         return rec
+
+    def _capture_fixtures(self, batch: Dict, m: Dict, step: int) -> None:
+        """The reference's CAPTURE_INPUT (`loop.py:328-342`): the step's
+        latent, context and drawn timesteps as fp32 `.npy` in
+        `test_data/`."""
+        os.makedirs("test_data", exist_ok=True)
+        np.save(f"test_data/vae_latent_{step}.npy",
+                batch["latent"].float().cpu().numpy())
+        if "context" in batch:
+            np.save(f"test_data/caption_encoded_{step}.npy",
+                    batch["context"].float().cpu().numpy())
+        np.save(f"test_data/timesteps_{step}.npy",
+                m["timesteps"].float().cpu().numpy())
 
     # ----------------------------------------------------------- checkpoints
 
@@ -263,28 +384,39 @@ class Trainer:
         merged with the last evaluation."""
         cfg = self.cfg
         stop = cfg.max_steps if until is None else min(until, cfg.max_steps)
+        timer = StepTimer(every=cfg.log_every)
         last: Dict[str, float] = {}
         pending = None  # (metrics, step) read back one interval late
-        t_tick, ticks = time.perf_counter(), 0
-        for batch in self.batches("train"):
-            if self.step >= stop:
-                break
-            m = train_step(self.model, self.opt, batch, self.generator, cfg,
-                           self.context_parallel, self.data_group)
-            ticks += 1
-            if self.step % cfg.log_every == 0:
-                now = time.perf_counter()
-                avg_ms = 1e3 * (now - t_tick) / ticks if self.step else None
-                t_tick, ticks = now, 0
-                if pending is not None:
-                    last.update(self._record(*pending, avg_ms))
-                pending = (m, self.step)
-            self.step += 1
-            if self.step % cfg.evaluate_every == 1:
-                ev = self.evaluate()
-                self._log("eval @%d: %.4f", self.step, ev["test/total_loss"])
-                self.save_checkpoint()
-                last.update(ev)
+        t_start = time.perf_counter()
+        stream = self.batches("train")
+        try:
+            for batch in stream:
+                if self.step >= stop:
+                    break
+                m = train_step(self.model, self.opt, batch, self.generator,
+                               cfg, self.context_parallel, self.data_group)
+                if cfg.capture_fixtures and self.step == 0 and self.main:
+                    self._capture_fixtures(batch, m, self.step)
+                if self.step % cfg.log_every == 0:
+                    avg_ms = timer.tick() if self.step else None
+                    if pending is not None:
+                        last.update(self._record(*pending, avg_ms))
+                    pending = (m, self.step)
+                else:
+                    timer.tick()
+                self.step += 1
+                if self.step % cfg.evaluate_every == 1:
+                    ev = self.evaluate()
+                    self.metrics.log(ev, self.step)
+                    self._log("eval @%d: %.4f", self.step,
+                              ev["test/total_loss"])
+                    self.save_checkpoint()
+                    last.update(ev)
+        finally:
+            stream.close()
         if pending is not None:
             last.update(self._record(*pending, None))
+        self.metrics.finish()
+        self._log("trained to step %d in %.1f s", self.step,
+                  time.perf_counter() - t_start)
         return last

@@ -67,19 +67,22 @@ def train_step(model: DiT, opt: MupAdamW, batch: Dict,
                context_parallel=None, data_group=None
                ) -> Dict[str, torch.Tensor]:
     """One optimizer step on this replica's `batch`. Returns {loss,
-    lr_scale, bin_sums, bin_counts [, grad_norm]}; lr_scale is λ of this
-    update (the count before it). `context_parallel`: the ring that splits
+    lr_scale, bin_sums, bin_counts, timesteps [, grad_norm]}; lr_scale is
+    λ of this update (the count before it), timesteps this replica's
+    draws [b]. `context_parallel`: the ring that splits
     the tokens; `data_group`: the process group of the replicas (None:
     one)."""
     accum = cfg.grad_accum
     loss_sum = 0.0
     bin_sums = bin_counts = 0.0
+    timesteps = []
     for mb in _microbatches(batch, accum):
         loss, aux = _loss(model, mb, generator, cfg, context_parallel)
         loss.backward()
         loss_sum = loss_sum + loss.detach()
         bin_sums = bin_sums + aux["bin_sums"]
         bin_counts = bin_counts + aux["bin_counts"]
+        timesteps.append(aux["timesteps"])
     grads = [p.grad for p in opt.params]
     if accum > 1:
         for g in grads:
@@ -91,7 +94,8 @@ def train_step(model: DiT, opt: MupAdamW, batch: Dict,
     all_reduce_([loss], data_group, mean=True)
     all_reduce_([bin_sums, bin_counts], data_group)
     metrics = {"loss": loss, "lr_scale": opt.lr_scale(),
-               "bin_sums": bin_sums, "bin_counts": bin_counts}
+               "bin_sums": bin_sums, "bin_counts": bin_counts,
+               "timesteps": torch.cat(timesteps)}
     if cfg.log_grad_norm:
         metrics["grad_norm"] = torch.sqrt(sum(
             g.float().square().sum() for g in grads if g is not None))
