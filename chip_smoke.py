@@ -4,13 +4,17 @@
     python3 chip_smoke.py
     python3 chip_smoke.py --ab TREE_A TREE_B [PAIRS [TRAIN [SERVE]]]
     python3 chip_smoke.py --adaln-configs
+    torchrun --nproc_per_node N chip_smoke.py --train-mesh STEPS FLAGS...
 
 The second form times the attention backward and forward rows, the AdaLN
 backward rows, a serve-long request (ms per Euler step, profiled busy ms)
 and the train steps (with `fused_residual` too) of two checkouts' packages
 in alternating processes on one card (`main_ab`). The third times the
 AdaLN backward under configurations other than its default
-(`adaln_configs`).
+(`adaln_configs`). The fourth times the train CLI's configuration of
+FLAGS on the mesh of its `--mesh_*` flags over the processes torchrun
+starts (`main_train_mesh`): ms per step, a profiled step's device busy ms,
+every card's peak memory.
 Run from the root of a checkout. Phases, each of which raises on failure:
 
 1. build   — compile the CUDA kernels from `video_diffusion_speedrun_tpu_torch/
@@ -132,13 +136,27 @@ Run from the root of a checkout. Phases, each of which raises on failure:
              against `train`'s, the training thread's wait per batch, the
              loader alone (rows/s) and `load_tensor` per row; the first
              device batch against its host rows bit for bit, the JAX
-             metric keys in `metrics.jsonl`, the launches.
+             metric keys in `metrics.jsonl`, the launches;
+23. train-fsdp — the canonical DiT (batch 64, L = 528, the zero-initialised
+             layers made random) sharded by `parallel/fsdp.py`: 3 steps on
+             fixed global batches and draws in 2 processes on this one card
+             over gloo (NCCL refuses two ranks on one device) at fsdp 2
+             (FSDP2) and at tensor 2 (each block's heads and MLP columns
+             split), through `Trainer` and `train_step`, each data shard on
+             its rows; the losses and the step-1 gradients, gathered whole,
+             against one process on the same batches (the limits of CP
+             against no ring); the launch counts per rank; the shapes the
+             attention and bias+GELU kernels were launched at (the local
+             heads and columns) and the AdamW kernel's local leaves. With 2
+             cards or more the same over NCCL, one rank a card (fsdp 2 and
+             tensor 2; with 4 also replica 2 × fsdp 2 and fsdp 2 × tensor
+             2); otherwise one line says why not.
 
 Every run of the DiT's MLP launches the bias+GELU kernels. The kernels JSON
-lists every kernel with `launches` summed over the fourteen main-path runs
-(serve, serve-long, serve-cp over 4 and 2, serve with `fused_residual`,
-t2v, train, train-long, train-cp over 4 and 8, train with
-`fused_residual`, ckpt, train-t5, train-real),
+lists every kernel with `launches` summed over the main-path runs (serve,
+serve-long, serve-cp over 4 and 2, serve with `fused_residual`, t2v,
+train, train-long, train-cp over 4 and 8, train with `fused_residual`,
+ckpt, train-t5, train-real, and each rank of each train-fsdp mesh),
 each run with the counters set to 0 just before it and read just after;
 the long kernels' kv-bias launches (the ring's fallback) are rows of their
 own. The next-to-last
@@ -236,6 +254,9 @@ LONG_FWD_REL = 2.0 ** -6
 FR_STEPS = 4
 # MLP hidden widths of the demo and the canonical DiT
 MLP, T_MLP = 4 * WIDTH, 4 * T_WIDTH
+# tensor-parallel sizes whose local shapes (H/t heads, F/t MLP columns of
+# the canonical DiT) the kernels phase checks and times
+TP_WAYS = (2, 4)
 # context parallelism over LocalRing(cp) (every rank's work on this card):
 # serving at L = 8208 over cp = 4 (chunk 2064: row 10) and cp = 2 (chunk
 # 4112: row 6 with the kv-bias), CP_STEPS Euler steps; training at
@@ -369,18 +390,22 @@ def phase_kernels(dev):
     real_l = (FRAMES // 2) * (HEIGHT // 16) * (WIDTH_PX // 16) + 16
     serve_h, train_h = WIDTH // HEAD_DIM, T_WIDTH // T_HEAD_DIM
     # (B, H, Lq, Lk): the sampling shape (the kernels line's row), a ragged
-    # one, and, checked and timed beside it, the training shapes and
-    # serve-long's and train-long's cross-attention
+    # one, and, checked and timed beside it, the training shapes (also at
+    # the tensor-parallel local heads H/t of t = 2 and 4) and serve-long's
+    # and train-long's cross-attention
     for rope, name, replaces, shapes in (
             (True, "short_attention_fwd<rope>",
              "video_diffusion_speedrun_tpu/ops/fused_attention.py:813",
              ((2, serve_h, real_l, real_l), (2, serve_h, 333, 333),
-              (T_BATCH, train_h, T_L, T_L))),
+              (T_BATCH, train_h, T_L, T_L))
+             + tuple((T_BATCH, train_h // t, T_L, T_L) for t in TP_WAYS)),
             (False, "short_attention_fwd<norope>",
              "video_diffusion_speedrun_tpu/ops/fused_attention.py:757",
              ((2, serve_h, real_l, CTX_LEN), (2, serve_h, 333, 77),
               (2, serve_h, LONG_L, CTX_LEN),
-              (T_BATCH, train_h, T_L, CTX_LEN)))):
+              (T_BATCH, train_h, T_L, CTX_LEN))
+             + tuple((T_BATCH, train_h // t, T_L, CTX_LEN)
+                     for t in TP_WAYS))):
         for b, h, lq, lk in shapes:
             q, k, v, cos, sin, h, d = attention_case(dev, lq, lk, rope, gen,
                                                      b, h)
@@ -537,8 +562,8 @@ def attention_bwd_rows(dev):
     from video_diffusion_speedrun_tpu_torch.ops import fused_attention as fa
 
     gen = torch.Generator(device=dev).manual_seed(5)
-    h, d = T_WIDTH // T_HEAD_DIM, T_HEAD_DIM
-    hd, scale = h * d, d ** -0.5
+    heads, d = T_WIDTH // T_HEAD_DIM, T_HEAD_DIM
+    scale = d ** -0.5
     rows = {}
 
     def randn(*shape):
@@ -547,11 +572,17 @@ def attention_bwd_rows(dev):
     for rope, replaces in ((True, "fused_attention.py:873"),
                            (False, "fused_attention.py:1042")):
         name = f"short_attention_bwd<{'rope' if rope else 'norope'}>"
-        shapes = ((T_BATCH, T_L, T_L if rope else CTX_LEN), (2, 333, 333),
-                  (2, 333, 77))
+        train_lk = T_L if rope else CTX_LEN
+        # (B, H, Lq, Lk); the training shape also at the tensor-parallel
+        # local heads H/t
+        shapes = ((T_BATCH, heads, T_L, train_lk), (2, heads, 333, 333),
+                  (2, heads, 333, 77))
+        shapes += tuple((T_BATCH, heads // t, T_L, train_lk)
+                        for t in TP_WAYS)
         if not rope:  # train-long's cross-attention, timed beside the row
-            shapes += ((2, LONG_L, CTX_LEN),)
-        for b, lq, lk in shapes:
+            shapes += ((2, heads, LONG_L, CTX_LEN),)
+        for b, h, lq, lk in shapes:
+            hd = h * d
             qkv = randn(b, lq, 3 * hd)
             q = qkv[..., :hd]
             if rope and lk == lq:
@@ -575,12 +606,12 @@ def attention_bwd_rows(dev):
                                                 do, h, scale)
             torch.cuda.synchronize()
             err = max(check_close(
-                name, f"B={b} Lq={lq} Lk={lk} {gname}", x, y, 0.0,
+                name, f"B={b} H={h} Lq={lq} Lk={lk} {gname}", x, y, 0.0,
                 ATTN_BWD_REL * y.float().abs().max().item(),
                 "2% of the largest |grad|: bf16 p/ds rounding flips under "
                 "another summation order")
                 for gname, x, y in zip(("dq", "dk", "dv"), got, want))
-            check_deterministic(name, f"B={b} Lq={lq} Lk={lk}",
+            check_deterministic(name, f"B={b} H={h} Lq={lq} Lk={lk}",
                                 lambda: fa.short_attention_bwd_cuda(
                                     q, k, v, cos, sin, o, lse, do, h, scale),
                                 got)
@@ -610,10 +641,10 @@ def attention_bwd_rows(dev):
             # exp2, p·(dp − δ) (~4 a logit) and the rotations
             fp32 = 4 * b * h * lq * lk + (6 * b * (lq + lk) * hd if rope else 0)
             bms, by = bound(nbytes, tc, fp32)
-            log(f"[kernels] {name} B={b} Lq={lq} Lk={lk}: kernel {ms:.4f} ms, "
-                f"SDPA backward {lib_ms:.4f} ms, bound {bms:.4f} ms ({by}), "
-                f"{tc / ms / 1e9:.1f} useful TFLOP/s")
-            if lq != T_L:
+            log(f"[kernels] {name} B={b} H={h} Lq={lq} Lk={lk}: kernel "
+                f"{ms:.4f} ms, SDPA backward {lib_ms:.4f} ms, bound "
+                f"{bms:.4f} ms ({by}), {tc / ms / 1e9:.1f} useful TFLOP/s")
+            if lq != T_L or h != heads:
                 continue
             plain_ms = cuda_ms(lambda: fa.short_attention_bwd_plain(
                 q, k, v, cos, sin, o, lse, do, h, scale), iters=3, warmup=1)
@@ -1386,6 +1417,8 @@ def epilogue_rows(dev):
     cases = [(mlp, (2, 1040, MLP), True), (mlp, (2, LONG_L, MLP), True),
              (mlp, (T_BATCH, T_L, T_MLP), True),
              (mlp, (2, LONG_L, T_MLP), True), (mlp, (3, 333, 320), True)]
+    # the training shape at the tensor-parallel local columns F/t
+    cases += [(mlp, (T_BATCH, T_L, T_MLP // t), True) for t in TP_WAYS]
     cases += [(mode, (2, 333, T_MLP), with_bias)
               for mode in (fg.POLY, fg.ERF) for with_bias in (True, False)]
     for mode, shape, with_bias in cases:
@@ -1673,9 +1706,10 @@ KERNEL_KINDS = (
 )
 
 
-def profile_device(fn, what: str, tag: str, rows: int = 14) -> None:
+def profile_device(fn, what: str, tag: str, rows: int = 14):
     """Run `fn` once under torch.profiler and print the device busy time
-    and the kernels with the most device time."""
+    and the kernels with the most device time. Returns (wall ms, busy ms,
+    busy ms by kind), or None when the profiler saw no device time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1694,7 +1728,7 @@ def profile_device(fn, what: str, tag: str, rows: int = 14) -> None:
     total_ms = sum(e.self_device_time_total for e in events) / 1e3
     if not events:
         log(f"[{tag}] the profiler saw no device time: not measured")
-        return
+        return None
     log(f"[{tag}] {what}: {wall_ms:.2f} ms wall (profiled), device "
         f"busy {total_ms:.2f} ms ({100 * total_ms / wall_ms:.1f}% of wall)")
     for e in events[:rows]:
@@ -1709,6 +1743,7 @@ def profile_device(fn, what: str, tag: str, rows: int = 14) -> None:
     for kind, ms in sorted(by_kind.items(), key=lambda kv: -kv[1]):
         log(f"[{tag}] by kind: {ms:8.3f} ms {100 * ms / total_ms:5.1f}% "
             f"{kind}")
+    return wall_ms, total_ms, by_kind
 
 
 def phase_parity(dev, frames: int, tag: str, cp: int = 0, **overrides):
@@ -2198,6 +2233,359 @@ def phase_nccl_ring(dev):
         f"|o|) {'ok' if ok else 'FAIL'}")
     if not ok:
         raise AssertionError("the NCCL ring and LocalRing disagree")
+
+
+# the train-fsdp phase: steps of each mesh, the meshes on one card (2
+# processes over gloo) and over NCCL with 2 and 4 cards (replica, fsdp,
+# context, tensor)
+FSDP_STEPS = 3
+FSDP_ONE_CARD = (("fsdp 2", (1, 2, 1, 1)), ("tensor 2", (1, 1, 1, 2)))
+FSDP_CARDS = {2: FSDP_ONE_CARD,
+              4: (("replica 2 x fsdp 2", (2, 2, 1, 1)),
+                  ("fsdp 2 x tensor 2", (1, 2, 1, 2)))}
+# kernel wrappers whose launch shapes the phase records: module, name
+FSDP_SHAPED = (("fused_attention", "qkv_rope_flash_forward"),
+               ("fused_attention", "cross_flash_forward"),
+               ("fused_attention", "qkv_rope_flash_backward"),
+               ("fused_attention", "cross_flash_backward"),
+               ("fused_gelu", "bias_gelu_forward"),
+               ("fused_gelu", "bias_gelu_backward"))
+
+
+def fsdp_config(mesh=(1, 1, 1, 1)):
+    """The canonical training config on `mesh`, without caption dropout
+    (its draws would come from each process's global generator)."""
+    from video_diffusion_speedrun_tpu_torch.train.__main__ import (
+        build_config,
+        parse_args,
+    )
+
+    r, f, c, t = mesh
+    extra = ("--mesh_replica", str(r), "--mesh_fsdp", str(f),
+             "--mesh_context", str(c), "--mesh_tensor", str(t))
+    cfg = build_config(parse_args(train_argv(T_DEPTH, extra=extra)))
+    return dataclasses.replace(cfg, caption_dropout=0.0)
+
+
+def fsdp_batches(dev, cfg, steps: int):
+    """`steps` global batches of the canonical cell with their timesteps
+    and noise, drawn from a fixed seed on the card: the same tensors in
+    every process."""
+    gen = torch.Generator(device=dev).manual_seed(23)
+    out = []
+    for _ in range(steps):
+        lat = torch.randn(T_BATCH, *T_LATENT, generator=gen, device=dev)
+        c, t, h, w = T_LATENT  # the loss floor-crops T to whole patches
+        out.append({
+            "latent": lat,
+            "noise": torch.randn(T_BATCH, c, t // 2 * 2, h, w, generator=gen,
+                                 device=dev),
+            "context": 0.05 * torch.randn(
+                T_BATCH, cfg.data.caption_tokens, cfg.data.context_dim,
+                generator=gen, device=dev),
+            "timesteps": torch.rand(T_BATCH, generator=gen, device=dev),
+            "rope_offsets": torch.zeros(3, dtype=torch.int64)})
+    return out
+
+
+def fsdp_trainer(dev, cfg):
+    """A Trainer on `cfg.mesh` holding the canonical DiT with its
+    zero-initialised layers made random (as one process makes them)."""
+    from video_diffusion_speedrun_tpu_torch.models.dit import DiT
+    from video_diffusion_speedrun_tpu_torch.parallel.fsdp import (
+        load_full_state,
+    )
+    from video_diffusion_speedrun_tpu_torch.train.loop import Trainer
+
+    trainer = Trainer(cfg, device=dev)
+    whole = DiT(cfg.model, device=trainer.device,
+                init_std_factor=cfg.init_std_factor, seed=cfg.seed)
+    randomize_zero_layers(whole, torch.Generator(
+        device=trainer.device).manual_seed(1))
+    load_full_state(trainer.model, whole.state_dict())
+    del whole
+    return trainer
+
+
+def fsdp_steps(trainer, cfg, batches):
+    """The train steps on this data shard's rows of `batches`, counters set
+    to 0 just before and read just after: (losses, ms per step, step-1
+    gradients whole as name → fp32 host tensor, counts)."""
+    from video_diffusion_speedrun_tpu_torch.parallel.mesh import (
+        local_batch_slice,
+    )
+    from video_diffusion_speedrun_tpu_torch.train.step import train_step
+
+    opt, sh = trainer.opt, trainer.sharding
+    local = local_batch_slice(trainer.mesh, T_BATCH)
+    lo = trainer.data_rank * local
+    grads = {}
+    step = opt.step
+
+    def keep_first(gs):
+        if not grads:
+            for n, g in zip(opt.names, gs):
+                if g is not None:
+                    w = g if sh is None else sh.gathered(n, g)
+                    grads[n] = w.detach().float().cpu()
+        step(gs)
+
+    opt.step = keep_first
+    losses, ms = [], []
+    torch.cuda.synchronize()
+    reset_counters()
+    for glob in batches:
+        batch = {k: (v if k == "rope_offsets" else v[lo:lo + local])
+                 for k, v in glob.items()}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        m = train_step(trainer.model, opt, batch, None, cfg,
+                       trainer.context_parallel, trainer.data_group)
+        losses.append(float(m["loss"]))
+        torch.cuda.synchronize()
+        ms.append(1e3 * (time.perf_counter() - t0))
+    counts = read_counters()
+    opt.step = step
+    return losses, ms, grads, counts
+
+
+def _fsdp_card(backend: str, rank: int) -> torch.device:
+    """The card of a train-fsdp rank: gloo ranks share card 0, NCCL rank r
+    takes card r."""
+    card = 0 if backend == "gloo" else rank
+    torch.cuda.set_device(card)
+    return torch.device("cuda", card)
+
+
+def _fsdp_worker(rank: int, world: int, port: int, backend: str, mesh,
+                 ref_path: str, out_path: str) -> None:
+    """One rank of a train-fsdp mesh: gloo ranks share card 0, NCCL rank r
+    takes card r. Rank 0 compares the gathered step-1 gradients and the
+    losses with the one-process run in `ref_path` and writes the results;
+    every rank writes its counts and kernel launch shapes."""
+    import importlib
+    import os
+
+    import torch.distributed as dist
+
+    sys.path.insert(0, str(ROOT))
+    dev = _fsdp_card(backend, rank)
+    os.environ.update(WORLD_SIZE=str(world), RANK=str(rank),
+                      LOCAL_RANK=str(dev.index or 0), MASTER_ADDR="localhost",
+                      MASTER_PORT=str(port))
+    dist.init_process_group(backend, init_method=f"tcp://localhost:{port}",
+                            world_size=world, rank=rank)
+    shapes = {}
+    for mod, name in FSDP_SHAPED:
+        module = importlib.import_module(
+            f"video_diffusion_speedrun_tpu_torch.ops.{mod}")
+        orig = getattr(module, name)
+
+        def record(*a, _orig=orig, _name=name, **k):
+            shapes.setdefault(_name, set()).add(tuple(a[0].shape))
+            return _orig(*a, **k)
+
+        record.launches = orig.launches
+        setattr(module, name, record)
+    try:
+        cfg = fsdp_config(mesh)
+        trainer = fsdp_trainer(dev, cfg)
+        batches = fsdp_batches(dev, cfg, FSDP_STEPS)
+        losses, ms, grads, counts = fsdp_steps(trainer, cfg, batches)
+        kernel = trainer.opt._kernel
+        res = {"losses": losses, "ms": ms, "counts": counts,
+               "shapes": {k: sorted(v) for k, v in shapes.items()},
+               "adamw_leaves": kernel.n_leaves,
+               "adamw_elems": int(kernel.numel.sum()),
+               "data_rank": trainer.data_rank,
+               "peak_gb": torch.cuda.max_memory_allocated(dev) / 1e9}
+        if rank == 0:
+            ref = torch.load(ref_path)
+            res["loss_rel"] = max(abs(a / w - 1) for a, w in
+                                  zip(losses, ref["losses"]))
+            rel, (worst, worst_rel) = grad_rel_l2(grads, ref["grads"])
+            res.update(grad_rel=rel, worst=worst, worst_rel=worst_rel)
+        with open(f"{out_path}.{rank}", "w") as f:
+            json.dump(res, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def phase_train_fsdp(dev):
+    """FSDP2 and tensor parallelism of the canonical DiT (phase 23 of the
+    docstring). Returns the counts of every rank of every mesh."""
+    import socket
+    import tempfile
+
+    import torch.multiprocessing as mp
+
+    cfg = fsdp_config()
+    trainer = fsdp_trainer(dev, cfg)
+    batches = fsdp_batches(dev, cfg, FSDP_STEPS)
+    losses, ms, grads, counts = fsdp_steps(trainer, cfg, batches)
+    del trainer, batches
+    torch.cuda.empty_cache()
+    want = {k: FSDP_STEPS * v for k, v in train_step_launches(T_L).items()}
+    if counts != want:
+        raise AssertionError(f"one-process launch counts {counts} != {want}")
+    log(f"[train-fsdp] one process: losses {losses}, "
+        f"{np.median(ms):.2f} ms per step (median)")
+    n_cards = torch.cuda.device_count()
+    forms = [("gloo", 2, FSDP_ONE_CARD)]
+    log("[train-fsdp] form: 2 processes on card 0 over gloo (NCCL refuses "
+        "two ranks on one device; gloo stages every collective through the "
+        "host, so these runs check correctness, not time)")
+    for cards in (2, 4):
+        if n_cards >= cards:
+            forms.append(("nccl", cards, FSDP_CARDS[cards]))
+        else:
+            log(f"[train-fsdp] NCCL over {cards} cards not run: this machine "
+                f"has {n_cards} CUDA card(s)")
+    width, heads, mlp = (cfg.model.hidden_size, cfg.model.num_heads,
+                         cfg.model.mlp_hidden)
+    runs = []
+    with tempfile.TemporaryDirectory() as tmp:
+        ref_path = str(Path(tmp) / "ref.pt")
+        torch.save({"losses": losses, "grads": grads}, ref_path)
+        del grads
+        for backend, world, meshes in forms:
+            for label, mesh in meshes:
+                with socket.socket() as sock:
+                    sock.bind(("localhost", 0))
+                    port = sock.getsockname()[1]
+                out = str(Path(tmp) / f"{backend}{world}")
+                t0 = time.perf_counter()
+                mp.start_processes(
+                    _fsdp_worker,
+                    args=(world, port, backend, mesh, ref_path, out),
+                    nprocs=world, start_method="spawn")
+                wall = time.perf_counter() - t0
+                res = [json.loads(Path(f"{out}.{r}").read_text())
+                       for r in range(world)]
+                tag = f"[train-fsdp] {backend} {label}"
+                r0 = res[0]
+                ok = (r0["loss_rel"] <= TRAIN_LOSS_REL
+                      and r0["grad_rel"] <= TRAIN_GRAD_REL_L2
+                      and r0["worst_rel"] <= TRAIN_GRAD_REL_L2)
+                log(f"{tag}: {world} ranks, {wall:.1f} s; losses "
+                    f"{r0['losses']} against one process's {losses}: "
+                    f"relative {r0['loss_rel']:.3e} (tol {TRAIN_LOSS_REL}); "
+                    f"step-1 gradient relative L2 {r0['grad_rel']:.3e}, worst "
+                    f"tensor {r0['worst']} {r0['worst_rel']:.3e} (tol "
+                    f"{TRAIN_GRAD_REL_L2} each) {'ok' if ok else 'FAIL'}")
+                if not ok:
+                    raise AssertionError("sharded training and one-process "
+                                         "training disagree")
+                t = mesh[3]
+                local = {"qkv_rope_flash_forward": 3 * width // t,
+                         "qkv_rope_flash_backward": 3 * width // t,
+                         "cross_flash_forward": width // t,
+                         "cross_flash_backward": width // t,
+                         "bias_gelu_forward": mlp // t,
+                         "bias_gelu_backward": mlp // t}
+                for r, rr in enumerate(res):
+                    widths = {k: sorted({sh[-1] for sh in v})
+                              for k, v in rr["shapes"].items()}
+                    if rr["counts"] != want:
+                        raise AssertionError(f"{tag} rank {r}: launch counts "
+                                             f"{rr['counts']} != {want}")
+                    if widths != {k: [w] for k, w in local.items()}:
+                        raise AssertionError(f"{tag} rank {r}: kernels "
+                                             f"launched at widths {widths}, "
+                                             f"want {local}")
+                    log(f"{tag} rank {r} (data rank {rr['data_rank']}): "
+                        f"{np.median(rr['ms']):.2f} ms per step (median), "
+                        f"peak {rr['peak_gb']:.2f} GB; launches as one "
+                        f"process; kernel launch shapes {rr['shapes']} "
+                        f"({heads // t} of {heads} heads, {mlp // t} of {mlp} "
+                        f"MLP columns); AdamW over {rr['adamw_leaves']} local "
+                        f"leaves, {rr['adamw_elems'] / 1e6:.2f} M elements")
+                    runs.append(rr["counts"])
+    return runs
+
+
+def main_train_mesh(argv) -> int:
+    """`[torchrun --nproc_per_node N] chip_smoke.py --train-mesh STEPS
+    [--latent C,T,H,W] FLAGS...`: the train CLI's config of FLAGS (its own
+    `parse_args` / `build_config`, the mesh from `--mesh_*` over the
+    processes torchrun starts) through `Trainer`, its batch stream and
+    `train_step`: STEPS steps between synchronisations, then one profiled
+    step. Rank 0 prints one JSON line: ms per step (median of steps 2 on),
+    the profiled step's wall and device busy ms on rank 0 (by kind;
+    communication kernels count as busy), the peak memory of every card,
+    the card's name and power limit."""
+    import os
+
+    import torch.distributed as dist
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device is available", file=sys.stderr)
+        return 1
+    sys.path.insert(0, str(ROOT))
+    from video_diffusion_speedrun_tpu_torch.core.config import resolve_device
+    from video_diffusion_speedrun_tpu_torch.parallel import mesh as pmesh
+    from video_diffusion_speedrun_tpu_torch.train.__main__ import (
+        build_config,
+        parse_args,
+    )
+    from video_diffusion_speedrun_tpu_torch.train.loop import Trainer
+    from video_diffusion_speedrun_tpu_torch.train.step import train_step
+
+    steps, flags = int(argv[0]), list(argv[1:])
+    latent = T_LATENT
+    if flags[:1] == ["--latent"]:
+        latent = tuple(int(n) for n in flags[1].split(","))
+        flags = flags[2:]
+    args = parse_args(flags)
+    cfg = build_config(args)
+    cfg = dataclasses.replace(cfg, data=dataclasses.replace(
+        cfg.data, synthetic_shape=latent))
+    dev = pmesh.init_distributed(resolve_device(args.device))
+    trainer = Trainer(cfg, device=dev)
+    main = pmesh.global_rank() == 0
+    tag = f"train-mesh {pmesh.world_size()} x {cfg.mesh}"
+    loader = trainer.batches("train")
+    torch.cuda.reset_peak_memory_stats(dev)
+    ms = []
+    for _ in range(steps):
+        batch = next(loader)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        m = train_step(trainer.model, trainer.opt, batch, trainer.generator,
+                       cfg, trainer.context_parallel, trainer.data_group)
+        torch.cuda.synchronize()
+        ms.append(1e3 * (time.perf_counter() - t0))
+        if not np.isfinite(float(m["loss"])):
+            raise AssertionError(f"non-finite loss at step {len(ms)}")
+    batch = next(loader)
+    prof = profile_device(lambda: train_step(
+        trainer.model, trainer.opt, batch, trainer.generator, cfg,
+        trainer.context_parallel, trainer.data_group), "one train step",
+        tag, rows=12 if main else 0)
+    peak = torch.tensor([torch.cuda.max_memory_allocated(dev) / 1e9],
+                        device=dev)
+    peaks = [peak]
+    if pmesh.world_size() > 1:
+        peaks = [torch.empty_like(peak) for _ in range(pmesh.world_size())]
+        dist.all_gather(peaks, peak)
+    loader.close()
+    if main:
+        smi = subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"], capture_output=True, text=True,
+            check=True).stdout.strip().splitlines()[0]
+        wall, busy, kinds = prof if prof else (None, None, {})
+        print(json.dumps({
+            "world": pmesh.world_size(), "mesh": dataclasses.asdict(
+                cfg.mesh.resolve(pmesh.world_size())),
+            "batch": cfg.batch_size, "latent": list(latent),
+            "params_m": trainer.n_params / 1e6, "steps_ms": ms,
+            "ms": float(np.median(ms[2:] or ms)), "profiled_wall_ms": wall,
+            "busy_ms": busy, "busy_by_kind": kinds,
+            "peak_gb": [float(p) for p in peaks], "card": smi,
+            "torch": torch.__version__}), flush=True)
+    pmesh.shutdown()
+    return 0
 
 
 # ---- A/B of two checkouts on one card: `python3 chip_smoke.py --ab A B` ----
@@ -3395,6 +3783,7 @@ def main() -> int:
                       TL_STEPS, ("--moments_dtype", "bf16"), "train-long",
                       evaluate=False)[0])
     runs += timed("train-cp", phase_train_cp, dev)
+    runs += timed("train-fsdp", phase_train_fsdp, dev)
     runs.append(timed("train-fr", phase_train, dev, T_BATCH, T_LATENT,
                       FR_STEPS, (), "train-fr", evaluate=False,
                       fused_residual=True)[0])
@@ -3443,6 +3832,8 @@ if __name__ == "__main__":
         sys.exit(adaln_configs(torch.device("cuda")))
     if sys.argv[1:2] == ["--ab"]:
         sys.exit(main_ab(sys.argv[2:]))
+    if sys.argv[1:2] == ["--train-mesh"]:
+        sys.exit(main_train_mesh(sys.argv[2:]))
     if sys.argv[1:2] == ["--ab-child"]:
         sys.exit(ab_child(sys.argv[2], sys.argv[3]))
     sys.exit(main())

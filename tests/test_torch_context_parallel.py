@@ -1,8 +1,8 @@
 """Context parallelism of the PyTorch port on the CPU: the DiT over a ring
 against the JAX `dit_forward(token_sharding=…)`, `DistRing` over gloo in
 spawned processes against `LocalRing` and the one-process run, CP and
-replica training against the one-process trajectory, and the mesh
-configuration's refusals.
+replica training against the one-process trajectory, and how the mesh
+configuration resolves and what it refuses.
 
 Tolerances, fp32 on every side:
 - the DiT forward over `LocalRing(4)` against JAX's ring on the 8-device
@@ -193,12 +193,15 @@ def test_mesh_config_resolve_and_refusals():
         MeshConfig(context=3).resolve(4)
     with pytest.raises(ValueError):
         MeshConfig(context=0)
-    for kw in (dict(fsdp=2), dict(tensor=2)):
-        with pytest.raises(NotImplementedError, match="ROADMAP A8"):
-            MeshConfig(**kw)
-    # fsdp's −1 taking the rest of the world is FSDP too
-    with pytest.raises(NotImplementedError, match="ROADMAP A8"):
-        MeshConfig(context=2).resolve(4)
+    # FSDP and tensor axes resolve like the others
+    assert MeshConfig(fsdp=2).resolve(2) == MeshConfig(
+        replica=1, fsdp=2, context=1, tensor=1)
+    assert MeshConfig(fsdp=1, tensor=2).resolve(2).tensor == 2
+    assert MeshConfig(fsdp=2, tensor=2).resolve(4) == MeshConfig(
+        replica=1, fsdp=2, context=1, tensor=2)
+    # fsdp's −1 takes the rest of the world
+    assert MeshConfig(context=2).resolve(4) == MeshConfig(
+        replica=1, fsdp=2, context=2, tensor=1)
 
 
 def test_one_process_mesh_takes_no_ring_and_refuses_a_context_axis():

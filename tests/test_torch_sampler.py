@@ -172,3 +172,15 @@ def test_entry_point_defaults_to_the_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         tsample.main(TINY_ARGS)
+
+
+def test_entry_point_accepts_steps_per_call_with_no_effect(tmp_path):
+    """A JAX command line with `--steps_per_call` (JAX splits the
+    trajectory into programs of that many steps) parses and samples the
+    same latents."""
+    assert tsample.parse_args(TINY_ARGS + ["--steps_per_call", "1"]
+                              ).steps_per_call == 1
+    base = TINY_ARGS + ["--device", "cpu", "--output", str(tmp_path)]
+    torch.testing.assert_close(
+        tsample.main(base + ["--steps_per_call", "1"]), tsample.main(base),
+        rtol=0, atol=0)

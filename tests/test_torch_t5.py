@@ -163,8 +163,18 @@ def test_random_init_and_load_encoder_fallback():
     assert bool(torch.isfinite(out).all())
     with pytest.raises(RuntimeError, match="allow_random_init"):
         tenc.load_encoder("/nonexistent/flux", cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP A8"):
-        tenc.PromptEncoder(enc.model, mesh=object())
+    # a mesh shards the encoder over its fsdp axis (2 processes:
+    # tests/test_torch_fsdp.py); at fsdp 1 that changes nothing
+
+    class OneCard:  # every axis of size 1
+        mesh_dim_names = ("replica", "fsdp", "context", "tensor")
+
+        def size(self, dim):
+            return 1
+
+    same = tenc.PromptEncoder(enc.model, enc.tokenizer, mesh=OneCard())
+    torch.testing.assert_close(same(["hello"], return_index=-1), out,
+                               rtol=0, atol=0)
 
 
 def test_xxl_config_counts_and_meta_build():

@@ -193,9 +193,7 @@ class MeshConfig:
     replica — pure data-parallel replicas; fsdp — parameter sharding;
     context — the token axis split over a ring (context parallelism);
     tensor — heads / MLP hidden. Their product must equal the number of
-    processes; -1 for at most one axis takes the rest. FSDP and tensor
-    parallelism come with a later slice (ROADMAP A8): sizes above 1 raise
-    `NotImplementedError`."""
+    processes; -1 for at most one axis takes the rest."""
 
     replica: int = 1
     fsdp: int = -1
@@ -207,15 +205,6 @@ class MeshConfig:
             size = getattr(self, axis)
             if size == 0 or size < -1:
                 raise ValueError(f"mesh axis {axis} has size {size}")
-        self._refuse_later_axes()
-
-    def _refuse_later_axes(self):
-        for axis in ("fsdp", "tensor"):
-            if getattr(self, axis) > 1:
-                raise NotImplementedError(
-                    f"not ported yet: mesh {axis} > 1 (FSDP and tensor "
-                    "parallelism come with the FSDP/TP slice, ROADMAP A8); "
-                    "the replica and context axes are ported")
 
     def resolve(self, n_devices: int) -> "MeshConfig":
         """Sizes with the -1 axis filled in; raises when they do not

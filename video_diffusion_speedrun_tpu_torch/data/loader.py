@@ -1,8 +1,9 @@
 """Host-side batches for one process (port of `data/loader.py`).
 
-`ShardedSampler.epoch` (its one-process case) and `default_collate` keep
-the JAX row order (`loader.py:33-82`): epoch e is
-`default_rng(seed + e).permutation`, truncated to whole batches. For
+`ShardedSampler.epoch` and `default_collate` keep the JAX row order
+(`loader.py:33-82`): epoch e is `default_rng(seed + e).permutation`,
+truncated to whole global batches (`num_shards` × `batch`), of which shard
+`shard` takes its slice of each. For
 mixed-length clips, `ShapeBucketingCollate` and
 `CoordinatedShapeBucketingCollate` (`loader.py:84-176`) turn each sampler
 batch into at most one shape-uniform batch, carrying the rest; with the
@@ -17,8 +18,10 @@ device on a staging thread: from pinned memory with non-blocking copies
 on a stream of its own, which the consumer's stream waits for, so the
 copy of batch n+1 runs under step n. A producer's error is raised in the
 consumer; closing a stream (or leaving its loop) stops its thread and
-waits for it at most 5 s. Across data-parallel replicas every process
-draws the same global batches and `replica_rows` keeps its replica's rows
+waits for it at most 5 s. Across data shards each process reads its own
+rows through `ShardedSampler(shard, num_shards)` with the default collate;
+a bucketing collate cannot split a batch, so there every process draws the
+same global batches and `replica_rows` keeps its shard's rows
 (`local_batch_slice`).
 """
 
@@ -36,28 +39,39 @@ import torch
 
 
 class ShardedSampler:
-    """Deterministic index stream of one process (the JAX sampler with one
-    shard)."""
+    """Deterministic index stream of data shard `shard` of `num_shards`
+    (the JAX sampler): `batch` rows per shard of each global batch of
+    `batch · num_shards`."""
 
     def __init__(self, num_rows: int, batch: int, seed: int = 0,
-                 shuffle: bool = True):
+                 shuffle: bool = True, *, shard: int = 0,
+                 num_shards: int = 1):
+        if not 0 <= shard < num_shards:
+            raise ValueError(f"shard {shard} out of range [0, {num_shards})")
         self.num_rows = num_rows
         self.batch = batch
+        self.shard = shard
+        self.num_shards = num_shards
         self.seed = seed
         self.shuffle = shuffle
-        self.rows_per_epoch = (num_rows // batch) * batch
+        step = batch * num_shards
+        self.rows_per_epoch = (num_rows // step) * step
         if self.rows_per_epoch == 0:
             raise ValueError(
-                f"dataset ({num_rows}) smaller than one batch ({batch})")
+                f"dataset ({num_rows}) smaller than one global batch "
+                f"({step})")
 
     def epoch(self, e: int) -> np.ndarray:
-        """Indices of epoch e: [steps, batch]."""
+        """This shard's indices of epoch e: [steps, batch]."""
         if self.shuffle:
             order = np.random.default_rng(self.seed + e).permutation(
                 self.num_rows)
         else:
             order = np.arange(self.num_rows)
-        return order[: self.rows_per_epoch].reshape(-1, self.batch)
+        order = order[: self.rows_per_epoch]
+        batches = order.reshape(-1, self.batch * self.num_shards)
+        lo = self.shard * self.batch
+        return batches[:, lo: lo + self.batch]
 
 
 def default_collate(rows: Sequence[Dict]) -> Dict[str, Any]:

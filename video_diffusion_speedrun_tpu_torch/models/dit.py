@@ -18,7 +18,13 @@ parallelism (`context_parallel`, a ring of `parallel/ring.py`; JAX's
 keeps its chunk, self-attention is the ring (`ring_flash_attention`, on
 every dispatch: the tokens are really split) and everything else stays
 per token; the output is gathered over the ring after the final
-projection. Where the fused
+projection. Under tensor parallelism (`DiTBlock.tp`, set by
+`parallel/fsdp.py:shard_model`) each block computes on its rank's heads and
+MLP columns, Megatron-style: the column-parallel products (qkv, q_cross,
+context_kv, the AdaLN modulation, fc1) take this rank's output columns of
+the whole replicated input, the row-parallel ones (attn_proj, cross_proj,
+fc2) sum their partial products over the tensor group and add their bias
+once; the modulation is gathered whole. Where the fused
 AdaLN runs, the MLP's bias + Φ-poly GELU after the fc1 product is the
 bias+GELU kernel (`mlp_bias_gelu`, the JAX fc1 epilogue at
 `dit.py:383-385`), and with `cfg.fused_residual` the joins after self- and
@@ -37,6 +43,7 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.distributed.tensor import DTensor
 from torch.utils.checkpoint import checkpoint
 
 from video_diffusion_speedrun_tpu_torch.core.config import (
@@ -72,6 +79,11 @@ from video_diffusion_speedrun_tpu_torch.ops.normalization import rms_norm
 from video_diffusion_speedrun_tpu_torch.ops.patchify import (
     patchify,
     unpatchify,
+)
+from video_diffusion_speedrun_tpu_torch.parallel.collectives import (
+    copy_to_region,
+    gather_from_region,
+    reduce_from_region,
 )
 
 
@@ -123,6 +135,35 @@ def _dense(lin: nn.Linear, x: torch.Tensor) -> torch.Tensor:
     return F.linear(x, lin.weight.to(x.dtype), bias)
 
 
+def _local(p: torch.Tensor) -> torch.Tensor:
+    """A tensor-parallel parameter's local shard (a DTensor over the tensor
+    sub-mesh), or the parameter itself."""
+    return p.to_local() if isinstance(p, DTensor) else p
+
+
+def _column(lin: nn.Linear, x: torch.Tensor, tp, split: int = 1
+            ) -> torch.Tensor:
+    """Column-parallel x·W + b: this rank's output columns (of the packed
+    (split, heads, head_dim) layout for split > 1), from the whole
+    replicated x, whose gradient the ranks sum."""
+    if tp is None:
+        return _dense(lin, x)
+    bias = (None if lin.bias is None
+            else tp.columns(lin.bias, split).to(x.dtype))
+    return F.linear(copy_to_region(x, tp.group),
+                    _local(lin.weight).to(x.dtype), bias)
+
+
+def _row(lin: nn.Linear, x: torch.Tensor, tp) -> torch.Tensor:
+    """Row-parallel x·W + b from this rank's input columns: the partial
+    products summed over the ranks, then the bias added once."""
+    if tp is None:
+        return _dense(lin, x)
+    y = reduce_from_region(F.linear(x, _local(lin.weight).to(x.dtype)),
+                           tp.group)
+    return y if lin.bias is None else y + lin.bias.to(x.dtype)
+
+
 class RMSNorm(nn.Module):
     """Holds the optional trainable RMSNorm scale (`norm*.weight`); the norm
     itself runs inside `_norm_modulate`."""
@@ -151,6 +192,10 @@ class MLP(nn.Sequential):
 
 
 class DiTBlock(nn.Module):
+    # this rank's `TensorRegion` (parallel/fsdp.py) under tensor
+    # parallelism: the block computes on its heads and MLP columns
+    tp = None
+
     def __init__(self, cfg: DiTConfig):
         super().__init__()
         d = cfg.hidden_size
@@ -181,18 +226,31 @@ class DiTBlock(nn.Module):
         value; the model keeps block 0's as v0. v0 is None in block 0.
         With `context_parallel` (a ring), x holds the ring's local tokens of
         the padded axis, cos/sin [lp, D/2] and `kbias` [lp] cover all of
-        it, and self-attention runs over the ring."""
+        it, and self-attention runs over the ring. Under tensor
+        parallelism (`self.tp`) x stays whole and replicated; the heads,
+        the MLP columns and v/v0 are this rank's (nh and d below are local),
+        and the AdaLN modulation is gathered whole."""
         cfg = self.cfg
-        nh, hd = cfg.num_heads, cfg.head_dim
-        b, l, d = x.shape
+        tp = self.tp
+        ways = 1 if tp is None else tp.size
+        nh, hd = cfg.num_heads // ways, cfg.head_dim
+        b, l, _ = x.shape
+        d = nh * hd
 
-        mod = _dense(self.adaLN_modulation[1], F.silu(t_emb))  # [B, 9D]
+        if tp is None:
+            mod = _dense(self.adaLN_modulation[1], F.silu(t_emb))  # [B, 9D]
+        else:
+            lin = self.adaLN_modulation[1]
+            mod = gather_from_region(F.linear(
+                copy_to_region(F.silu(t_emb), tp.group),
+                _local(lin.weight).to(t_emb.dtype)), tp.group)
+            mod = mod + lin.bias.to(mod.dtype)
         (shift_sa, scale_sa, gate_sa, shift_ca, scale_ca, gate_ca,
          shift_mlp, scale_mlp, gate_mlp) = mod.chunk(9, dim=-1)
 
         # --- self-attention ---
         xn = _norm_modulate(cfg, x, self.norm1, shift_sa, scale_sa)
-        qkv = _dense(self.qkv, xn)  # [B, L, 3D], features (k, h, d)
+        qkv = _column(self.qkv, xn, tp, 3)  # [B, L, 3D], features (k, h, d)
         v = qkv[..., 2 * d:]
         if cfg.residual_v and v0 is not None:
             lam = self.lambda_param.to(x.dtype)
@@ -217,7 +275,7 @@ class DiTBlock(nn.Module):
                 kh = apply_rotary(kh, cos, sin)
             attn = dot_product_attention(qh, kh, vh)
             attn = attn.transpose(1, 2).reshape(b, l, d)
-        attn = _dense(self.attn_proj, attn)
+        attn = _row(self.attn_proj, attn, tp)
         has_cross = cfg.cross_attn_input_size is not None
         # fuse each residual join with the next sub-layer's norm prologue
         fuse_join = _use_fused_adaln(cfg, x) and cfg.fused_residual
@@ -234,11 +292,11 @@ class DiTBlock(nn.Module):
         if has_cross:
             if xn is None:
                 xn = _norm_modulate(cfg, x, self.norm2, shift_ca, scale_ca)
-            qc = _dense(self.q_cross, xn)
+            qc = _column(self.q_cross, xn, tp)
             # [B, Lc, 2D], features (2, h, d): projected once per trajectory
             # by the sampler, or here from the context
-            ckv = context_kv if context_kv is not None else _dense(
-                self.context_kv, context.to(x.dtype))
+            ckv = context_kv if context_kv is not None else _column(
+                self.context_kv, context.to(x.dtype), tp, 2)
             lc = ckv.shape[1]
             if _use_fused_attention(cfg, x):
                 cross = cross_flash_attention(qc, ckv[..., :d], ckv[..., d:],
@@ -248,7 +306,7 @@ class DiTBlock(nn.Module):
                 ckvh = ckv.reshape(b, lc, 2, nh, hd).permute(2, 0, 3, 1, 4)
                 cross = dot_product_attention(qch, ckvh[0], ckvh[1])
                 cross = cross.transpose(1, 2).reshape(b, l, d)
-            cross = _dense(self.cross_proj, cross)
+            cross = _row(self.cross_proj, cross, tp)
             if fuse_join:
                 x, xn = gated_residual_adaln(x, cross, gate_ca, shift_mlp,
                                              scale_mlp, self.norm3.weight)
@@ -263,11 +321,16 @@ class DiTBlock(nn.Module):
         if _use_fused_adaln(cfg, x):
             # the JAX model's fc1 epilogue: bias in the compute dtype, then
             # h·Φ_poly(h) in fp32, one kernel
-            h = torch.matmul(xn, fc1.weight.to(x.dtype).t())
-            h = mlp_bias_gelu(h, fc1.bias.to(x.dtype))
+            if tp is None:
+                h = torch.matmul(xn, fc1.weight.to(x.dtype).t())
+                h = mlp_bias_gelu(h, fc1.bias.to(x.dtype))
+            else:
+                h = torch.matmul(copy_to_region(xn, tp.group),
+                                 _local(fc1.weight).to(x.dtype).t())
+                h = mlp_bias_gelu(h, tp.columns(fc1.bias).to(x.dtype))
         else:
-            h = F.gelu(_dense(fc1, xn))  # exact erf GELU
-        x = x + _dense(fc2, h) * gate_mlp[:, None, :]
+            h = F.gelu(_column(fc1, xn, tp))  # exact erf GELU
+        x = x + _row(fc2, h, tp) * gate_mlp[:, None, :]
         return x, v
 
 

@@ -10,9 +10,14 @@ plain twin `adamw_leaf_update_plain`, the exact leaf math of the JAX
 
 `MultiTensorAdamW` holds the device tables the kernel reads: (p, m, v)
 pointers, sizes and the per-leaf muP (lr, wd), plus the chunk table that
-splits the leaves over blocks; all built once. Gradient pointers change
-every step (autograd allocates fresh gradients) and go up with lr_t, bc1
-and bc2 as two small host-to-device copies that need no host sync.
+splits the leaves over blocks; all built once, so a caller whose leaves
+may move (a checkpoint load) builds a new one (`train/optim.py`).
+Gradient pointers change every step (autograd allocates fresh gradients)
+and go up with lr_t, bc1 and bc2 as two small host-to-device copies that
+need no host sync. The leaves may be the local shards of sharded
+parameters (FSDP2 keeps each one contiguous in storage of its own); a
+gradient that is a view at an unaligned offset of a larger buffer (FSDP2's
+reduce-scatter output) is copied to an aligned one first.
 """
 
 from __future__ import annotations
@@ -54,6 +59,15 @@ def step_scalars(count: int, lr_t: float, b1: float, b2: float):
     t = f32(count + 1)
     return (float(f32(lr_t)), float(f32(1.0) - f32(b1) ** t),
             float(f32(1.0) - f32(b2) ** t))
+
+
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """t, or a contiguous copy of it in fresh (aligned) storage."""
+    if t.is_contiguous() and t.data_ptr() % 16 == 0:
+        return t
+    out = torch.empty(t.shape, dtype=t.dtype, device=t.device)
+    out.copy_(t)
+    return out
 
 
 def _library() -> ctypes.CDLL:
@@ -119,15 +133,14 @@ class MultiTensorAdamW:
 
     def __call__(self, grads: Sequence[torch.Tensor], lr_t: float, bc1: float,
                  bc2: float) -> None:
-        """Update every leaf in place from `grads` (fp32, contiguous, one
-        per leaf, in the order the leaves were given)."""
+        """Update every leaf in place from `grads` (fp32, one per leaf, in
+        the order the leaves were given)."""
         if len(grads) != self.n_leaves:
             raise ValueError(f"{len(grads)} grads for {self.n_leaves} leaves")
         for g in grads:
-            if g.device != self.device or g.dtype != torch.float32 \
-                    or not g.is_contiguous() or g.data_ptr() % 16:
-                raise ValueError("grads must be contiguous 16-byte aligned "
-                                 f"fp32 on {self.device}")
+            if g.device != self.device or g.dtype != torch.float32:
+                raise ValueError(f"grads must be fp32 on {self.device}")
+        grads = [_aligned(g) for g in grads]
         # pinned host buffers from the caching host allocator: it keeps a
         # buffer until its copy has run, so the copies need no sync
         g_ptrs = torch.tensor([g.data_ptr() for g in grads], dtype=torch.int64,

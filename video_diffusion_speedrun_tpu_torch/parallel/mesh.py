@@ -83,22 +83,63 @@ def context_group(mesh):
     return mesh.get_group(AXIS_CONTEXT)
 
 
-def data_group(mesh):
-    """The process group over which the batch is data-parallel, or None at
-    size 1. FSDP (> 1 raises in this slice) will join the replica axis."""
-    if axis_size(mesh, AXIS_REPLICA) == 1:
+def tensor_group(mesh):
+    """The process group of this rank's tensor axis, or None at size 1."""
+    if axis_size(mesh, AXIS_TENSOR) == 1:
         return None
-    return mesh.get_group(AXIS_REPLICA)
+    return mesh.get_group(AXIS_TENSOR)
+
+
+def data_group(mesh):
+    """The process group over which the batch is data-parallel: the ranks
+    that share this rank's (context, tensor) coordinates, in (replica,
+    fsdp) order (JAX's `DATA_AXES`); None at size 1."""
+    if data_shards(mesh) == 1:
+        return None
+    if axis_size(mesh, AXIS_FSDP) == 1:
+        return mesh.get_group(AXIS_REPLICA)
+    if axis_size(mesh, AXIS_REPLICA) == 1:
+        return mesh.get_group(AXIS_FSDP)
+    if not hasattr(mesh, "data_group"):
+        # every rank creates every group, in the same order
+        ranks = mesh.mesh  # [replica, fsdp, context, tensor] → global rank
+        for c in range(ranks.shape[2]):
+            for t in range(ranks.shape[3]):
+                members = ranks[:, :, c, t].flatten().tolist()
+                group = dist.new_group(members)
+                if global_rank() in members:
+                    mesh.data_group = group
+    return mesh.data_group
 
 
 def data_rank(mesh) -> int:
-    """This rank's index along the data-parallel axes."""
-    return axis_rank(mesh, AXIS_REPLICA)
+    """This rank's index along the data-parallel axes (replica major, then
+    fsdp); the tensor and context ranks of one data shard share it."""
+    return (axis_rank(mesh, AXIS_REPLICA) * axis_size(mesh, AXIS_FSDP)
+            + axis_rank(mesh, AXIS_FSDP))
 
 
 def data_shards(mesh) -> int:
     """Number of data shards: replica × fsdp."""
     return axis_size(mesh, AXIS_REPLICA) * axis_size(mesh, AXIS_FSDP)
+
+
+def fsdp_mesh(mesh):
+    """The sub-mesh FSDP2 shards over: ("replica", "fsdp") — HSDP, sharded
+    over fsdp and replicated over replica — or ("fsdp",) alone when there
+    is one replica; None when fsdp has size 1."""
+    if axis_size(mesh, AXIS_FSDP) == 1:
+        return None
+    if axis_size(mesh, AXIS_REPLICA) == 1:
+        return mesh[AXIS_FSDP]
+    return mesh[AXIS_REPLICA, AXIS_FSDP]
+
+
+def tensor_mesh(mesh):
+    """The sub-mesh of the tensor axis, or None at size 1."""
+    if axis_size(mesh, AXIS_TENSOR) == 1:
+        return None
+    return mesh[AXIS_TENSOR]
 
 
 def local_batch_slice(mesh, global_batch: int) -> int:

@@ -32,7 +32,8 @@ over `torch.distributed`; JAX's `--mesh_context`):
 Each process runs on the card `LOCAL_RANK` and all of them sample the same
 request; rank 0 alone prints, decodes and writes. `--mesh_context` must
 equal the number of processes (`WORLD_SIZE`): N > 1 without a launcher
-raises.
+raises. `--steps_per_call`, with which JAX splits the trajectory into
+programs, is accepted and changes nothing.
 """
 
 from __future__ import annotations
@@ -112,6 +113,10 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     p.add_argument("--mesh_context", type=int, default=1,
                    help="cards the tokens of one video are split over "
                         "(one process each, under torchrun)")
+    # JAX splits one jitted trajectory into programs of this many steps (a
+    # TPU watchdog); the port runs step by step: accepted, no effect
+    p.add_argument("--steps_per_call", type=int, default=None,
+                   help="accepted for the JAX command line; no effect")
     return p.parse_args(argv)
 
 

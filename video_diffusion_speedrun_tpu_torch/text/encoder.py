@@ -49,22 +49,32 @@ class ByteFallbackTokenizer:
 
 class PromptEncoder:
     """A frozen `T5Encoder` and its tokenizer. Calls run under
-    `torch.no_grad` on the encoder's device and return the compute dtype."""
+    `torch.no_grad` on the encoder's device and return the compute dtype.
+    With a `mesh` (or after `shard(mesh)`) the encoder is sharded over its
+    fsdp axis (`parallel/fsdp.py:shard_encoder`), so T5-XXL does not keep
+    a whole copy on every card; the encodings are the unsharded ones."""
 
     def __init__(self, model: T5Encoder, tokenizer=None,
                  max_length: int = MAX_SEQUENCE_LENGTH, mesh=None):
-        if mesh is not None:
-            raise NotImplementedError(
-                "not ported yet: sharding the prompt encoder over a mesh "
-                "(FSDP comes with the FSDP/TP slice, ROADMAP A8)")
         self.model = model
         self.cfg = model.cfg
         self.tokenizer = tokenizer
         self.max_length = max_length
+        self._device = model.shared.weight.device
+        if mesh is not None:
+            self.shard(mesh)
+
+    def shard(self, mesh) -> None:
+        """Shard the encoder over `mesh`'s fsdp axis (a no-op at size 1)."""
+        from video_diffusion_speedrun_tpu_torch.parallel.fsdp import (
+            shard_encoder,
+        )
+
+        shard_encoder(self.model, mesh)
 
     @property
     def device(self) -> torch.device:
-        return self.model.shared.weight.device
+        return self._device
 
     def tokenize(self, prompts: Sequence[str]) -> np.ndarray:
         if self.tokenizer is None:
@@ -85,7 +95,9 @@ class PromptEncoder:
     def encode_ids(self, input_ids, return_index: int = -1) -> torch.Tensor:
         ids = torch.as_tensor(np.asarray(input_ids), dtype=torch.long,
                               device=self.device)
-        return self.model.encode(ids, return_index)
+        # through the module call: a sharded encoder gathers its weights
+        # in its hooks
+        return self.model(ids, return_index)
 
 
 def load_encoder(text_encoder_path: str = "black-forest-labs/FLUX.1-dev",

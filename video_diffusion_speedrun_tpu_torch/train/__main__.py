@@ -13,8 +13,8 @@ by default (`--device cuda`, which raises when no card is present);
 `--device cpu` runs on the CPU. `--synthetic_t_choices 5,9,17` mixes
 clips of 5, 9 and 17 latent frames (L = 528, 1040 and 2064 at the default
 32×32 latents) in shape-uniform batches; L > 2048 takes the long
-attention path. Flags of later slices (optimizer-in-backward, FSDP and
-tensor parallelism) raise.
+attention path. Flags of later slices (optimizer-in-backward, the factored
+second moment) raise.
 
 The dataset (`--dataset cosmos_openvid`): `--hf_name` a local parquet of
 its columns (`python -m video_diffusion_speedrun_tpu_torch.data.fixture`
@@ -48,13 +48,23 @@ weights; `--smoke_encoder` (a tiny random T5) or `--smoke_encoder xxl`
 (T5-XXL with random weights), with the byte-fallback tokenizer, runs that
 path without weights.
 
-Across cards, one process per card under `torchrun`: `--mesh_replica R`
-data-parallel replicas, each of `--mesh_context C` cards that split the
-tokens of their clips over a ring (context parallelism); R·C must equal
-the number of processes, and the global `--batch_size` must divide by R:
+Across cards, one process per card under `torchrun`, on the mesh
+(`--mesh_replica R --mesh_fsdp F --mesh_context C --mesh_tensor T`, R·F·C·T
+the number of processes; `--mesh_fsdp` defaults to -1, the rest): R·F data
+shards, the global `--batch_size` divisible by R·F; FSDP2 shards the
+parameters and moments over F (HSDP: replicated over R); T cards split
+each block's heads and MLP columns (tensor parallelism; T divides the
+heads); C cards split the tokens of their clips over a ring (context
+parallelism). The default flags shard over every card (FSDP):
 
     torchrun --nproc_per_node 4 -m video_diffusion_speedrun_tpu_torch.train \
-        --mesh_context 4 --batch_size 2 --moments_dtype bf16 ...
+        --batch_size 64 ...
+    torchrun --nproc_per_node 4 -m video_diffusion_speedrun_tpu_torch.train \
+        --mesh_replica 2 --mesh_fsdp 2 --batch_size 64 ...
+    torchrun --nproc_per_node 4 -m video_diffusion_speedrun_tpu_torch.train \
+        --mesh_fsdp 2 --mesh_tensor 2 --batch_size 64 ...
+    torchrun --nproc_per_node 4 -m video_diffusion_speedrun_tpu_torch.train \
+        --mesh_fsdp 1 --mesh_context 4 --batch_size 2 --moments_dtype bf16 ...
 """
 
 from __future__ import annotations
@@ -145,7 +155,7 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     # flags of later slices: accepted so that they can refuse
     add("--optimizer_in_backward", type=_bool, default=False)
     add("--nu_factored", type=_bool, default=False)
-    # the mesh (core/config.py:MeshConfig); fsdp and tensor > 1 raise
+    # the mesh (core/config.py:MeshConfig)
     for axis in ("replica", "fsdp", "context", "tensor"):
         add(f"--mesh_{axis}", type=int, default=-1 if axis == "fsdp" else 1)
     return p.parse_args(argv)

@@ -4,8 +4,12 @@ weights (port of `train/checkpoint.py`).
 The JAX package saves its whole TrainState with orbax; the port saves the
 same with `torch.distributed.checkpoint` (DCP) in the same run layout,
 `checkpoint_dir/run_name/<step>/`: the model's parameters, the muP-AdamW
-moments and update count, the Trainer's step, and the state of each
-data-parallel replica's training generator (`rng.<replica>`). The port
+moments and update count, the Trainer's step, and the state of each data
+shard's training generator (`rng.<data rank>`). Sharded parameters and
+moments (FSDP2, the tensor axis) go in as DTensors, which DCP writes once
+per shard and reshards on load to any mesh, one process included; the
+packed qkv / context_kv leaves of a tensor-parallel model go in whole
+(`parallel/fsdp.py:checkpoint_state`). The port
 draws every timestep, noise and dropout of training from that one
 generator stream, where JAX folds the step into its key, so without its
 state a resumed run would draw other numbers. Under `torchrun` every rank
@@ -71,6 +75,15 @@ class CheckpointManager:
             raise FileNotFoundError(f"no checkpoints under {self.directory}")
         _dcp().load(state, checkpoint_id=self.step_dir(step))
         return step
+
+    def holds(self, step: Optional[int], key: str) -> bool:
+        """Whether step `step` saved the entry `key` (a step not saved
+        yet: True, so the restore raises)."""
+        path = None if step is None else self.step_dir(step)
+        if path is None or not os.path.exists(os.path.join(path,
+                                                           _DCP_METADATA)):
+            return True
+        return key in _metadata_keys(path)
 
     def latest_step(self) -> Optional[int]:
         """The highest step whose save finished (its DCP metadata is

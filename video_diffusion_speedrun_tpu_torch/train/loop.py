@@ -36,13 +36,18 @@ the continuous run computes. A reference checkpoint loads weights only
 
 Across processes (started by `torchrun`: NCCL on `cuda:{LOCAL_RANK}`,
 gloo with `--device cpu`) the Trainer builds the mesh of `cfg.mesh`
-(`parallel/mesh.py`). Every process draws the same global batch and keeps
-its replica's `local_batch_slice` of the rows; the ranks of one context
-ring keep the same rows and split their tokens (`DistRing`). Generators
-are seeded per replica, so the ranks of a ring draw the same timesteps,
-noise and context and replicas draw their own. Rank 0 logs. A `LocalRing`
-(all ranks of a ring in one process) is taken only when the caller passes
-it.
+(`parallel/mesh.py`) and places the DiT on it (`parallel/fsdp.py`:
+FSDP2 over fsdp, HSDP with replicas, DTensors over tensor) before the
+optimizer sees its parameters. The data shards are the (replica, fsdp)
+ranks: with the default collate each reads only its own rows of every
+global batch (`ShardedSampler(shard, num_shards)`); the bucketing collates
+cannot split a batch, so there every process draws the global batch and
+keeps its shard's rows (`replica_rows`). The tensor and context ranks of
+one data shard keep the same rows; a context ring splits their tokens
+(`DistRing`). Generators are seeded per data shard, so the ranks of a
+ring and of a tensor group draw the same timesteps, noise and context,
+and data shards draw their own. Rank 0 logs. A `LocalRing` (all ranks of
+a ring in one process) is taken only when the caller passes it.
 """
 
 from __future__ import annotations
@@ -78,6 +83,13 @@ from video_diffusion_speedrun_tpu_torch.parallel import mesh as pmesh
 from video_diffusion_speedrun_tpu_torch.parallel.collectives import (
     all_reduce_,
 )
+from video_diffusion_speedrun_tpu_torch.parallel.fsdp import (
+    checkpoint_state,
+    load_full_state,
+    restore_state,
+    shard_model,
+    strided_templates,
+)
 from video_diffusion_speedrun_tpu_torch.parallel.ring import DistRing
 from video_diffusion_speedrun_tpu_torch.train.checkpoint import (
     STEP_KEY,
@@ -95,7 +107,7 @@ from video_diffusion_speedrun_tpu_torch.utils.logging import (
 
 logger = logging.getLogger("video_diffusion_speedrun_tpu_torch.train")
 
-# the seed of replica r's generators is the replica-0 seed + r·this
+# the seed of data shard r's generators is shard 0's seed + r·this
 REPLICA_SEED_STRIDE = 1_000_003
 
 
@@ -116,6 +128,9 @@ class Trainer:
         self.main = pmesh.global_rank() == 0
         self.model = DiT(cfg.model, device=self.device,
                          init_std_factor=cfg.init_std_factor, seed=cfg.seed)
+        self.sharding = shard_model(self.model, self.mesh)
+        if prompt_encoder is not None and self.mesh is not None:
+            prompt_encoder.shard(self.mesh)
         self.opt = MupAdamW(self.model.named_parameters(),
                             cfg.optimizer.learning_rate, cfg.max_steps,
                             cfg.optimizer)
@@ -183,12 +198,14 @@ class Trainer:
         self.datasets[split] = ds
         return ds
 
-    def _random_context(self, batches: Iterator[Dict], start: int
-                        ) -> Iterator[Dict]:
+    def _random_context(self, batches: Iterator[Dict], start: int,
+                        rows: Optional[tuple] = None) -> Iterator[Dict]:
         """Batches without a context source get JAX's smoke context
         (`loop.py:_encode_stream`): 0.05·N(0, 1) from numpy seeded by
         (seed + 17, batch index), so a resumed run draws the continuous
-        run's; without `allow_random_context` that raises."""
+        run's; without `allow_random_context` that raises. `rows` (first
+        row, global batch): the batches hold these rows of the global
+        batch, whose draw is sliced."""
         warned = False
         dcfg = self.cfg.data
         for index, batch in enumerate(batches, start=start):
@@ -205,9 +222,11 @@ class Trainer:
                                    "random context embeddings (smoke only)")
                     warned = True
                 rng = np.random.default_rng((self.cfg.seed + 17, index))
+                n = batch["latent"].shape[0]
+                lo, total = rows or (0, n)
                 batch["context"] = synthetic_context(
-                    rng, batch["latent"].shape[0], dcfg.caption_tokens,
-                    dcfg.context_dim)
+                    rng, total, dcfg.caption_tokens,
+                    dcfg.context_dim)[lo:lo + n]
             yield batch
 
     def batches(self, split: str) -> Iterator[Dict[str, torch.Tensor]]:
@@ -231,23 +250,35 @@ class Trainer:
                     f"slice per data shard ({shards} shards)")
             self._log("eval batch clamped %d -> %d (test split has %d rows)",
                       self.cfg.batch_size, batch, len(ds))
-        sampler = ShardedSampler(len(ds), batch, dcfg.shuffle_seed,
-                                 shuffle=split == "train")
-        collate = default_collate
+        local = pmesh.local_batch_slice(self.mesh, batch)
+        shuffle = split == "train"
         if dcfg.bucket_by_shape:
+            # a bucketing collate sees whole global batches; each data
+            # shard keeps its rows of what it emits
+            sampler = ShardedSampler(len(ds), batch, dcfg.shuffle_seed,
+                                     shuffle=shuffle)
             shapes = getattr(ds, "latent_shapes", lambda: None)()
             collate = (ShapeBucketingCollate(batch) if shapes is None else
                        CoordinatedShapeBucketingCollate(
                            batch, shapes, seed=dcfg.shuffle_seed + 101))
-        local = pmesh.local_batch_slice(self.mesh, batch)
+        else:
+            # each data shard reads only its rows of every global batch
+            sampler = ShardedSampler(
+                len(ds), local, dcfg.shuffle_seed, shuffle=shuffle,
+                shard=self.data_rank, num_shards=pmesh.data_shards(self.mesh))
+            collate = default_collate
         skip = self.step if split == "train" else 0
         loader = DataLoader(
             ds, sampler, collate, num_workers=dcfg.num_workers,
             prefetch=dcfg.prefetch,
             num_epochs=self.cfg.num_epochs if split == "train" else 1,
             skip_batches=skip)
-        rows = replica_rows(self._random_context(iter(loader), skip),
-                            self.data_rank, local)
+        if dcfg.bucket_by_shape:
+            rows = replica_rows(self._random_context(iter(loader), skip),
+                                self.data_rank, local)
+        else:
+            rows = self._random_context(iter(loader), skip,
+                                        (self.data_rank * local, batch))
         stream = device_batches(rows, self.device, dcfg.prefetch)
         try:
             for batch in stream:
@@ -331,9 +362,9 @@ class Trainer:
     def train_state(self) -> Dict:
         """What a checkpoint holds, as DCP's nested dict of tensors: the
         model's state dict, the moments and update count, the step, and
-        this replica's training generator state. Its tensors are the live
-        ones (or, for the counts and the generator, their values), so a
-        load into it restores in place."""
+        this data shard's training generator state. Its tensors are the
+        live ones (sharded: DTensors; or, for the counts and the generator,
+        their values), so a load into it restores in place."""
         opt = self.opt
         return {
             "model": self.model.state_dict(),
@@ -344,11 +375,23 @@ class Trainer:
             f"rng.{self.data_rank}": self.generator.get_state(),
         }
 
+    def _checkpoint_view(self, state: Dict, fill) -> Dict:
+        """`state` with its model and moment dicts passed through `fill`
+        (`checkpoint_state` to save, `strided_templates` to load)."""
+        view = dict(state)
+        view["model"] = fill(state["model"], self.sharding)
+        view["optim"] = dict(state["optim"])
+        for k in ("m", "v"):
+            view["optim"][k] = fill(state["optim"][k], self.sharding)
+        return view
+
     def save_checkpoint(self) -> str:
         """Save the full train state at the current step (every rank takes
         part); returns the step directory."""
         t0 = time.perf_counter()
-        path = self.ckpt.save(self.step, self.train_state())
+        path = self.ckpt.save(
+            self.step, self._checkpoint_view(self.train_state(),
+                                             checkpoint_state))
         self._log("saved checkpoint %s (%.2f s)", path,
                   time.perf_counter() - t0)
         return path
@@ -362,17 +405,33 @@ class Trainer:
                     "rope_order=%r — reference weights assume the (t,h,w) "
                     "RoPE order; set model.rope_order='reference' to match",
                     self.cfg.model.rope_order)
-            self.model.load_state_dict(
-                load_reference_checkpoint(path, self.cfg.model))
+            load_full_state(self.model,
+                            load_reference_checkpoint(path, self.cfg.model))
             self._log("loaded torch reference checkpoint from %s", path)
             return
         root, step = split_checkpoint_path(path)
-        state = self.train_state()
+        live = self.train_state()
+        rng_key = f"rng.{self.data_rank}"
+        state = self._checkpoint_view(live, strided_templates)
+        mgr = CheckpointManager(root)
+        step = mgr.latest_step() if step is None else step
+        if not mgr.holds(step, rng_key):
+            # saved over fewer data shards: this shard's generator starts
+            # from its seed
+            logger.warning("checkpoint %s step %s has no %s; that "
+                           "generator starts from its seed", root, step,
+                           rng_key)
+            del state[rng_key]
         t0 = time.perf_counter()
-        step = CheckpointManager(root).restore(step, state)
+        step = mgr.restore(step, state)
+        restore_state(live["model"], state["model"], self.sharding)
+        for k in ("m", "v"):
+            restore_state(live["optim"][k], state["optim"][k], self.sharding)
+        self.opt.refresh()
         self.opt.count = int(state["optim"]["count"])
         self.step = int(state[STEP_KEY])
-        self.generator.set_state(state[f"rng.{self.data_rank}"])
+        if rng_key in state:
+            self.generator.set_state(state[rng_key])
         self._log("restored full train state from %s step %d (%.2f s)",
                   root, step, time.perf_counter() - t0)
 

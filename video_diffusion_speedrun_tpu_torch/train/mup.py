@@ -17,6 +17,9 @@ order, over the port's `named_parameters()` names:
 
 The port's names differ from the JAX tree's (`mlp.0.weight` for
 `mlp.fc1.weight`, `norm1.weight` for `norm1.scale`) but hit the same rules.
+The shapes are the global ones: a sharded parameter is a DTensor, whose
+`shape` is the whole tensor's (a row-parallel kernel's local shard is
+[D, D/t], and its fan-in is D, not D/t).
 """
 
 from __future__ import annotations
@@ -59,7 +62,7 @@ def mup_table(named_params: Iterable[Tuple[str, torch.Tensor]],
     JAX `settings` dict)."""
     table = {}
     for name, p in named_params:
-        lr, wd = leaf_rule(name, tuple(p.shape), learning_rate, weight_decay,
-                           cfg)
-        table[name] = {"lr": lr, "wd": wd, "shape": tuple(p.shape)}
+        shape = tuple(p.shape)  # a DTensor's global shape
+        lr, wd = leaf_rule(name, shape, learning_rate, weight_decay, cfg)
+        table[name] = {"lr": lr, "wd": wd, "shape": shape}
     return table

@@ -11,10 +11,15 @@ batch) and `rope_offsets` (shared); a batch with no `context` gets
 compute dtype (`step.py:132-141`).
 
 Across processes (`parallel/mesh.py`) the step reduces what GSPMD reduces
-in JAX, after `backward`: the gradients are summed over the context ring's
-group (each rank's backward holds its own tokens' share of every
-gradient), then averaged over the data-parallel group; grad_norm is taken
-after that, the loss averaged and the decile bins summed over the data
+in JAX. FSDP2 (`parallel/fsdp.py`) reduce-scatters the sharded parameters'
+gradients inside `backward`, averaged over the data shards (replica ×
+fsdp). Then, on each rank's local shards: every gradient is summed over
+the context ring's group (each rank's backward holds its own tokens'
+share); the gradients of replicated leaves used inside the tensor region
+(λ, the column-parallel biases) are summed over the tensor group; the
+leaves FSDP2 does not hold are averaged over the data group. grad_norm is
+the norm of the global gradient: each shard counted once, a replicated
+leaf once. The loss is averaged and the decile bins summed over the data
 group. `LocalRing` (all ranks in one process) needs no reduction.
 """
 
@@ -28,6 +33,7 @@ from video_diffusion_speedrun_tpu_torch.core.config import TrainConfig
 from video_diffusion_speedrun_tpu_torch.models.dit import DiT
 from video_diffusion_speedrun_tpu_torch.parallel.collectives import (
     all_reduce_,
+    local,
 )
 from video_diffusion_speedrun_tpu_torch.train.loss import rectified_flow_loss
 from video_diffusion_speedrun_tpu_torch.train.optim import MupAdamW
@@ -87,9 +93,17 @@ def train_step(model: DiT, opt: MupAdamW, batch: Dict,
     if accum > 1:
         for g in grads:
             if g is not None:
-                g.mul_(1.0 / accum)
+                local(g).mul_(1.0 / accum)
+    sharding = getattr(model, "sharding", None)
     all_reduce_(grads, getattr(context_parallel, "group", None))
-    all_reduce_(grads, data_group, mean=True)
+    if sharding is None:
+        all_reduce_(grads, data_group, mean=True)
+    else:
+        all_reduce_([g for n, g in zip(opt.names, grads)
+                     if n in sharding.tensor_partial], sharding.tensor_group)
+        all_reduce_([g for n, g in zip(opt.names, grads)
+                     if n not in sharding.fsdp_managed], data_group,
+                    mean=True)
     loss = loss_sum / accum if accum > 1 else loss_sum
     all_reduce_([loss], data_group, mean=True)
     all_reduce_([bin_sums, bin_counts], data_group)
@@ -97,12 +111,35 @@ def train_step(model: DiT, opt: MupAdamW, batch: Dict,
                "bin_sums": bin_sums, "bin_counts": bin_counts,
                "timesteps": torch.cat(timesteps)}
     if cfg.log_grad_norm:
-        metrics["grad_norm"] = torch.sqrt(sum(
-            g.float().square().sum() for g in grads if g is not None))
+        metrics["grad_norm"] = grad_norm(opt.names, grads, sharding)
     opt.step(grads)
     for p in opt.params:
         p.grad = None
     return metrics
+
+
+def grad_norm(names, grads, sharding=None) -> torch.Tensor:
+    """The L2 norm of the global gradient from each rank's reduced local
+    shards: the squares summed per kind of placement, each sum then over
+    the axes that kind is sharded on (fsdp, tensor), so every element
+    counts once. None gradients count 0."""
+    sums = {}
+    for name, g in zip(names, grads):
+        if g is None:
+            continue
+        key = (False, False)
+        if sharding is not None:
+            key = (name in sharding.fsdp_managed,
+                   sharding.placements[name].tensor is not None
+                   and sharding.region is not None)
+        sq = local(g).float().square().sum()
+        sums[key] = sq if key not in sums else sums[key] + sq
+    total = 0.0
+    for (fsdp, tensor), sq in sums.items():
+        all_reduce_([sq], sharding.fsdp_group if fsdp else None)
+        all_reduce_([sq], sharding.tensor_group if tensor else None)
+        total = total + sq
+    return torch.sqrt(total)
 
 
 @torch.no_grad()
