@@ -34,7 +34,8 @@ Run from the root of a checkout. Phases, each of which raises on failure:
              bit, and where its plan and instantiations change, and row 3
              timed at [64, 528, 512]); attention at a ragged shape too
              (L=333, Lk=77); AdamW on leaves of the canonical DiT with fp32
-             and bf16 moments, timed over all 299;
+             and bf16 moments, timed over all 299, and on bf16 parameters
+             and moments over one XL block's 12 leaves;
 3. serve   — sample 2 requests (two seeds, 8 Euler steps, CFG 6.0) with the
              demo DiT (width 2048, depth 24, head 128) at 256×256×8 frames
              through `generate_latents`, the launch counters set to 0 just
@@ -150,13 +151,32 @@ Run from the root of a checkout. Phases, each of which raises on failure:
              heads and columns) and the AdamW kernel's local leaves. With 2
              cards or more the same over NCCL, one rank a card (fsdp 2 and
              tensor 2; with 4 also replica 2 × fsdp 2 and fsdp 2 × tensor
-             2); otherwise one line says why not.
+             2); otherwise one line says why not. Also the
+             optimizer-in-backward step with factored ν at fsdp 2 over
+             gloo against one process of it;
+24. train-inloop — the XL configuration (JAX `bench.py --xl`: width
+             2048, depth 24, 16 heads of 128, bf16 parameters, bf16 μ,
+             factored ν, optimizer in the backward) through the train
+             CLI's `main` at batch 16 of [16, 8, 32, 32] latents (L =
+             1040): 4 steps, counters set to 0 before `main` and read
+             after (AdamW once per block group and once for the rest,
+             in its bf16 mode), ms per step, a profiled step's busy ms,
+             peak memory; then the standard step at the XL width, batch
+             8, fp32 parameters and bf16 moments, the same way; and one
+             block's update: the AdamW launch on its exact leaves against
+             its bound, the factored update (plain torch) of its weights;
+25. inloop-parity — depth 2, L = 528: the in-backward step with the XL
+             optimizer flags on the card against the CPU (fp32, twins),
+             and with fp32 parameters against the standard step on the
+             card; 3 steps, losses and step-1 gradients at the
+             train-parity limits.
 
 Every run of the DiT's MLP launches the bias+GELU kernels. The kernels JSON
 lists every kernel with `launches` summed over the main-path runs (serve,
 serve-long, serve-cp over 4 and 2, serve with `fused_residual`, t2v,
 train, train-long, train-cp over 4 and 8, train with `fused_residual`,
-ckpt, train-t5, train-real, and each rank of each train-fsdp mesh),
+ckpt, train-t5, train-real, each rank of each train-fsdp mesh, and
+train-inloop's two runs),
 each run with the counters set to 0 just before it and read just after;
 the long kernels' kv-bias launches (the ring's fallback) are rows of their
 own. The next-to-last
@@ -517,6 +537,7 @@ def phase_kernels(dev):
     rows.update(attention_bwd_rows(dev))
     rows.update(adaln_bwd_row(dev))
     rows.update(adamw_row(dev))
+    rows.update(adamw_bf16_row(dev))
     return rows
 
 
@@ -1551,6 +1572,8 @@ def counters():
                                        "bias_launches")
     out["long_attention_bwd<bias>"] = (fa.long_attention_backward,
                                        "bias_launches")
+    # row 17 on bf16 parameters (the optimizer-in-backward XL regime)
+    out["adamw_multi_tensor<bf16>"] = (fw.MultiTensorAdamW, "bf16_launches")
     return out
 
 
@@ -1858,8 +1881,14 @@ def grad_rel_l2(grads, ref):
                  .item())
 
 
-def train_step_launches(l: int, fused_residual: bool = False, ring=None):
-    """Kernel → launches of one train step of the canonical DiT at L."""
+def train_step_launches(l: int, fused_residual: bool = False, ring=None,
+                        depth: int = T_DEPTH, adamw: int = 1,
+                        bf16_params: bool = False):
+    """Kernel → launches of one train step of a DiT of `depth` blocks (the
+    canonical one by default) at L. The AdamW kernel runs `adamw` times a
+    step: once, or once per group of the optimizer-in-backward step
+    (depth + 1), whose forward without grad and recompute launch what the
+    standard step's forward and remat recompute do."""
     from video_diffusion_speedrun_tpu_torch.ops import fused_attention as fa
 
     short = l <= fa.SHORT_MAX_KV
@@ -1882,17 +1911,18 @@ def train_step_launches(l: int, fused_residual: bool = False, ring=None):
     per_step = dict.fromkeys(counters(), 0)
     per_step.update({
         # forward + remat recompute; the final layer's AdaLN runs once
-        fwd_k: 2 * T_DEPTH * per_layer,
-        "short_attention_fwd<norope>": 2 * T_DEPTH,
-        "adaln_rms_modulate_fwd": 2 * norms * T_DEPTH + 1,
-        "gated_residual_adaln_fwd": 2 * joins * T_DEPTH,
-        "bias_gelu_fwd": 2 * T_DEPTH,
-        bwd_k: T_DEPTH * per_layer,
-        "short_attention_bwd<norope>": T_DEPTH,
-        "adaln_rms_modulate_bwd": norms * T_DEPTH + 1,
-        "gated_residual_adaln_bwd": joins * T_DEPTH,
-        "bias_gelu_bwd": T_DEPTH,
-        "adamw_multi_tensor": 1})
+        fwd_k: 2 * depth * per_layer,
+        "short_attention_fwd<norope>": 2 * depth,
+        "adaln_rms_modulate_fwd": 2 * norms * depth + 1,
+        "gated_residual_adaln_fwd": 2 * joins * depth,
+        "bias_gelu_fwd": 2 * depth,
+        bwd_k: depth * per_layer,
+        "short_attention_bwd<norope>": depth,
+        "adaln_rms_modulate_bwd": norms * depth + 1,
+        "gated_residual_adaln_bwd": joins * depth,
+        "bias_gelu_bwd": depth,
+        "adamw_multi_tensor": adamw,
+        "adamw_multi_tensor<bf16>": adamw if bf16_params else 0})
     return per_step
 
 
@@ -2095,6 +2125,365 @@ def phase_train_parity(dev, width: int, latent, b: int, tag: str,
         raise AssertionError("card and CPU training disagree")
 
 
+# the optimizer-in-backward XL configuration (JAX `bench.py --xl`,
+# bench.py:146-171): the train CLI's flags, batch 16 of [16, 8, 32, 32]
+# latents (`--synthetic_t_choices 8`), L = 1040, the demo DiT's width
+XL_ARGV = ("--model_width", "2048", "--model_depth", "24", "--batch_size",
+           "16", "--synthetic_t_choices", "8", "--optimizer_in_backward",
+           "true", "--nu_factored", "true", "--param_dtype", "bf16",
+           "--moments_dtype", "bf16")
+# beside it the standard step at the XL width: batch 8, fp32 parameters,
+# bf16 moments (the demo-width cell of the sharded-training runs)
+XL_STD_ARGV = ("--model_width", "2048", "--model_depth", "24",
+               "--batch_size", "8", "--synthetic_t_choices", "8",
+               "--moments_dtype", "bf16")
+XL_LATENT, XL_L, XL_STEPS = (16, 8, 32, 32), 1040, 4
+
+
+def xl_block_leaves():
+    """Name → shape of one block of the XL DiT (the train CLI's config)."""
+    from video_diffusion_speedrun_tpu_torch.models.dit import DiT
+    from video_diffusion_speedrun_tpu_torch.train.__main__ import (
+        build_config,
+        parse_args,
+    )
+
+    model = DiT(build_config(parse_args(list(XL_ARGV))).model,
+                device="meta")
+    return {n: tuple(p.shape) for n, p in model.blocks[0].named_parameters()}
+
+
+def adamw_bf16_row(dev):
+    """Row 17 in its bf16 mode: bf16 parameters and gradients with bf16
+    moments, on one XL block's leaves (all exact ν), 3 steps against the
+    twin; timed beside the twin and `torch.optim.AdamW(fused=True)`."""
+    from video_diffusion_speedrun_tpu_torch.ops import fused_adamw as fw
+
+    name = "adamw_multi_tensor<bf16>"
+    gen = torch.Generator(device=dev).manual_seed(9)
+    b1, b2, eps = 0.95, 0.99, 1e-8
+    shapes = list(xl_block_leaves().values())
+    bf = torch.bfloat16
+    ps = [(torch.randn(sh, generator=gen, device=dev) * 0.02).to(bf)
+          for sh in shapes]
+    ms_, vs = ([torch.zeros_like(p) for p in ps] for _ in "mv")
+    lrs = [T_LR * 32 / sh[-1] for sh in shapes]
+    wds = [0.1 * sh[-1] / 1024 for sh in shapes]
+    kern = fw.MultiTensorAdamW(ps, ms_, vs, lrs, wds, b1, b2, eps)
+    n = sum(p.numel() for p in ps)
+    lr_atol = torch.cat([torch.full((p.numel(),), 2.0 ** -7 * lr, device=dev)
+                         for p, lr in zip(ps, lrs)])
+    what = f"bf16 parameters and moments, one XL block's {len(shapes)} leaves"
+    err = 0.0
+    for step in range(3):
+        # each step from the kernel's state, so that one update is held
+        # against one update
+        twin, mt, vt = ([t.clone() for t in ts] for ts in (ps, ms_, vs))
+        grads = [(torch.randn(sh, generator=gen, device=dev) * 1e-3).to(bf)
+                 for sh in shapes]
+        sc = fw.step_scalars(step, 1.0 - step / 8, b1, b2)
+        kern(grads, *sc)
+        for i, g in enumerate(grads):
+            fw.adamw_leaf_update_plain(twin[i], mt[i], vt[i], g, lrs[i],
+                                       wds[i], *sc, b1, b2, eps)
+        torch.cuda.synchronize()
+        err = max(err, check_close(
+            name, f"{what}, step {step}, p",
+            torch.cat([p.flatten() for p in ps]),
+            torch.cat([p.flatten() for p in twin]), 2.0 ** -7, lr_atol,
+            "one bf16 ulp: the twin's reciprocal division moves the fp32 "
+            "delta by an ulp, and its bf16 roundings can fall the other "
+            "way"))
+        err = max(err, check_close(
+            name, f"{what}, step {step}, m, v",
+            torch.cat([t.flatten() for t in ms_ + vs]),
+            torch.cat([t.flatten() for t in mt + vt]), 0.0, 0.0,
+            "no division: bit-equal"))
+    grads = [(torch.randn(sh, generator=gen, device=dev) * 1e-3).to(bf)
+             for sh in shapes]
+    sc = fw.step_scalars(3, 1.0, b1, b2)
+    ms = cuda_ms(lambda: kern(grads, *sc), iters=20, warmup=2)
+
+    def twin_step():
+        for p, m, v, g, lr, wd in zip(twin, mt, vt, grads, lrs, wds):
+            fw.adamw_leaf_update_plain(p, m, v, g, lr, wd, *sc, b1, b2, eps)
+
+    plain_ms = cuda_ms(twin_step, iters=3, warmup=1)
+    # yardstick only: PyTorch's fused AdamW over the same bf16 leaves
+    lib_p = [p.clone() for p in ps]
+    for p, g in zip(lib_p, grads):
+        p.grad = g
+    lib = torch.optim.AdamW(lib_p, lr=1e-3, betas=(b1, b2), eps=eps,
+                            weight_decay=0.1, fused=True)
+    lib_ms = cuda_ms(lib.step, iters=20, warmup=2)
+    # reads p, g, m, v and writes p, m, v, 2 bytes each; ~17 fp32 operations
+    bms, by = bound(14 * n, 0, 17 * n)
+    log(f"[kernels] {name}: {len(shapes)} leaves, {n / 1e6:.1f} M params: "
+        f"kernel {ms:.4f} ms, twin {plain_ms:.4f} ms, torch AdamW(fused) "
+        f"{lib_ms:.4f} ms, bound {bms:.4f} ms ({by}), "
+        f"{14 * n / ms / 1e6:.1f} GB/s")
+    del ps, twin, ms_, vs, mt, vt, grads, lib, lib_p
+    torch.cuda.empty_cache()
+    return {name: dict(
+        name=name, route="cuda",
+        source="video_diffusion_speedrun_tpu_torch/csrc/adamw_multi_tensor.cu",
+        replaces="video_diffusion_speedrun_tpu/ops/fused_adamw.py:66",
+        max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
+        library_ms=lib_ms)}
+
+
+def inloop_update_times(dev):
+    """What the optimizer-in-backward step's update of one XL block costs
+    on the card: the AdamW kernel on the block group's exact leaves (the
+    biases and λ; the weights keep factored ν) against its bound, and the
+    factored update (plain torch) of its weights; ms each, CUDA events."""
+    from video_diffusion_speedrun_tpu_torch.ops import fused_adamw as fw
+    from video_diffusion_speedrun_tpu_torch.train.optim import (
+        FNu,
+        factored_leaf_update,
+    )
+
+    gen = torch.Generator(device=dev).manual_seed(5)
+    bf, b1, b2, eps = torch.bfloat16, 0.95, 0.99, 1e-8
+    leaves = xl_block_leaves()
+    exact = [sh for sh in leaves.values() if len(sh) < 2]
+    fac = [sh for sh in leaves.values() if len(sh) == 2]
+
+    def make(sh):
+        p = (torch.randn(sh, generator=gen, device=dev) * 0.02).to(bf)
+        g = (torch.randn(sh, generator=gen, device=dev) * 1e-3).to(bf)
+        return p, torch.zeros_like(p), g
+
+    ex = [make(sh) for sh in exact]
+    kern = fw.MultiTensorAdamW([t[0] for t in ex], [t[1] for t in ex],
+                               [torch.zeros_like(t[0]) for t in ex],
+                               [1e-3] * len(ex), [0.0] * len(ex), b1, b2, eps)
+    sc = fw.step_scalars(0, 1.0, b1, b2)
+    grads = [t[2] for t in ex]
+    kernel_ms = cuda_ms(lambda: kern(grads, *sc), iters=50, warmup=3)
+    n_exact = sum(t[0].numel() for t in ex)
+    kernel_bound, _ = bound(14 * n_exact, 0, 17 * n_exact)
+    fl = [make(sh) + (FNu(torch.zeros(sh[1], device=dev),
+                          torch.zeros(sh[0], device=dev)), sh)
+          for sh in fac]
+
+    def factored():
+        for p, m, g, nu, sh in fl:
+            factored_leaf_update(p, m, nu, g, 1e-3, 0.1, 1.0, *sc[1:], b1,
+                                 b2, eps, sh)
+
+    fac_ms = cuda_ms(factored, iters=5, warmup=1)
+    n_fac = sum(p.numel() for p, *_ in fl)
+    # p, m, g read and p, m written (bf16), the factors negligible
+    fac_bound, _ = bound(10 * n_fac, 0, 20 * n_fac)
+    del ex, fl, grads, kern
+    torch.cuda.empty_cache()
+    return dict(kernel_ms=kernel_ms, kernel_bound=kernel_bound,
+                n_exact=n_exact, factored_ms=fac_ms, factored_bound=fac_bound,
+                n_factored=n_fac)
+
+
+def phase_train_inloop(dev):
+    """The XL configuration through the train CLI's `main` (phase 24 of
+    the docstring): XL_STEPS optimizer-in-backward steps, then the
+    standard step at the XL width and batch 8. Each run: the launch
+    counters set to 0 just before `main` and read just after, the steps
+    timed between synchronisations (step 0 warm-up), the last one
+    profiled, the peak memory of the run. Returns both runs' counts."""
+    import gc
+    import tempfile
+
+    from video_diffusion_speedrun_tpu_torch.train import __main__ as cli
+    from video_diffusion_speedrun_tpu_torch.train import loop
+
+    upd = inloop_update_times(dev)
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    runs, results = [], {}
+    for tag, argv, attr, batch in (
+            ("train-inloop", XL_ARGV, "inloop_step", 16),
+            ("train-xl-standard", XL_STD_ARGV, "train_step", 8)):
+        step_fn = getattr(loop, attr)
+        losses, ms, prof = [], [], []
+
+        def timed(*a, _fn=step_fn, **k):
+            if len(ms) == XL_STEPS - 1:  # the last step: profiled
+                out = []
+                prof.append(profile_device(
+                    lambda: out.append(_fn(*a, **k)), "one train step",
+                    tag + "-profile", rows=12))
+                losses.append(float(out[0]["loss"]))
+                ms.append(float("nan"))
+                return out[0]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            m = _fn(*a, **k)
+            losses.append(float(m["loss"]))  # synchronises
+            ms.append(1e3 * (time.perf_counter() - t0))
+            return m
+
+        setattr(loop, attr, timed)
+        # what earlier phases left in reference cycles is not this run's
+        gc.collect()
+        torch.cuda.empty_cache()
+        held = torch.cuda.memory_allocated(dev) / 1e9
+        torch.cuda.reset_peak_memory_stats(dev)
+        reset_counters()
+        t0 = time.perf_counter()
+        try:
+            with tempfile.TemporaryDirectory() as tmp:
+                # evaluate_every 1: `step % 1 == 1` never holds, so the run
+                # neither evaluates nor writes an 11 GB checkpoint (the
+                # ckpt phase covers both)
+                cli.main([*argv, "--max_steps", str(XL_STEPS),
+                          "--evaluate_every", "1", "--log_every", "1",
+                          "--checkpoint_dir", tmp])
+        finally:
+            setattr(loop, attr, step_fn)
+        wall = time.perf_counter() - t0
+        launches = read_counters()
+        peak = torch.cuda.max_memory_allocated(dev) / 1e9
+        inloop = attr == "inloop_step"
+        per_step = train_step_launches(
+            XL_L, depth=DEPTH, adamw=DEPTH + 1 if inloop else 1,
+            bf16_params=inloop)
+        want = {k: XL_STEPS * v for k, v in per_step.items()}
+        steady = float(np.median(ms[1:XL_STEPS - 1]))
+        busy = prof[0][1] if prof and prof[0] else None
+        log(f"[{tag}] {' '.join(argv)}: {XL_STEPS} steps in {wall:.1f} s "
+            f"(the CLI's start-up included); losses {losses}; "
+            f"{steady:.2f} ms per step (median of steps 1–{XL_STEPS - 2}, "
+            f"{ms[:XL_STEPS - 1]}), device busy "
+            f"{'not measured' if busy is None else f'{busy:.2f}'} ms of the "
+            f"profiled step; peak memory {peak:.2f} GB ({held:.2f} GB held "
+            f"before the run); {smi}")
+        log(f"[{tag}] launches {launches}, expected {want}")
+        if not all(np.isfinite(losses)) or len(losses) != XL_STEPS:
+            raise AssertionError(f"{tag}: losses {losses}")
+        if launches != want:
+            raise AssertionError(f"{tag}: launch counts {launches} != {want}")
+        results[tag] = (steady, busy, peak)
+        runs.append(launches)
+        gc.collect()
+        torch.cuda.empty_cache()
+    steady, busy, peak = results["train-inloop"]
+    per_step_fac = DEPTH * upd["factored_ms"]
+    log(f"[train-inloop] one block group's AdamW launch over its "
+        f"{upd['n_exact']} exact elements (biases, λ): "
+        f"{upd['kernel_ms']:.4f} ms, bound {upd['kernel_bound']:.5f} ms "
+        f"(bytes); {DEPTH + 1} launches a step. The factored update of one "
+        f"block's {upd['n_factored'] / 1e6:.1f} M weight elements (plain "
+        f"torch): {upd['factored_ms']:.3f} ms (bound "
+        f"{upd['factored_bound']:.3f} ms), × {DEPTH} = {per_step_fac:.1f} "
+        f"ms a step, {100 * per_step_fac / steady:.1f}% of the "
+        f"{steady:.2f} ms step")
+    std = results["train-xl-standard"]
+    log(f"[train-inloop] XL in-backward at batch 16: {steady:.2f} ms, peak "
+        f"{peak:.2f} GB; the standard XL step at batch 8 (fp32 parameters, "
+        f"bf16 moments): {std[0]:.2f} ms, peak {std[2]:.2f} GB; {smi}")
+    return runs
+
+
+def phase_inloop_parity(dev):
+    """Depth 2 at the canonical width, L = 528, 3 steps on the same
+    weights and injected batches: the optimizer-in-backward step with the
+    XL flags (bf16 parameters and moments, factored ν) on the card
+    (kernels) against the CPU (fp32 compute, twins); and on fp32
+    parameters with exact ν against the card's standard step. The losses
+    and the step-1 gradients the optimizer received, at the train-parity
+    limits."""
+    from video_diffusion_speedrun_tpu_torch.core.config import (
+        OptimizerConfig,
+        TrainConfig,
+    )
+    from video_diffusion_speedrun_tpu_torch.models.dit import DiT
+    from video_diffusion_speedrun_tpu_torch.train.inloop import inloop_step
+    from video_diffusion_speedrun_tpu_torch.train.optim import MupAdamW
+    from video_diffusion_speedrun_tpu_torch.train.step import train_step
+
+    steps, b = 3, 4
+    bf = torch.bfloat16
+    cpu_f32 = DiT(train_config(2, compute_dtype=torch.float32,
+                               attention_impl="fused", fused_adaln="fused"),
+                  device="cpu", init_std_factor=0.1, seed=0)
+    randomize_zero_layers(cpu_f32, torch.Generator().manual_seed(1))
+    weights = cpu_f32.state_dict()
+    cpu_bf = DiT(cpu_f32.cfg.replace(param_dtype=bf), device="cpu")
+    cpu_bf.load_state_dict(weights)
+    del cpu_f32
+
+    rng = np.random.default_rng(0)
+    c, t, hh, ww = T_LATENT
+    data = [dict(
+        latent=rng.standard_normal((b, c, t, hh, ww), np.float32),
+        context=rng.standard_normal((b, CTX_LEN, CTX_DIM), np.float32) * 0.05,
+        timesteps=rng.uniform(0.02, 0.98, b).astype(np.float32),
+        noise=rng.standard_normal((b, c, t // 2 * 2, hh, ww), np.float32),
+        rope_offsets=rng.integers(0, 100, 3)) for _ in range(steps)]
+
+    def opt_cfg(**kw):
+        return OptimizerConfig(learning_rate=T_LR, scheduler="linear",
+                               warmup_steps=0, **kw)
+
+    def run(model, device, ocfg, step_fn):
+        cfg = TrainConfig(model=model.cfg, batch_size=b, max_steps=steps,
+                          caption_dropout=0.0, optimizer=ocfg)
+        opt = MupAdamW(model.named_parameters(), T_LR, steps, ocfg)
+        grads = {}
+        step, update = opt.step, opt.update_group
+
+        def keep(names, gs):
+            for n, g in zip(names, gs):
+                if g is not None and opt.count == 0:
+                    grads[n] = g.detach().float().cpu()
+
+        opt.step = lambda gs: (keep(opt.names, gs), step(gs))
+        opt.update_group = lambda group, gs: (keep(
+            [opt.names[i] for i in opt.groups[group]], gs),
+            update(group, gs))
+        batches = [{k: torch.from_numpy(np.asarray(v)).to(device)
+                    for k, v in bt.items()} for bt in data]
+        losses = [float(step_fn(model, opt, bt, None, cfg)["loss"])
+                  for bt in batches]
+        return losses, grads, sum(opt.factored)
+
+    xl = opt_cfg(moments_dtype=bf, in_backward=True, nu_factored=True)
+    t0 = time.perf_counter()
+    cpu = run(cpu_bf, "cpu", xl, inloop_step)
+    cpu_s = time.perf_counter() - t0
+    card_bf = DiT(train_config(2, param_dtype=bf), device=dev)
+    card_bf.load_state_dict(weights)
+    card = run(card_bf, dev, xl, inloop_step)
+    del card_bf
+    pairs = [(f"in-backward, XL flags: card vs CPU (CPU run {cpu_s:.1f} s)",
+              card, cpu)]
+    for_std = []
+    for ocfg, fn in ((opt_cfg(in_backward=True), inloop_step),
+                     (opt_cfg(), train_step)):
+        model = DiT(train_config(2), device=dev)
+        model.load_state_dict(weights)
+        for_std.append(run(model, dev, ocfg, fn))
+        del model
+    pairs.append(("in-backward vs standard step, fp32 parameters, on the "
+                  "card", *for_std))
+    torch.cuda.empty_cache()
+    for what, (losses, grads, n_fac), (ref_losses, ref_grads, _) in pairs:
+        loss_rel = max(abs(a / w - 1) for a, w in zip(losses, ref_losses))
+        rel, (worst, worst_rel) = grad_rel_l2(grads, ref_grads)
+        ok = (loss_rel <= TRAIN_LOSS_REL and rel <= TRAIN_GRAD_REL_L2
+              and all(np.isfinite(losses)))
+        log(f"[inloop-parity] {what}: depth 2, width {T_WIDTH}, batch {b}, "
+            f"L={T_L}, {steps} steps, {n_fac} leaves with factored ν; losses "
+            f"{losses} vs {ref_losses}: relative {loss_rel:.3e} (tol "
+            f"{TRAIN_LOSS_REL}); step-1 gradients relative L2 {rel:.3e}, "
+            f"worst tensor {worst} {worst_rel:.3e} (tol {TRAIN_GRAD_REL_L2})"
+            f" {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"inloop-parity: {what} disagree")
+
+
 def phase_serve_cp(dev, model, context):
     """The demo DiT at the sampling CLI's default 512×512×16 (L = 8208)
     over `LocalRing(cp)` for cp in CP_SERVE: one request of CP_STEPS Euler
@@ -2243,6 +2632,11 @@ FSDP_ONE_CARD = (("fsdp 2", (1, 2, 1, 1)), ("tensor 2", (1, 1, 1, 2)))
 FSDP_CARDS = {2: FSDP_ONE_CARD,
               4: (("replica 2 x fsdp 2", (2, 2, 1, 1)),
                   ("fsdp 2 x tensor 2", (1, 2, 1, 2)))}
+# the optimizer-in-backward step at fsdp 2 (gathers and reduce-scatters of
+# its own, the factored ν's sums over fsdp), against one process of it
+FSDP_INLOOP = ("in-backward fsdp 2", (1, 2, 1, 1))
+FSDP_INLOOP_STEPS = 2  # its per-leaf collectives cross the host (gloo)
+INLOOP_FLAGS = ("--optimizer_in_backward", "true", "--nu_factored", "true")
 # kernel wrappers whose launch shapes the phase records: module, name
 FSDP_SHAPED = (("fused_attention", "qkv_rope_flash_forward"),
                ("fused_attention", "cross_flash_forward"),
@@ -2252,9 +2646,10 @@ FSDP_SHAPED = (("fused_attention", "qkv_rope_flash_forward"),
                ("fused_gelu", "bias_gelu_backward"))
 
 
-def fsdp_config(mesh=(1, 1, 1, 1)):
-    """The canonical training config on `mesh`, without caption dropout
-    (its draws would come from each process's global generator)."""
+def fsdp_config(mesh=(1, 1, 1, 1), flags=()):
+    """The canonical training config (with the train CLI's `flags`) on
+    `mesh`, without caption dropout (its draws would come from each
+    process's global generator)."""
     from video_diffusion_speedrun_tpu_torch.train.__main__ import (
         build_config,
         parse_args,
@@ -2262,7 +2657,7 @@ def fsdp_config(mesh=(1, 1, 1, 1)):
 
     r, f, c, t = mesh
     extra = ("--mesh_replica", str(r), "--mesh_fsdp", str(f),
-             "--mesh_context", str(c), "--mesh_tensor", str(t))
+             "--mesh_context", str(c), "--mesh_tensor", str(t), *flags)
     cfg = build_config(parse_args(train_argv(T_DEPTH, extra=extra)))
     return dataclasses.replace(cfg, caption_dropout=0.0)
 
@@ -2308,29 +2703,39 @@ def fsdp_trainer(dev, cfg):
 
 
 def fsdp_steps(trainer, cfg, batches):
-    """The train steps on this data shard's rows of `batches`, counters set
-    to 0 just before and read just after: (losses, ms per step, step-1
-    gradients whole as name → fp32 host tensor, counts)."""
+    """The train steps (the config's: standard or in-backward) on this data
+    shard's rows of `batches`, counters set to 0 just before and read just
+    after: (losses, ms per step, step-1 gradients whole as name → fp32
+    host tensor, counts)."""
     from video_diffusion_speedrun_tpu_torch.parallel.mesh import (
         local_batch_slice,
     )
-    from video_diffusion_speedrun_tpu_torch.train.step import train_step
+    from video_diffusion_speedrun_tpu_torch.train.step import step_for
 
+    train_step = step_for(cfg)
     opt, sh = trainer.opt, trainer.sharding
     local = local_batch_slice(trainer.mesh, T_BATCH)
     lo = trainer.data_rank * local
     grads = {}
-    step = opt.step
+    step, update = opt.step, opt.update_group
+
+    def keep(names, gs):
+        for n, g in zip(names, gs):
+            if g is not None:
+                w = g if sh is None else sh.gathered(n, g)
+                grads[n] = w.detach().float().cpu()
 
     def keep_first(gs):
         if not grads:
-            for n, g in zip(opt.names, gs):
-                if g is not None:
-                    w = g if sh is None else sh.gathered(n, g)
-                    grads[n] = w.detach().float().cpu()
+            keep(opt.names, gs)
         step(gs)
 
-    opt.step = keep_first
+    def keep_first_group(group, gs):
+        if opt.count == 0:
+            keep([opt.names[i] for i in opt.groups[group]], gs)
+        update(group, gs)
+
+    opt.step, opt.update_group = keep_first, keep_first_group
     losses, ms = [], []
     torch.cuda.synchronize()
     reset_counters()
@@ -2345,7 +2750,7 @@ def fsdp_steps(trainer, cfg, batches):
         torch.cuda.synchronize()
         ms.append(1e3 * (time.perf_counter() - t0))
     counts = read_counters()
-    opt.step = step
+    opt.step, opt.update_group = step, update
     return losses, ms, grads, counts
 
 
@@ -2358,7 +2763,8 @@ def _fsdp_card(backend: str, rank: int) -> torch.device:
 
 
 def _fsdp_worker(rank: int, world: int, port: int, backend: str, mesh,
-                 ref_path: str, out_path: str) -> None:
+                 ref_path: str, out_path: str, flags=(),
+                 steps: int = FSDP_STEPS) -> None:
     """One rank of a train-fsdp mesh: gloo ranks share card 0, NCCL rank r
     takes card r. Rank 0 compares the gathered step-1 gradients and the
     losses with the one-process run in `ref_path` and writes the results;
@@ -2388,15 +2794,18 @@ def _fsdp_worker(rank: int, world: int, port: int, backend: str, mesh,
         record.launches = orig.launches
         setattr(module, name, record)
     try:
-        cfg = fsdp_config(mesh)
+        cfg = fsdp_config(mesh, flags)
         trainer = fsdp_trainer(dev, cfg)
-        batches = fsdp_batches(dev, cfg, FSDP_STEPS)
+        batches = fsdp_batches(dev, cfg, steps)
         losses, ms, grads, counts = fsdp_steps(trainer, cfg, batches)
-        kernel = trainer.opt._kernel
+        opt = trainer.opt
+        kernels = ([opt._kernel] if opt._kernel is not None
+                   else list(opt._group_kernels.values()))
         res = {"losses": losses, "ms": ms, "counts": counts,
                "shapes": {k: sorted(v) for k, v in shapes.items()},
-               "adamw_leaves": kernel.n_leaves,
-               "adamw_elems": int(kernel.numel.sum()),
+               "adamw_leaves": sum(k.n_leaves for k in kernels),
+               "adamw_elems": sum(int(k.numel.sum()) for k in kernels),
+               "factored": sum(opt.factored),
                "data_rank": trainer.data_rank,
                "peak_gb": torch.cuda.max_memory_allocated(dev) / 1e9}
         if rank == 0:
@@ -2413,31 +2822,51 @@ def _fsdp_worker(rank: int, world: int, port: int, backend: str, mesh,
 
 def phase_train_fsdp(dev):
     """FSDP2 and tensor parallelism of the canonical DiT (phase 23 of the
-    docstring). Returns the counts of every rank of every mesh."""
+    docstring), and the optimizer-in-backward step at fsdp 2. Returns the
+    counts of every rank of every mesh."""
     import socket
     import tempfile
 
     import torch.multiprocessing as mp
 
-    cfg = fsdp_config()
-    trainer = fsdp_trainer(dev, cfg)
-    batches = fsdp_batches(dev, cfg, FSDP_STEPS)
-    losses, ms, grads, counts = fsdp_steps(trainer, cfg, batches)
-    del trainer, batches
-    torch.cuda.empty_cache()
+    def one_process(flags, steps):
+        cfg = fsdp_config(flags=flags)
+        trainer = fsdp_trainer(dev, cfg)
+        batches = fsdp_batches(dev, cfg, steps)
+        out = fsdp_steps(trainer, cfg, batches)
+        del trainer, batches
+        torch.cuda.empty_cache()
+        return cfg, out
+
+    cfg, (losses, ms, grads, counts) = one_process((), FSDP_STEPS)
     want = {k: FSDP_STEPS * v for k, v in train_step_launches(T_L).items()}
     if counts != want:
         raise AssertionError(f"one-process launch counts {counts} != {want}")
     log(f"[train-fsdp] one process: losses {losses}, "
         f"{np.median(ms):.2f} ms per step (median)")
+    _, (ib_losses, ib_ms, ib_grads, ib_counts) = one_process(
+        INLOOP_FLAGS, FSDP_INLOOP_STEPS)
+    ib_want = {k: FSDP_INLOOP_STEPS * v for k, v in train_step_launches(
+        T_L, adamw=T_DEPTH + 1).items()}
+    if ib_counts != ib_want:
+        raise AssertionError(f"one-process in-backward launch counts "
+                             f"{ib_counts} != {ib_want}")
+    log(f"[train-fsdp] one process, in-backward with factored ν: losses "
+        f"{ib_losses}, {np.median(ib_ms):.2f} ms per step (median)")
     n_cards = torch.cuda.device_count()
-    forms = [("gloo", 2, FSDP_ONE_CARD)]
+    # (backend, world, label, mesh, train CLI flags, steps, reference,
+    # counts)
+    forms = [("gloo", 2, label, mesh, (), FSDP_STEPS, "ref", want)
+             for label, mesh in FSDP_ONE_CARD]
+    forms.append(("gloo", 2, *FSDP_INLOOP, INLOOP_FLAGS, FSDP_INLOOP_STEPS,
+                  "ref_ib", ib_want))
     log("[train-fsdp] form: 2 processes on card 0 over gloo (NCCL refuses "
         "two ranks on one device; gloo stages every collective through the "
         "host, so these runs check correctness, not time)")
     for cards in (2, 4):
         if n_cards >= cards:
-            forms.append(("nccl", cards, FSDP_CARDS[cards]))
+            forms += [("nccl", cards, label, mesh, (), FSDP_STEPS, "ref",
+                       want) for label, mesh in FSDP_CARDS[cards]]
         else:
             log(f"[train-fsdp] NCCL over {cards} cards not run: this machine "
                 f"has {n_cards} CUDA card(s)")
@@ -2445,62 +2874,69 @@ def phase_train_fsdp(dev):
                          cfg.model.mlp_hidden)
     runs = []
     with tempfile.TemporaryDirectory() as tmp:
-        ref_path = str(Path(tmp) / "ref.pt")
-        torch.save({"losses": losses, "grads": grads}, ref_path)
-        del grads
-        for backend, world, meshes in forms:
-            for label, mesh in meshes:
-                with socket.socket() as sock:
-                    sock.bind(("localhost", 0))
-                    port = sock.getsockname()[1]
-                out = str(Path(tmp) / f"{backend}{world}")
-                t0 = time.perf_counter()
-                mp.start_processes(
-                    _fsdp_worker,
-                    args=(world, port, backend, mesh, ref_path, out),
-                    nprocs=world, start_method="spawn")
-                wall = time.perf_counter() - t0
-                res = [json.loads(Path(f"{out}.{r}").read_text())
-                       for r in range(world)]
-                tag = f"[train-fsdp] {backend} {label}"
-                r0 = res[0]
-                ok = (r0["loss_rel"] <= TRAIN_LOSS_REL
-                      and r0["grad_rel"] <= TRAIN_GRAD_REL_L2
-                      and r0["worst_rel"] <= TRAIN_GRAD_REL_L2)
-                log(f"{tag}: {world} ranks, {wall:.1f} s; losses "
-                    f"{r0['losses']} against one process's {losses}: "
-                    f"relative {r0['loss_rel']:.3e} (tol {TRAIN_LOSS_REL}); "
-                    f"step-1 gradient relative L2 {r0['grad_rel']:.3e}, worst "
-                    f"tensor {r0['worst']} {r0['worst_rel']:.3e} (tol "
-                    f"{TRAIN_GRAD_REL_L2} each) {'ok' if ok else 'FAIL'}")
-                if not ok:
-                    raise AssertionError("sharded training and one-process "
-                                         "training disagree")
-                t = mesh[3]
-                local = {"qkv_rope_flash_forward": 3 * width // t,
-                         "qkv_rope_flash_backward": 3 * width // t,
-                         "cross_flash_forward": width // t,
-                         "cross_flash_backward": width // t,
-                         "bias_gelu_forward": mlp // t,
-                         "bias_gelu_backward": mlp // t}
-                for r, rr in enumerate(res):
-                    widths = {k: sorted({sh[-1] for sh in v})
-                              for k, v in rr["shapes"].items()}
-                    if rr["counts"] != want:
-                        raise AssertionError(f"{tag} rank {r}: launch counts "
-                                             f"{rr['counts']} != {want}")
-                    if widths != {k: [w] for k, w in local.items()}:
-                        raise AssertionError(f"{tag} rank {r}: kernels "
-                                             f"launched at widths {widths}, "
-                                             f"want {local}")
-                    log(f"{tag} rank {r} (data rank {rr['data_rank']}): "
-                        f"{np.median(rr['ms']):.2f} ms per step (median), "
-                        f"peak {rr['peak_gb']:.2f} GB; launches as one "
-                        f"process; kernel launch shapes {rr['shapes']} "
-                        f"({heads // t} of {heads} heads, {mlp // t} of {mlp} "
-                        f"MLP columns); AdamW over {rr['adamw_leaves']} local "
-                        f"leaves, {rr['adamw_elems'] / 1e6:.2f} M elements")
-                    runs.append(rr["counts"])
+        refs = {"ref": (losses, grads), "ref_ib": (ib_losses, ib_grads)}
+        for key, (ref_losses, ref_grads) in refs.items():
+            torch.save({"losses": ref_losses, "grads": ref_grads},
+                       str(Path(tmp) / f"{key}.pt"))
+        del grads, ib_grads, refs
+        for (backend, world, label, mesh, flags, steps, ref,
+             mesh_want) in forms:
+            ref_path = str(Path(tmp) / f"{ref}.pt")
+            ref_losses = ib_losses if ref == "ref_ib" else losses
+            with socket.socket() as sock:
+                sock.bind(("localhost", 0))
+                port = sock.getsockname()[1]
+            out = str(Path(tmp) / f"{backend}{world}")
+            t0 = time.perf_counter()
+            mp.start_processes(
+                _fsdp_worker,
+                args=(world, port, backend, mesh, ref_path, out, flags,
+                      steps),
+                nprocs=world, start_method="spawn")
+            wall = time.perf_counter() - t0
+            res = [json.loads(Path(f"{out}.{r}").read_text())
+                   for r in range(world)]
+            tag = f"[train-fsdp] {backend} {label}"
+            r0 = res[0]
+            ok = (r0["loss_rel"] <= TRAIN_LOSS_REL
+                  and r0["grad_rel"] <= TRAIN_GRAD_REL_L2
+                  and r0["worst_rel"] <= TRAIN_GRAD_REL_L2)
+            log(f"{tag}: {world} ranks, {wall:.1f} s; losses "
+                f"{r0['losses']} against one process's {ref_losses}: "
+                f"relative {r0['loss_rel']:.3e} (tol {TRAIN_LOSS_REL}); "
+                f"step-1 gradient relative L2 {r0['grad_rel']:.3e}, worst "
+                f"tensor {r0['worst']} {r0['worst_rel']:.3e} (tol "
+                f"{TRAIN_GRAD_REL_L2} each) {'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError("sharded training and one-process "
+                                     "training disagree")
+            t = mesh[3]
+            local = {"qkv_rope_flash_forward": 3 * width // t,
+                     "qkv_rope_flash_backward": 3 * width // t,
+                     "cross_flash_forward": width // t,
+                     "cross_flash_backward": width // t,
+                     "bias_gelu_forward": mlp // t,
+                     "bias_gelu_backward": mlp // t}
+            for r, rr in enumerate(res):
+                widths = {k: sorted({sh[-1] for sh in v})
+                          for k, v in rr["shapes"].items()}
+                if rr["counts"] != mesh_want:
+                    raise AssertionError(f"{tag} rank {r}: launch counts "
+                                         f"{rr['counts']} != {mesh_want}")
+                if widths != {k: [w] for k, w in local.items()}:
+                    raise AssertionError(f"{tag} rank {r}: kernels "
+                                         f"launched at widths {widths}, "
+                                         f"want {local}")
+                log(f"{tag} rank {r} (data rank {rr['data_rank']}): "
+                    f"{np.median(rr['ms']):.2f} ms per step (median), "
+                    f"peak {rr['peak_gb']:.2f} GB; launches as one "
+                    f"process; kernel launch shapes {rr['shapes']} "
+                    f"({heads // t} of {heads} heads, {mlp // t} of {mlp} "
+                    f"MLP columns); AdamW over {rr['adamw_leaves']} local "
+                    f"leaves, {rr['adamw_elems'] / 1e6:.2f} M elements"
+                    + (f"; {rr['factored']} leaves with factored ν"
+                       if rr["factored"] else ""))
+                runs.append(rr["counts"])
     return runs
 
 
@@ -2529,7 +2965,7 @@ def main_train_mesh(argv) -> int:
         parse_args,
     )
     from video_diffusion_speedrun_tpu_torch.train.loop import Trainer
-    from video_diffusion_speedrun_tpu_torch.train.step import train_step
+    from video_diffusion_speedrun_tpu_torch.train.step import step_for
 
     steps, flags = int(argv[0]), list(argv[1:])
     latent = T_LATENT
@@ -2542,6 +2978,7 @@ def main_train_mesh(argv) -> int:
         cfg.data, synthetic_shape=latent))
     dev = pmesh.init_distributed(resolve_device(args.device))
     trainer = Trainer(cfg, device=dev)
+    train_step = step_for(cfg)  # or the optimizer-in-backward step
     main = pmesh.global_rank() == 0
     tag = f"train-mesh {pmesh.world_size()} x {cfg.mesh}"
     loader = trainer.batches("train")
@@ -3784,6 +4221,8 @@ def main() -> int:
                       evaluate=False)[0])
     runs += timed("train-cp", phase_train_cp, dev)
     runs += timed("train-fsdp", phase_train_fsdp, dev)
+    runs += timed("train-inloop", phase_train_inloop, dev)
+    timed("inloop-parity", phase_inloop_parity, dev)
     runs.append(timed("train-fr", phase_train, dev, T_BATCH, T_LATENT,
                       FR_STEPS, (), "train-fr", evaluate=False,
                       fused_residual=True)[0])

@@ -23,6 +23,17 @@ load) and restores it at fsdp 4. At WORLD 2 it encodes ids with a T5
 sharded over fsdp 2, and runs the train CLI (`main`) with `--mesh_fsdp 2`
 and then (on PORT2) `--mesh_tensor 2` to step 3.
 
+    python tests/_torch_fsdp_workers.py inloop PORT IN.npz OUT.npz DIR
+
+spawns 2 processes that run the optimizer-in-backward step
+(`train/inloop.py`) at fsdp 2 and at tensor 2, with exact and with
+factored ν (`nu_factored_min_size` 1): `STEPS` steps each, keeping the
+losses, the step-1 gradients as the optimizer receives them (gathered
+whole), the parameters and the factors after the last step (whole); and
+at fsdp 2 with factored ν a checkpoint after 1 step (under DIR), resumed
+by a fresh Trainer for the remaining steps (`inloop_resume`).
+`inloop_reference` runs the same in one process.
+
 Rank 0 writes the results to OUT.npz. This module imports no JAX: a
 spawned child runs none of the test suite's JAX set-up, and the test
 processes import it for the helpers that build both sides alike.
@@ -286,12 +297,13 @@ class _RecordingKernel:
                                     b2, eps)
 
 
-def moments(trainer) -> np.ndarray:
-    """Both Adam moments of every leaf, whole, flattened in order."""
+def moments(trainer, which=("m", "v")) -> np.ndarray:
+    """The Adam moments `which` of every leaf, whole, flattened in
+    order."""
     sh = trainer.sharding
     return np.concatenate([
         (t if sh is None else sh.gathered(n, t)).flatten().numpy()
-        for ms in (trainer.opt.m, trainer.opt.v)
+        for ms in (getattr(trainer.opt, k) for k in which)
         for n, t in zip(trainer.opt.names, ms)])
 
 
@@ -343,6 +355,130 @@ def checkpoints(data, res, directory) -> None:
     res["ckpt.fsdp4_params"] = np.concatenate(
         [t.flatten().numpy() for t in whole_params(wide).values()])
     res["ckpt.fsdp4_moments"] = moments(wide)
+
+
+# name → (mesh, factored ν) of the optimizer-in-backward runs
+INLOOP_RUNS = {"fsdp": ((1, 2, 1, 1), False),
+               "tensor": ((1, 1, 1, 2), False),
+               "fsdp_fac": ((1, 2, 1, 1), True),
+               "tensor_fac": ((1, 1, 1, 2), True)}
+
+
+def inloop_config(mesh=(1, 1, 1, 1), factored=False, **kw) -> TrainConfig:
+    """`train_config` with the optimizer in the backward (no grad norm:
+    the step refuses it)."""
+    cfg = train_config(mesh, **kw)
+    return dataclasses.replace(
+        cfg, log_grad_norm=False, optimizer=dataclasses.replace(
+            cfg.optimizer, in_backward=True, nu_factored=factored,
+            nu_factored_min_size=1))
+
+
+def inloop_steps(trainer, data, steps, first: int = 0):
+    """In-backward steps `first`.. on the injected batches: (losses, the
+    first step's gradients whole, in `opt.names` order)."""
+    from video_diffusion_speedrun_tpu_torch.parallel.mesh import (
+        local_batch_slice,
+    )
+    from video_diffusion_speedrun_tpu_torch.train.inloop import inloop_step
+
+    opt, sh = trainer.opt, trainer.sharding
+    seen = {}
+    update = opt.update_group
+
+    def keep_first(group, grads):
+        if opt.count == first:
+            for i, g in zip(opt.groups[group], grads):
+                n, p = opt.names[i], opt.params[i]
+                w = (torch.zeros(p.shape) if g is None else g.detach()
+                     if sh is None else sh.gathered(n, g))
+                seen[n] = w.flatten().clone()
+        update(group, grads)
+
+    opt.update_group = keep_first
+    local_rows = local_batch_slice(trainer.mesh, LATENT[0])
+    losses = []
+    for i in range(first, first + steps):
+        batch = local_batch(data, i, trainer.data_rank, local_rows)
+        m = inloop_step(trainer.model, opt, batch, None, trainer.cfg,
+                        trainer.context_parallel, trainer.data_group)
+        losses.append(float(m["loss"]))
+    opt.update_group = update
+    grads = (torch.cat([seen[n] for n in opt.names]).numpy() if seen
+             else np.zeros(0))
+    return np.asarray(losses), grads
+
+
+def inloop_factors(trainer) -> np.ndarray:
+    """Every factored ν's factors, whole, flattened in order."""
+    from video_diffusion_speedrun_tpu_torch.parallel.fsdp import (
+        gathered_factor,
+    )
+    from video_diffusion_speedrun_tpu_torch.train.optim import FNu
+
+    opt, out = trainer.opt, [np.zeros(0)]
+    for n, v in zip(opt.names, opt.v):
+        if isinstance(v, FNu):
+            out += [gathered_factor(trainer.sharding, n, v.vr, 1).numpy(),
+                    gathered_factor(trainer.sharding, n, v.vc, 0).numpy()]
+    return np.concatenate(out)
+
+
+def inloop_run(name, data, res, directory=None) -> None:
+    """One `INLOOP_RUNS` entry (or, for "one"/"one_fac", one process)."""
+    from video_diffusion_speedrun_tpu_torch.parallel.fsdp import (
+        load_full_state,
+    )
+    from video_diffusion_speedrun_tpu_torch.train.loop import Trainer
+
+    mesh, factored = INLOOP_RUNS.get(name, ((1, 1, 1, 1),
+                                            name.endswith("_fac")))
+    kw = {} if directory is None else dict(checkpoint_dir=directory,
+                                           run_name=name)
+    trainer = Trainer(inloop_config(mesh, factored, **kw), device="cpu")
+    load_full_state(trainer.model, state_dict_of(data))
+    losses, grads = inloop_steps(trainer, data, STEPS)
+    res[f"inloop.{name}.losses"], res[f"inloop.{name}.grads"] = losses, grads
+    res[f"inloop.{name}.params"] = np.concatenate(
+        [t.flatten().numpy() for t in whole_params(trainer).values()])
+    res[f"inloop.{name}.factors"] = inloop_factors(trainer)
+
+
+def inloop_resume(data, res, directory, mesh=(1, 2, 1, 1)) -> None:
+    """Factored ν on `mesh`: 1 step, a save, `STEPS - 1` more; a fresh
+    Trainer resumes the save and takes the same steps: parameters, μ and
+    the factors after them, from both."""
+    from video_diffusion_speedrun_tpu_torch.parallel.fsdp import (
+        load_full_state,
+    )
+    from video_diffusion_speedrun_tpu_torch.train.loop import Trainer
+
+    def make(**kw):
+        return Trainer(inloop_config(mesh, True, checkpoint_dir=directory,
+                                     run_name="inloop", **kw), device="cpu")
+
+    saver = make()
+    load_full_state(saver.model, state_dict_of(data))
+    inloop_steps(saver, data, 1)
+    saver.step = 1
+    path = saver.save_checkpoint()
+    resumed = make(load_checkpoint=path)
+    assert resumed.step == 1 and resumed.opt.count == 1
+    for tag, t in (("continuous", saver), ("resumed", resumed)):
+        losses, _ = inloop_steps(t, data, STEPS - 1, first=1)
+        res[f"resume.{tag}.losses"] = losses
+        res[f"resume.{tag}.state"] = np.concatenate(
+            [t_.flatten().numpy() for t_ in whole_params(t).values()]
+            + [moments(t, ("m",)), inloop_factors(t)])
+
+
+def inloop_reference(data, directory) -> dict:
+    """The one-process runs the sharded ones are held against."""
+    res = {}
+    for name in ("one", "one_fac"):
+        inloop_run(name, data, res)
+    inloop_resume(data, res, directory, mesh=(1, 1, 1, 1))
+    return res
 
 
 def t5_sharded(res) -> None:
@@ -418,9 +554,31 @@ def _worker(rank: int, world: int, port: int, port2: int, inp: str, out: str,
     pmesh.shutdown()
 
 
+def _inloop_worker(rank: int, port: int, inp: str, out: str,
+                   directory: str) -> None:
+    os.environ.update(WORLD_SIZE="2", RANK=str(rank), LOCAL_RANK=str(rank),
+                      MASTER_ADDR="localhost", MASTER_PORT=str(port))
+    from video_diffusion_speedrun_tpu_torch.parallel import mesh as pmesh
+
+    torch.set_num_threads(1)
+    data = dict(np.load(inp))
+    pmesh.init_distributed(torch.device("cpu"))
+    res = {}
+    for name in INLOOP_RUNS:
+        inloop_run(name, data, res)
+    inloop_resume(data, res, directory)
+    if rank == 0:
+        np.savez(out, **res)
+    pmesh.shutdown()
+
+
 def main(argv) -> None:
     import torch.multiprocessing as mp
 
+    if argv[0] == "inloop":
+        mp.start_processes(_inloop_worker, args=tuple(
+            [int(argv[1])] + argv[2:5]), nprocs=2, start_method="spawn")
+        return
     world, port, port2 = int(argv[0]), int(argv[1]), int(argv[2])
     inp, out, directory = argv[3], argv[4], argv[5]
     mp.start_processes(_worker,

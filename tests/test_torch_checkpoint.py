@@ -125,6 +125,41 @@ def test_resumed_run_equals_the_continuous_run(tmp_path, t_choices, stop,
     assert tckpt.is_port_checkpoint(str(tmp_path / "whole" / "diffusion_repa"))
 
 
+def test_resumed_inloop_run_equals_the_continuous_run(tmp_path):
+    """The optimizer-in-backward step with factored ν (every block weight,
+    `nu_factored_min_size` 1) on bf16 parameters and bf16 moments: 6
+    steps at once against 2, a save (the factors under "vr"/"vc"), and a
+    fresh Trainer that resumes: the same losses, parameters, moments and
+    factors, bit for bit."""
+    def cfg(name, **kw):
+        c = _cfg(tmp_path, name, **kw)
+        return dataclasses.replace(
+            c, model=MODEL.replace(param_dtype=torch.bfloat16),
+            optimizer=dataclasses.replace(
+                c.optimizer, in_backward=True, nu_factored=True,
+                nu_factored_min_size=1, moments_dtype=torch.bfloat16))
+
+    def state(t):
+        out = [p.detach().clone() for p in t.model.parameters()]
+        for m, v in zip(t.opt.m, t.opt.v):
+            out += [m.clone()] + [x.clone() for x in (
+                v if isinstance(v, tuple) else (v,))]
+        return out
+
+    whole = _trainer(cfg("whole"))
+    whole.train()
+    assert any(whole.opt.factored)
+    assert all(p.dtype == torch.bfloat16 for p in whole.model.parameters())
+    first = _trainer(cfg("first"))
+    first.train(until=2)
+    resumed = _trainer(cfg("again", load_checkpoint=first.save_checkpoint()))
+    assert resumed.step == 2 and resumed.opt.count == 2
+    resumed.train()
+    assert _losses(whole) == _losses(first) + _losses(resumed)
+    for a, b in zip(state(whole), state(resumed)):
+        assert torch.equal(a, b)
+
+
 def test_cli_saves_and_resumes(tmp_path):
     """The train CLI: `--checkpoint_dir/--run_name` get the evaluation's
     checkpoint; `--load_checkpoint` resumes it and trains the rest."""

@@ -18,8 +18,9 @@ numbers.
   may take another sign in the other framework's summation order — the
   relative L2 of each leaf is held at 1e-4 as well;
 - entry point: `python -m video_diffusion_speedrun_tpu_torch.train` takes
-  3 steps on the CPU with a finite loss; it refuses the card when none is
-  present and refuses flags of later slices.
+  3 steps on the CPU with a finite loss, also with the optimizer in the
+  backward, factored ν and bf16 parameters; it refuses the card when none
+  is present and what JAX's CLI refuses.
 """
 
 import subprocess
@@ -272,6 +273,20 @@ def test_entry_point_trains_on_cpu(tmp_path):
     assert (tmp_path / "diffusion_repa" / "1" / ".metadata").exists()
 
 
+def test_entry_point_trains_in_backward_on_cpu(tmp_path):
+    """The XL command's flags (`--optimizer_in_backward true --nu_factored
+    true --param_dtype bf16 --moments_dtype bf16`) at the tiny size train
+    3 steps to a finite loss. No block weight of width 64 reaches
+    `nu_factored_min_size` (2²⁰ over the blocks), so ν stays exact here;
+    tests/test_torch_inloop.py factors the tiny model with the size
+    lowered."""
+    out = cli.main(TINY_FLAGS + [
+        "--device", "cpu", "--checkpoint_dir", str(tmp_path),
+        "--optimizer_in_backward", "true", "--nu_factored", "true",
+        "--param_dtype", "bf16", "--moments_dtype", "bf16"])
+    assert out["train/step"] == 2 and np.isfinite(out["train/total_loss"])
+
+
 def test_entry_point_refuses_a_missing_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
@@ -284,9 +299,13 @@ def test_entry_point_refuses_a_missing_card(monkeypatch):
     # trains them under a torchrun-style environment)
     (["--mesh_fsdp", "2"], ValueError, "devices"),
     (["--mesh_tensor", "2"], ValueError, "devices"),
-    (["--nu_factored", "true"], NotImplementedError, "not ported yet"),
-    (["--optimizer_in_backward", "true"], NotImplementedError,
-     "not ported yet"),
+    # optimizer-in-backward is ported (tests/test_torch_inloop.py); what
+    # JAX refuses with it stays refused: the context axis, and bf16
+    # parameters without it (the factored ν does not change that)
+    (["--param_dtype", "bf16", "--nu_factored", "true"], ValueError,
+     "optimizer_in_backward"),
+    (["--optimizer_in_backward", "true", "--mesh_context", "2"],
+     NotImplementedError, "context"),
 ])
 def test_entry_point_refuses_later_slices(flags, error, match):
     with pytest.raises(error, match=match):

@@ -167,8 +167,15 @@ class OptimizerConfig:
     # Adam moment storage: None = the parameter dtype (fp32), or
     # torch.bfloat16; the moment math is fp32 either way
     moments_dtype: Optional[torch.dtype] = None
+    # optimizer-in-backward (`train/inloop.py`): each block's update runs
+    # in the reverse walk over the blocks, right after its gradients
     in_backward: bool = False
+    # with in_backward: block weights of at least nu_factored_min_size
+    # elements (counted over all blocks, as JAX's stacked leaf) keep a
+    # rank-1 second moment (Adafactor's factored ν, momentum exact); the
+    # standard step ignores it, as JAX's does
     nu_factored: bool = False
+    nu_factored_min_size: int = 1 << 20
     constant_param_classes: tuple = ("patch_proj", "context_kv",
                                      "positional_embedding")
     time_modulation_lr_mult: float = 0.1
@@ -178,10 +185,6 @@ class OptimizerConfig:
     warmup_steps: int = 20
 
     def __post_init__(self):
-        if self.in_backward or self.nu_factored:
-            raise NotImplementedError(
-                "optimizer-in-backward and the factored second moment come "
-                "with a later slice (ROADMAP A10)")
         if self.moments_dtype not in (None, torch.float32, torch.bfloat16):
             raise ValueError(f"moments_dtype must be None, fp32 or bf16, got "
                              f"{self.moments_dtype}")

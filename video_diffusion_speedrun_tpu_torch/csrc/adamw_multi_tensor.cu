@@ -10,6 +10,14 @@
 // (__fmul_rn, __fadd_rn, ...), so no FMA contraction departs from the
 // plain version's rounding.
 //
+// Parameters (and their gradients) are fp32 or bf16, as the JAX kernel is
+// generic over the parameter dtype. At bf16 the update follows the order
+// of `p + adamw_leaf_delta(...)`, which the optimizer-in-backward step
+// computes (train/inloop.py:99-102): wd·p rounds to bf16 (the weak-typed
+// scalar takes p's dtype, so the table holds wd rounded to bf16), the
+// delta −(lr·lr_t)·(dir + wd·p) rounds to bf16, and p + delta rounds
+// again. At fp32 that order gives the same bits as the one above.
+//
 // What bounds it on the card: 16 bytes read and 12 written per fp32
 // parameter (fp32 moments) and ~15 flops, so it is bandwidth-bound; at the
 // 248M-parameter DiT one step moves ~7 GB. The design streams each element
@@ -17,8 +25,10 @@
 // table (leaf, start) built once when the optimizer is made assigns each
 // block 16,384 elements of one leaf, so ~300 leaves of 1 to 1M elements
 // cost one launch instead of one each (JAX measured per-leaf launches net
-// slower than XLA's fusion, train/optim.py:130-132). lr_t, bc1 and bc2 come
-// from a device tensor, so a step needs no host sync. p, m and v update in
+// slower than XLA's fusion, train/optim.py:130-132); the optimizer-in-
+// backward step launches it once per group of leaves (a block, or the
+// layers around the blocks). lr_t, bc1 and bc2 come from a device tensor,
+// so a step needs no host sync. p, m and v update in
 // place, as `input_output_aliases` does on the TPU.
 
 #include <cuda_bf16.h>
@@ -30,13 +40,16 @@ namespace {
 constexpr int THREADS = 256;
 constexpr long long CHUNK = 16384;  // elements per block, a multiple of 4
 
-__device__ __forceinline__ float load_m(const float* p, long long i) { return p[i]; }
-__device__ __forceinline__ float load_m(const __nv_bfloat16* p, long long i) {
+__device__ __forceinline__ float load1(const float* p, long long i) { return p[i]; }
+__device__ __forceinline__ float load1(const __nv_bfloat16* p, long long i) {
   return __bfloat162float(p[i]);
 }
-__device__ __forceinline__ void store_m(float* p, long long i, float x) { p[i] = x; }
-__device__ __forceinline__ void store_m(__nv_bfloat16* p, long long i, float x) {
+__device__ __forceinline__ void store1(float* p, long long i, float x) { p[i] = x; }
+__device__ __forceinline__ void store1(__nv_bfloat16* p, long long i, float x) {
   p[i] = __float2bfloat16_rn(x);
+}
+__device__ __forceinline__ float round_bf16(float x) {
+  return __bfloat162float(__float2bfloat16_rn(x));
 }
 
 __device__ __forceinline__ void load4(const float* p, long long i, float* x) {
@@ -65,7 +78,9 @@ struct Consts {
   float b1, omb1, b2, omb2, eps;
 };
 
-// one element: m, v and p in fp32 registers, updated in place
+// one element: m, v and p in fp32 registers, updated in place; BF16P: p is
+// a bf16 value, and wd·p and the delta round to bf16 (the store rounds p)
+template <bool BF16P>
 __device__ __forceinline__ void update(float& p, float& m, float& v, float g,
                                        float neg_lr, float wd, float bc1,
                                        float bc2, const Consts& k) {
@@ -73,13 +88,18 @@ __device__ __forceinline__ void update(float& p, float& m, float& v, float g,
   v = __fadd_rn(__fmul_rn(k.b2, v), __fmul_rn(k.omb2, __fmul_rn(g, g)));
   const float dir = __fdiv_rn(__fdiv_rn(m, bc1),
                               __fadd_rn(__fsqrt_rn(__fdiv_rn(v, bc2)), k.eps));
-  p = __fadd_rn(p, __fmul_rn(neg_lr, __fadd_rn(dir, __fmul_rn(wd, p))));
+  if (BF16P) {
+    const float wdp = round_bf16(__fmul_rn(wd, p));  // exact, then rounded
+    p = __fadd_rn(p, round_bf16(__fmul_rn(neg_lr, __fadd_rn(dir, wdp))));
+  } else {
+    p = __fadd_rn(p, __fmul_rn(neg_lr, __fadd_rn(dir, __fmul_rn(wd, p))));
+  }
 }
 
 // leaf_ptrs [n_leaves, 3] (p, m, v), g_ptrs [n_leaves], numel [n_leaves],
 // hyper [n_leaves, 2] (lr, wd), chunk_leaf/chunk_start [n_chunks],
 // scalars [3] (lr_t, bc1, bc2) — all device arrays.
-template <typename MT>
+template <typename PT, typename MT>
 __global__ void __launch_bounds__(THREADS)
     adamw_multi_tensor_kernel(const long long* __restrict__ leaf_ptrs,
                               const long long* __restrict__ g_ptrs,
@@ -92,10 +112,11 @@ __global__ void __launch_bounds__(THREADS)
   const long long start = chunk_start[blockIdx.x];
   const long long n = numel[leaf];
   const long long end = start + CHUNK < n ? start + CHUNK : n;
-  float* p = reinterpret_cast<float*>(leaf_ptrs[3 * leaf]);
+  constexpr bool BF16P = sizeof(PT) == 2;
+  PT* p = reinterpret_cast<PT*>(leaf_ptrs[3 * leaf]);
   MT* m = reinterpret_cast<MT*>(leaf_ptrs[3 * leaf + 1]);
   MT* v = reinterpret_cast<MT*>(leaf_ptrs[3 * leaf + 2]);
-  const float* g = reinterpret_cast<const float*>(g_ptrs[leaf]);
+  const PT* g = reinterpret_cast<const PT*>(g_ptrs[leaf]);
   const float neg_lr = -__fmul_rn(hyper[2 * leaf], scalars[0]);
   const float wd = hyper[2 * leaf + 1];
   const float bc1 = scalars[1];
@@ -111,17 +132,17 @@ __global__ void __launch_bounds__(THREADS)
     load4(g, i, gg);
 #pragma unroll
     for (int e = 0; e < 4; ++e)
-      update(pp[e], mm[e], vv[e], gg[e], neg_lr, wd, bc1, bc2, k);
+      update<BF16P>(pp[e], mm[e], vv[e], gg[e], neg_lr, wd, bc1, bc2, k);
     store4(p, i, pp);
     store4(m, i, mm);
     store4(v, i, vv);
   }
   for (long long i = vec_end + threadIdx.x; i < end; i += THREADS) {
-    float pp = p[i], mm = load_m(m, i), vv = load_m(v, i);
-    update(pp, mm, vv, g[i], neg_lr, wd, bc1, bc2, k);
-    p[i] = pp;
-    store_m(m, i, mm);
-    store_m(v, i, vv);
+    float pp = load1(p, i), mm = load1(m, i), vv = load1(v, i);
+    update<BF16P>(pp, mm, vv, load1(g, i), neg_lr, wd, bc1, bc2, k);
+    store1(p, i, pp);
+    store1(m, i, mm);
+    store1(v, i, vv);
   }
 }
 
@@ -129,17 +150,18 @@ __global__ void __launch_bounds__(THREADS)
 
 extern "C" long long adamw_multi_tensor_chunk() { return CHUNK; }
 
-// One launch over n_chunks chunks; moments_bf16 selects the bf16 moment
-// storage (math stays fp32). b1/omb1/b2/omb2/eps are the fp32 roundings of
-// b1, 1−b1, b2, 1−b2 and eps. Every pointer leaf's p, m, v and g must be
-// 16-byte aligned (8 for bf16 moments). Returns the launch's cudaError_t.
+// One launch over n_chunks chunks; params_bf16 selects bf16 parameters and
+// gradients (wd in the table already rounded to bf16), moments_bf16 the
+// bf16 moment storage (math stays fp32). b1/omb1/b2/omb2/eps are the fp32
+// roundings of b1, 1−b1, b2, 1−b2 and eps. Every leaf's p, m, v and g must
+// be 16-byte aligned. Returns the launch's cudaError_t.
 extern "C" int adamw_multi_tensor(const void* leaf_ptrs, const void* g_ptrs,
                                   const void* numel, const void* hyper,
                                   const void* chunk_leaf,
                                   const void* chunk_start, const void* scalars,
                                   int n_chunks, float b1, float omb1, float b2,
-                                  float omb2, float eps, int moments_bf16,
-                                  void* stream) {
+                                  float omb2, float eps, int params_bf16,
+                                  int moments_bf16, void* stream) {
   const Consts k{b1, omb1, b2, omb2, eps};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const auto* lp = static_cast<const long long*>(leaf_ptrs);
@@ -149,11 +171,18 @@ extern "C" int adamw_multi_tensor(const void* leaf_ptrs, const void* g_ptrs,
   const auto* cl = static_cast<const int*>(chunk_leaf);
   const auto* cs = static_cast<const long long*>(chunk_start);
   const auto* sc = static_cast<const float*>(scalars);
-  if (moments_bf16)
-    adamw_multi_tensor_kernel<__nv_bfloat16><<<n_chunks, THREADS, 0, s>>>(
+  using bf16 = __nv_bfloat16;
+  if (params_bf16 && moments_bf16)
+    adamw_multi_tensor_kernel<bf16, bf16><<<n_chunks, THREADS, 0, s>>>(
+        lp, gp, ne, hy, cl, cs, sc, k);
+  else if (params_bf16)
+    adamw_multi_tensor_kernel<bf16, float><<<n_chunks, THREADS, 0, s>>>(
+        lp, gp, ne, hy, cl, cs, sc, k);
+  else if (moments_bf16)
+    adamw_multi_tensor_kernel<float, bf16><<<n_chunks, THREADS, 0, s>>>(
         lp, gp, ne, hy, cl, cs, sc, k);
   else
-    adamw_multi_tensor_kernel<float><<<n_chunks, THREADS, 0, s>>>(
+    adamw_multi_tensor_kernel<float, float><<<n_chunks, THREADS, 0, s>>>(
         lp, gp, ne, hy, cl, cs, sc, k);
   return static_cast<int>(cudaGetLastError());
 }

@@ -435,34 +435,8 @@ class DiT(nn.Module):
         every rank of it passes the same inputs and gets the whole
         output."""
         cfg = self.cfg
-        cdt = cfg.compute_dtype
-        b = x.shape[0]
-        gt = x.shape[2] // cfg.time_patch_size
-        gh = x.shape[3] // cfg.patch_size
-        gw = x.shape[4] // cfg.patch_size
         r = cfg.num_registers
-
-        proj = self.patch_embed.patch_proj
-        tokens = patchify(x, proj.weight.reshape(cfg.hidden_size, -1).t(),
-                          proj.bias, cfg.time_patch_size, cfg.patch_size,
-                          compute_dtype=cdt)
-        regs = self.register_tokens.to(cdt).expand(b, r, cfg.hidden_size)
-        tokens = torch.cat([regs, tokens], dim=1)  # [B, R+L, D]
-
-        if cfg.use_rope:
-            if rope_offsets is None:
-                rope_offsets = torch.zeros(3, dtype=torch.int64)
-            cos, sin = rope_cos_sin(
-                cfg.head_dim, gt, gh, gw, rope_offsets.to(x.device),
-                base=cfg.rope_base, num_registers=r, order=cfg.rope_order)
-        else:
-            cos = sin = None
-            pos = self.positional_embedding[:, : tokens.shape[1]].to(cdt)
-            tokens = tokens + pos
-
-        t_emb = timestep_embedding(timesteps, cfg.hidden_size).to(cdt)
-        t_emb = _dense(self.time_embed[2],
-                       F.silu(_dense(self.time_embed[0], t_emb)))
+        tokens, t_emb, cos, sin = self.prefix(x, timesteps, rope_offsets)
 
         ring, kbias, l_all = context_parallel, None, tokens.shape[1]
         if ring is not None:
@@ -495,13 +469,71 @@ class DiT(nn.Module):
                 v0 = v
 
         if ring is None:
-            tokens = tokens[:, r:, :]
+            return self.suffix(tokens, t_emb, self.grid(x))
+        tokens = self.suffix(tokens, t_emb)
+        # every rank gets the whole output
+        return self.unpatchify(ring.gather(tokens)[:, r:l_all], self.grid(x))
+
+    def grid(self, x: torch.Tensor) -> Tuple[int, int, int]:
+        """The token grid (T, H, W) of a latent x [B, C, T, H, W]."""
+        cfg = self.cfg
+        return (x.shape[2] // cfg.time_patch_size,
+                x.shape[3] // cfg.patch_size, x.shape[4] // cfg.patch_size)
+
+    def prefix(self, x: torch.Tensor, timesteps: torch.Tensor,
+               rope_offsets: Optional[torch.Tensor] = None):
+        """What runs before the blocks (JAX `inloop.py:prefix_fn`): the
+        patchified tokens behind the registers (plus the positional table
+        of a no-RoPE model) [B, R+L, D], the timestep embedding [B, D],
+        and the RoPE tables (None without RoPE)."""
+        cfg = self.cfg
+        cdt = cfg.compute_dtype
+        b = x.shape[0]
+        gt, gh, gw = self.grid(x)
+        r = cfg.num_registers
+
+        proj = self.patch_embed.patch_proj
+        tokens = patchify(x, proj.weight.reshape(cfg.hidden_size, -1).t(),
+                          proj.bias, cfg.time_patch_size, cfg.patch_size,
+                          compute_dtype=cdt)
+        regs = self.register_tokens.to(cdt).expand(b, r, cfg.hidden_size)
+        tokens = torch.cat([regs, tokens], dim=1)  # [B, R+L, D]
+
+        if cfg.use_rope:
+            if rope_offsets is None:
+                rope_offsets = torch.zeros(3, dtype=torch.int64)
+            cos, sin = rope_cos_sin(
+                cfg.head_dim, gt, gh, gw, rope_offsets.to(x.device),
+                base=cfg.rope_base, num_registers=r, order=cfg.rope_order)
+        else:
+            cos = sin = None
+            pos = self.positional_embedding[:, : tokens.shape[1]].to(cdt)
+            tokens = tokens + pos
+
+        t_emb = timestep_embedding(timesteps, cfg.hidden_size).to(cdt)
+        t_emb = _dense(self.time_embed[2],
+                       F.silu(_dense(self.time_embed[0], t_emb)))
+        return tokens, t_emb, cos, sin
+
+    def suffix(self, tokens: torch.Tensor, t_emb: torch.Tensor,
+               grid: Optional[Tuple[int, int, int]] = None) -> torch.Tensor:
+        """What runs after the blocks (JAX `inloop.py:suffix_fn` without
+        the loss): the final modulation, norm and projection of the tokens
+        [B, R+L, D] → [B, L, patch], and with `grid` the unpatchified
+        output [B, C, T, H, W]. Without `grid` the registers stay (a ring's
+        local tokens, gathered by the caller)."""
+        cfg = self.cfg
+        if grid is not None:
+            tokens = tokens[:, cfg.num_registers:, :]
         fmod = _dense(self.final_modulation[1], F.silu(t_emb))
         final_shift, final_scale = fmod.chunk(2, dim=-1)  # shift first
         tokens = _norm_modulate(cfg, tokens, self.final_norm, final_shift,
                                 final_scale)
         tokens = _dense(self.final_proj, tokens)
-        if ring is not None:  # every rank gets the whole output
-            tokens = ring.gather(tokens)[:, r:l_all]
-        return unpatchify(tokens, gt, gh, gw, cfg.time_patch_size,
-                          cfg.patch_size, cfg.out_channels)
+        return tokens if grid is None else self.unpatchify(tokens, grid)
+
+    def unpatchify(self, tokens: torch.Tensor, grid: Tuple[int, int, int]
+                   ) -> torch.Tensor:
+        cfg = self.cfg
+        return unpatchify(tokens, *grid, cfg.time_patch_size, cfg.patch_size,
+                          cfg.out_channels)

@@ -228,6 +228,8 @@ class ModelSharding:
     fsdp_group: object
     tensor_group: object
     region: Optional[TensorRegion]
+    # HSDP: the group of this rank's replicas (None: one replica)
+    replica_group: object = None
 
     def gathered(self, name: str, t: torch.Tensor) -> torch.Tensor:
         """The whole tensor of parameter `name` (or a moment of it) from
@@ -336,7 +338,11 @@ def shard_model(model: nn.Module, mesh) -> Optional[ModelSharding]:
         fsdp_group=(None if dp_mesh is None
                     else mesh.get_group(_AXIS_FSDP)),
         tensor_group=None if region is None else region.group,
-        region=region)
+        region=region,
+        replica_group=(mesh.get_group(pmesh.AXIS_REPLICA)
+                       if dp_mesh is not None
+                       and pmesh.axis_size(mesh, pmesh.AXIS_REPLICA) > 1
+                       else None))
     model.sharding = sharding
     return sharding
 
@@ -384,6 +390,64 @@ def shard_encoder(t5: nn.Module, mesh) -> nn.Module:
     fully_shard(t5, mesh=dp_mesh, shard_placement_fn=place,
                 ignored_params=ignored)
     return t5
+
+
+def reduce_scatter_grad(sharding: ModelSharding, name: str,
+                        grad: torch.Tensor) -> torch.Tensor:
+    """This rank's fsdp shard of the data-parallel mean of `grad`, the fp32
+    gradient of the gathered parameter `name` (whole over fsdp; this
+    rank's tensor shard): summed over the fsdp group onto each rank's
+    chunk of the fsdp dim (a reduce-scatter), then over the replicas, and
+    divided by the data shards — what FSDP2's post-backward gives
+    `.grad`."""
+    group = sharding.fsdp_group
+    n = dist.get_world_size(group)
+    parts = [c.contiguous() for c in grad.chunk(n, sharding.placements[
+        name].fsdp)]
+    out = torch.empty_like(parts[0])
+    dist.reduce_scatter_tensor(out.view(-1),
+                               torch.cat([c.view(-1) for c in parts]),
+                               group=group)
+    if sharding.replica_group is not None:
+        dist.all_reduce(out, group=sharding.replica_group)
+        n *= dist.get_world_size(sharding.replica_group)
+    return out.div_(n)
+
+
+def gathered_factor(sharding: Optional[ModelSharding], name: str,
+                    t: torch.Tensor, dim: int) -> torch.Tensor:
+    """The whole of a vector `t` indexed by dim `dim` of parameter `name`
+    (a factor of its second moment) from this rank's part: gathered over
+    the groups that split that dim (every rank of them takes part)."""
+    if sharding is None:
+        return t
+    pl = sharding.placements[name]
+    x = t.detach()
+    for group, d, split in ((sharding.fsdp_group, pl.fsdp, 1),
+                            (sharding.tensor_group, pl.tensor, pl.split)):
+        if d != dim or group is None:
+            continue
+        parts = [torch.empty_like(x)
+                 for _ in range(dist.get_world_size(group))]
+        dist.all_gather(parts, x.contiguous(), group=group)
+        x = tensor_join(parts, 0, split)
+    return x
+
+
+def local_factor(sharding: Optional[ModelSharding], name: str,
+                 full: torch.Tensor, dim: int) -> torch.Tensor:
+    """This rank's part of the whole factor `full` (`gathered_factor`)."""
+    if sharding is None:
+        return full
+    pl = sharding.placements[name]
+    x = full
+    if pl.tensor == dim and sharding.region is not None:
+        x = tensor_slice(x, 0, pl.split, sharding.region.size,
+                         sharding.region.rank)
+    if pl.fsdp == dim and sharding.fsdp_group is not None:
+        x = x.chunk(dist.get_world_size(sharding.fsdp_group))[
+            dist.get_rank(sharding.fsdp_group)]
+    return x
 
 
 # ------------------------------------------------------------- checkpoints

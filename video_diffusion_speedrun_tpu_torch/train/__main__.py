@@ -13,8 +13,20 @@ by default (`--device cuda`, which raises when no card is present);
 `--device cpu` runs on the CPU. `--synthetic_t_choices 5,9,17` mixes
 clips of 5, 9 and 17 latent frames (L = 528, 1040 and 2064 at the default
 32×32 latents) in shape-uniform batches; L > 2048 takes the long
-attention path. Flags of later slices (optimizer-in-backward, the factored
-second moment) raise.
+attention path.
+
+`--optimizer_in_backward true` runs each block's muP-AdamW update inside
+the backward's walk over the blocks (`train/inloop.py`): the whole
+gradient never exists. With it, `--nu_factored true` keeps large block
+weights' second moment rank-1 and `--param_dtype bf16` stores the
+parameters in bf16 (refused without it, as JAX's CLI does). The XL
+configuration on one card (JAX `bench.py --xl`, 2.76 B parameters, batch
+16 of [16, 8, 32, 32] latents, L = 1040):
+
+    python -m video_diffusion_speedrun_tpu_torch.train --model_width 2048 \
+        --model_depth 24 --batch_size 16 --synthetic_t_choices 8 \
+        --optimizer_in_backward true --nu_factored true \
+        --param_dtype bf16 --moments_dtype bf16
 
 The dataset (`--dataset cosmos_openvid`): `--hf_name` a local parquet of
 its columns (`python -m video_diffusion_speedrun_tpu_torch.data.fixture`
@@ -152,9 +164,14 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
         default=None,
         help="with --use_t5: a RANDOM-INIT T5 (tiny, or the XXL config) "
              "and the byte-fallback tokenizer; embeddings are garbage")
-    # flags of later slices: accepted so that they can refuse
-    add("--optimizer_in_backward", type=_bool, default=False)
-    add("--nu_factored", type=_bool, default=False)
+    add("--optimizer_in_backward", type=_bool, default=False,
+        help="fuse the muP-AdamW update into the backward's walk over the "
+             "blocks (train/inloop.py): block gradients never exist all "
+             "at once. With --grad_accum N each block's backward runs in "
+             "N batch chunks (the same gradients)")
+    add("--nu_factored", type=_bool, default=False,
+        help="with --optimizer_in_backward: store large block weights' "
+             "second moment rank-1 (Adafactor factored nu, momentum exact)")
     # the mesh (core/config.py:MeshConfig)
     for axis in ("replica", "fsdp", "context", "tensor"):
         add(f"--mesh_{axis}", type=int, default=-1 if axis == "fsdp" else 1)
@@ -162,18 +179,10 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
 
 
 def build_config(args: argparse.Namespace) -> TrainConfig:
-    """The TrainConfig of the JAX `train.py`, refusing what the port lacks."""
-    later = {
-        "--optimizer_in_backward (ROADMAP A10)": args.optimizer_in_backward,
-        "--nu_factored (ROADMAP A10)": args.nu_factored,
-    }
-    refused = [flag for flag, on in later.items() if on]
-    if refused:
-        raise NotImplementedError(
-            "not ported yet: " + ", ".join(refused))
+    """The TrainConfig of the JAX `train.py`, refusing what it refuses."""
     if args.optimizer_type != "mup_adam":
         raise ValueError(f"unknown optimizer type: {args.optimizer_type}")
-    if args.param_dtype == "bf16":
+    if args.param_dtype == "bf16" and not args.optimizer_in_backward:
         # bf16 masters under the standard optimizer round small updates
         # away; the JAX CLI allows them only with optimizer-in-backward
         raise ValueError("--param_dtype bf16 requires --optimizer_in_backward "
@@ -201,7 +210,9 @@ def build_config(args: argparse.Namespace) -> TrainConfig:
         num_heads=args.model_width // args.model_head_dim, mlp_ratio=4.0,
         cross_attn_input_size=args.context_dim, residual_v=True,
         train_bias_and_rms=args.train_bias_and_rms, use_rope=True,
-        rope_order=rope_order, remat=args.remat)
+        rope_order=rope_order, remat=args.remat,
+        param_dtype=(torch.bfloat16 if args.param_dtype == "bf16"
+                     else torch.float32))
     return TrainConfig(
         model=model,
         data=DataConfig(
@@ -219,7 +230,9 @@ def build_config(args: argparse.Namespace) -> TrainConfig:
             learning_rate=args.learning_rate,
             scheduler=args.lr_scheduler_type,
             moments_dtype=(torch.bfloat16 if args.moments_dtype == "bf16"
-                           else None)),
+                           else None),
+            in_backward=args.optimizer_in_backward,
+            nu_factored=args.nu_factored),
         num_epochs=args.num_epochs, batch_size=args.batch_size,
         grad_accum=args.grad_accum, max_steps=args.max_steps,
         evaluate_every=args.evaluate_every, run_name=args.run_name,

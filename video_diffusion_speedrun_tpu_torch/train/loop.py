@@ -1,5 +1,10 @@
 """Training loop (port of `train/loop.py`).
 
+Each step is `train/step.py:train_step`, or with `optimizer.in_backward`
+the optimizer-in-backward step of `train/inloop.py` (JAX's
+`_build_inloop_branch`): same batches, draws and metrics; its factored
+second moment goes into the checkpoint under "vr"/"vc", whole.
+
 Keeps the JAX loop's semantics: an epoch × step loop bounded by
 `max_steps`; metrics every `log_every` steps, read back one log interval
 late so the host never stalls the card to print (`loop.py:410-418`), with
@@ -85,7 +90,9 @@ from video_diffusion_speedrun_tpu_torch.parallel.collectives import (
 )
 from video_diffusion_speedrun_tpu_torch.parallel.fsdp import (
     checkpoint_state,
+    gathered_factor,
     load_full_state,
+    local_factor,
     restore_state,
     shard_model,
     strided_templates,
@@ -98,8 +105,13 @@ from video_diffusion_speedrun_tpu_torch.train.checkpoint import (
     load_reference_checkpoint,
     split_checkpoint_path,
 )
-from video_diffusion_speedrun_tpu_torch.train.optim import MupAdamW
-from video_diffusion_speedrun_tpu_torch.train.step import eval_step, train_step
+from video_diffusion_speedrun_tpu_torch.train.optim import FNu, MupAdamW
+from video_diffusion_speedrun_tpu_torch.train.inloop import inloop_step
+from video_diffusion_speedrun_tpu_torch.train.step import (
+    eval_step,
+    step_for,
+    train_step,
+)
 from video_diffusion_speedrun_tpu_torch.utils.logging import (
     MetricsLogger,
     StepTimer,
@@ -114,6 +126,9 @@ REPLICA_SEED_STRIDE = 1_000_003
 class Trainer:
     def __init__(self, cfg: TrainConfig, device="cuda",
                  context_parallel=None, prompt_encoder=None):
+        # refuse what JAX's optimizer-in-backward branch refuses, before
+        # anything is built
+        step_for(cfg)
         self.cfg = cfg
         self.prompt_encoder = prompt_encoder
         self.device = pmesh.init_distributed(resolve_device(device))
@@ -133,7 +148,7 @@ class Trainer:
             prompt_encoder.shard(self.mesh)
         self.opt = MupAdamW(self.model.named_parameters(),
                             cfg.optimizer.learning_rate, cfg.max_steps,
-                            cfg.optimizer)
+                            cfg.optimizer, sharding=self.sharding)
         self.n_params = sum(p.numel() for p in self.model.parameters())
         self._log("param_count: %.2fM", self.n_params / 1e6)
         # synthetic rows with no other context source get theirs drawn on
@@ -364,34 +379,61 @@ class Trainer:
         model's state dict, the moments and update count, the step, and
         this data shard's training generator state. Its tensors are the
         live ones (sharded: DTensors; or, for the counts and the generator,
-        their values), so a load into it restores in place."""
+        their values), so a load into it restores in place. A factored ν
+        (`FNu`) goes under "vr" and "vc" in place of "v"."""
         opt = self.opt
+        optim = {"count": torch.tensor([opt.count]),
+                 "m": dict(zip(opt.names, opt.m)),
+                 "v": {n: v for n, v in zip(opt.names, opt.v)
+                       if not isinstance(v, FNu)}}
+        if any(opt.factored):
+            for k in ("vr", "vc"):
+                optim[k] = {n: getattr(v, k) for n, v in zip(opt.names, opt.v)
+                            if isinstance(v, FNu)}
         return {
             "model": self.model.state_dict(),
-            "optim": {"count": torch.tensor([opt.count]),
-                      "m": dict(zip(opt.names, opt.m)),
-                      "v": dict(zip(opt.names, opt.v))},
+            "optim": optim,
             STEP_KEY: torch.tensor([self.step]),
             f"rng.{self.data_rank}": self.generator.get_state(),
         }
 
-    def _checkpoint_view(self, state: Dict, fill) -> Dict:
-        """`state` with its model and moment dicts passed through `fill`
-        (`checkpoint_state` to save, `strided_templates` to load)."""
+    # the weight dim each factor of a factored ν is indexed by
+    _FACTOR_DIM = {"vr": 1, "vc": 0}
+
+    def _checkpoint_view(self, state: Dict, saving: bool) -> Dict:
+        """`state` with its model and moment dicts as DCP saves them
+        (`checkpoint_state`) or loads them (`strided_templates`); the
+        factors of a factored ν go whole (gathered to save, empty whole
+        templates to load, copied back by `_restore_factors`)."""
+        fill = checkpoint_state if saving else strided_templates
         view = dict(state)
         view["model"] = fill(state["model"], self.sharding)
         view["optim"] = dict(state["optim"])
         for k in ("m", "v"):
             view["optim"][k] = fill(state["optim"][k], self.sharding)
+        for k, dim in self._FACTOR_DIM.items():
+            if k not in state["optim"]:
+                continue
+            view["optim"][k] = {
+                n: (gathered_factor(self.sharding, n, t, dim) if saving
+                    else torch.empty(self.opt.params[self.opt.names.index(
+                        n)].shape[dim], dtype=t.dtype, device=t.device))
+                for n, t in state["optim"][k].items()}
         return view
+
+    def _restore_factors(self, live: Dict, loaded: Dict) -> None:
+        with torch.no_grad():
+            for k, dim in self._FACTOR_DIM.items():
+                for n, t in live["optim"].get(k, {}).items():
+                    t.copy_(local_factor(self.sharding, n,
+                                         loaded["optim"][k][n], dim))
 
     def save_checkpoint(self) -> str:
         """Save the full train state at the current step (every rank takes
         part); returns the step directory."""
         t0 = time.perf_counter()
         path = self.ckpt.save(
-            self.step, self._checkpoint_view(self.train_state(),
-                                             checkpoint_state))
+            self.step, self._checkpoint_view(self.train_state(), True))
         self._log("saved checkpoint %s (%.2f s)", path,
                   time.perf_counter() - t0)
         return path
@@ -412,7 +454,7 @@ class Trainer:
         root, step = split_checkpoint_path(path)
         live = self.train_state()
         rng_key = f"rng.{self.data_rank}"
-        state = self._checkpoint_view(live, strided_templates)
+        state = self._checkpoint_view(live, False)
         mgr = CheckpointManager(root)
         step = mgr.latest_step() if step is None else step
         if not mgr.holds(step, rng_key):
@@ -427,6 +469,7 @@ class Trainer:
         restore_state(live["model"], state["model"], self.sharding)
         for k in ("m", "v"):
             restore_state(live["optim"][k], state["optim"][k], self.sharding)
+        self._restore_factors(live, state)
         self.opt.refresh()
         self.opt.count = int(state["optim"]["count"])
         self.step = int(state[STEP_KEY])
@@ -452,8 +495,10 @@ class Trainer:
             for batch in stream:
                 if self.step >= stop:
                     break
-                m = train_step(self.model, self.opt, batch, self.generator,
-                               cfg, self.context_parallel, self.data_group)
+                step = (inloop_step if cfg.optimizer.in_backward
+                        else train_step)
+                m = step(self.model, self.opt, batch, self.generator, cfg,
+                         self.context_parallel, self.data_group)
                 if cfg.capture_fixtures and self.step == 0 and self.main:
                     self._capture_fixtures(batch, m, self.step)
                 if self.step % cfg.log_every == 0:

@@ -18,7 +18,7 @@ from the gathered model output.
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -39,8 +39,19 @@ def sample_timesteps(generator: torch.Generator, b: int,
     return time_shift(torch.sigmoid(z), alpha)
 
 
-def rectified_flow_loss(
-    model: DiT,
+class FlowInputs(NamedTuple):
+    """The model's inputs and target of one batch: z_t, the velocity
+    target, the (dropped-out) context, the timesteps and rope offsets."""
+
+    z_t: torch.Tensor
+    v_objective: torch.Tensor
+    context: Optional[torch.Tensor]
+    timesteps: torch.Tensor
+    rope_offsets: Optional[torch.Tensor]
+
+
+def flow_inputs(
+    cfg,
     latent: torch.Tensor,
     context: Optional[torch.Tensor],
     generator: Optional[torch.Generator],
@@ -50,12 +61,9 @@ def rectified_flow_loss(
     timesteps: Optional[torch.Tensor] = None,
     noise: Optional[torch.Tensor] = None,
     rope_offsets: Optional[torch.Tensor] = None,
-    context_parallel=None,
-) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """Returns (loss, aux) with aux `loss_per_sample`, `timesteps`,
-    `bin_sums` and `bin_counts` ([10] fp32). `generator` may be None when
-    every random input is injected and caption dropout is 0."""
-    cfg = model.cfg
+) -> FlowInputs:
+    """The draws and the interpolant of the loss (`cfg` a `DiTConfig`), in
+    the JAX order; what is injected is not drawn."""
     cdt = cfg.compute_dtype
     b = latent.shape[0]
     dev = latent.device
@@ -90,17 +98,19 @@ def rectified_flow_loss(
 
     tr = timesteps.to(cdt).reshape(b, 1, 1, 1, 1)
     z_t = latent * (1 - tr) + noise * tr
-    v_objective = latent - noise
+    return FlowInputs(z_t, latent - noise, context, timesteps, rope_offsets)
 
-    out = model(z_t, context, timesteps, rope_offsets=rope_offsets,
-                context_parallel=context_parallel)
 
+def flow_loss(out: torch.Tensor, v_objective: torch.Tensor,
+              timesteps: torch.Tensor
+              ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """(loss, aux) of the model output against the velocity target."""
     err = v_objective.float() - out.float()
     loss_per_sample = err.square().mean(dim=(1, 2, 3, 4))
     loss = loss_per_sample.mean()
 
     tbin = (timesteps * 10).to(torch.int64).clamp(0, 9)
-    zeros = torch.zeros(10, dtype=torch.float32, device=dev)
+    zeros = torch.zeros(10, dtype=torch.float32, device=out.device)
     lps = loss_per_sample.detach()
     aux = {
         "loss_per_sample": lps,
@@ -109,3 +119,28 @@ def rectified_flow_loss(
         "bin_counts": zeros.scatter_add(0, tbin, torch.ones_like(lps)),
     }
     return loss, aux
+
+
+def rectified_flow_loss(
+    model: DiT,
+    latent: torch.Tensor,
+    context: Optional[torch.Tensor],
+    generator: Optional[torch.Generator],
+    *,
+    alpha: float = 8.0,
+    caption_dropout: float = 0.01,
+    timesteps: Optional[torch.Tensor] = None,
+    noise: Optional[torch.Tensor] = None,
+    rope_offsets: Optional[torch.Tensor] = None,
+    context_parallel=None,
+) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Returns (loss, aux) with aux `loss_per_sample`, `timesteps`,
+    `bin_sums` and `bin_counts` ([10] fp32). `generator` may be None when
+    every random input is injected and caption dropout is 0."""
+    inp = flow_inputs(model.cfg, latent, context, generator, alpha=alpha,
+                      caption_dropout=caption_dropout, timesteps=timesteps,
+                      noise=noise, rope_offsets=rope_offsets)
+    out = model(inp.z_t, inp.context, inp.timesteps,
+                rope_offsets=inp.rope_offsets,
+                context_parallel=context_parallel)
+    return flow_loss(out, inp.v_objective, inp.timesteps)

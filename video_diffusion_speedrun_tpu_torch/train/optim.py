@@ -9,6 +9,17 @@ its inputs to its outputs (`input_output_aliases`), the port writes the
 same buffers. On CUDA that is one launch of the multi-tensor kernel over
 every leaf; on the CPU the plain twin runs leaf by leaf.
 
+The optimizer-in-backward step (`train/inloop.py`) updates one group of
+leaves at a time — a block (`blocks.<i>`), or the layers before and
+after the blocks (`rest`) — with `update_group`, and advances the count
+once per step (`advance`); each group's update is one launch of the
+kernel over its leaves, its table built once. Parameters may then be
+bf16 (the kernel's bf16 mode), and with `nu_factored` the block weights
+of at least `nu_factored_min_size` elements over all blocks (JAX's
+stacked leaf, `inloop.py:159-168`) keep Adafactor's rank-1 ν (`FNu`,
+fp32 factors) instead of v: the update of those leaves is plain torch
+(`factored_leaf_update`; XLA work in JAX, not a Pallas kernel).
+
 Sharded parameters (DTensors of FSDP2 or the tensor axis,
 `parallel/fsdp.py`) keep their moments as DTensors of the same placement;
 the update runs on each rank's local shards, the muP table reads the
@@ -19,7 +30,7 @@ step (after FSDP2 has settled its sharded storage) and again after
 
 from __future__ import annotations
 
-from typing import Iterable, List, Optional, Sequence, Tuple
+from typing import Dict, Iterable, List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 from torch.distributed.tensor import DTensor
@@ -28,9 +39,13 @@ from video_diffusion_speedrun_tpu_torch.core.config import OptimizerConfig
 from video_diffusion_speedrun_tpu_torch.ops.fused_adamw import (
     MultiTensorAdamW,
     adamw_leaf_update_plain,
+    apply_direction,
     step_scalars,
 )
-from video_diffusion_speedrun_tpu_torch.parallel.collectives import local
+from video_diffusion_speedrun_tpu_torch.parallel.collectives import (
+    all_reduce_,
+    local,
+)
 from video_diffusion_speedrun_tpu_torch.train.mup import mup_table
 from video_diffusion_speedrun_tpu_torch.train.schedules import get_schedule
 
@@ -45,13 +60,61 @@ def _zeros_like(p: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
                               shape=p.shape, stride=p.stride())
 
 
+class FNu(NamedTuple):
+    """The factored second moment of a torch [out, in] block weight (JAX's
+    `FNu` of its [in, out] leaf): `vr` [in], the EMA of g²'s mean over
+    out (JAX's row means), and `vc` [out], over in; fp32, this rank's
+    shard of each. v̂ = vc ⊗ vr / mean(vr)."""
+
+    vr: torch.Tensor
+    vc: torch.Tensor
+
+
+def group_of(name: str) -> str:
+    """The update group of a parameter: its block, or "rest"."""
+    parts = name.split(".")
+    return ".".join(parts[:2]) if parts[0] == "blocks" else "rest"
+
+
+def factored_leaf_update(p: torch.Tensor, m: torch.Tensor, nu: FNu,
+                         g: torch.Tensor, lr: float, wd: float, lr_t: float,
+                         bc1: float, bc2: float, b1: float, b2: float,
+                         eps: float, shape: Tuple[int, int],
+                         sums=None) -> None:
+    """JAX's factored branch of `_adamw_leaf` (`inloop.py:88-98`) on this
+    rank's shard of a torch [out, in] weight of whole `shape`, in place.
+    `sums(t, dim)` sums in place a partial sum over the ranks that split
+    weight dim `dim` (None: no rank does)."""
+    n_out, n_in = shape
+    gf = g.float()
+    m2 = b1 * m.float() + (1.0 - b1) * gf
+    g2 = gf.square()
+    row, col = g2.sum(0), g2.sum(1)  # over out → [in], over in → [out]
+    if sums is not None:
+        sums(row, 0)
+        sums(col, 1)
+    vr2 = b2 * nu.vr + (1.0 - b2) * (row / n_out)
+    vc2 = b2 * nu.vc + (1.0 - b2) * (col / n_in)
+    total = vr2.sum().reshape(1)
+    if sums is not None:
+        sums(total, 1)
+    denom = (total / n_in).clamp(min=1e-30)
+    v2 = vc2[:, None] * vr2[None, :] / denom
+    direction = (m2 / bc1) / ((v2 / bc2).sqrt() + eps)
+    apply_direction(p, direction, lr, wd, lr_t)
+    m.copy_(m2)
+    nu.vr.copy_(vr2)
+    nu.vc.copy_(vc2)
+
+
 class MupAdamW:
     def __init__(self, named_params: Iterable[Tuple[str, torch.Tensor]],
                  learning_rate: float, max_steps: int,
-                 cfg: Optional[OptimizerConfig] = None):
+                 cfg: Optional[OptimizerConfig] = None, sharding=None):
         cfg = cfg or OptimizerConfig()
         named = list(named_params)
         self.cfg = cfg
+        self.sharding = sharding  # parallel/fsdp.py: the factors' sums
         self.names = [n for n, _ in named]
         self.params: List[torch.Tensor] = [p for _, p in named]
         self.settings = mup_table(named, learning_rate, cfg.weight_decay, cfg)
@@ -59,13 +122,27 @@ class MupAdamW:
         self.wds = [self.settings[n]["wd"] for n in self.names]
         self.schedule = get_schedule(cfg.scheduler, cfg.warmup_steps,
                                      max_steps)
+        depth = len({group_of(n) for n in self.names} - {"rest"})
+        self.factored = [
+            cfg.in_backward and cfg.nu_factored and group_of(n) != "rest"
+            and p.ndim == 2 and depth * p.numel() >= cfg.nu_factored_min_size
+            for n, p in named]
+        # the update groups of the in-backward step: name → leaf indices
+        self.groups: Dict[str, List[int]] = {}
+        for i, n in enumerate(self.names):
+            self.groups.setdefault(group_of(n), []).append(i)
         with torch.no_grad():
             self.m = [_zeros_like(p, cfg.moments_dtype or p.dtype)
                       for p in self.params]
-            self.v = [_zeros_like(m, m.dtype) for m in self.m]
+            self.v = [
+                FNu(*(torch.zeros(n, dtype=torch.float32, device=m.device)
+                      for n in reversed(local(m).shape)))
+                if fac else _zeros_like(m, m.dtype)
+                for m, fac in zip(self.m, self.factored)]
         self.count = 0
         self._zero_grads = {}  # leaf index → zeros, for leaves with no grad
         self._kernel = None  # built at the next step on CUDA leaves
+        self._group_kernels = {}  # group → its kernel, built at first use
 
     def leaves(self):
         """The local shards (p, m, v) of every leaf, in order."""
@@ -79,10 +156,11 @@ class MupAdamW:
         return MultiTensorAdamW if params[0].is_cuda else None
 
     def refresh(self) -> None:
-        """Rebuild the kernel's leaf table at the next step: call after
+        """Rebuild the kernel's leaf tables at the next step: call after
         anything that may have moved the parameters' or moments' storage
         (a checkpoint load)."""
         self._kernel = None
+        self._group_kernels = {}
 
     def lr_scale(self) -> float:
         """λ at the current count: the multiplier of the next update."""
@@ -120,3 +198,67 @@ class MupAdamW:
                 adamw_leaf_update_plain(p, m, v, g, lr, wd, lr_t, bc1, bc2,
                                         cfg.beta1, cfg.beta2, cfg.eps)
         self.count += 1
+
+    @torch.no_grad()
+    def update_group(self, group: str,
+                     grads: Sequence[Optional[torch.Tensor]]) -> None:
+        """Update the leaves of `group` (`self.groups[group]`, in order)
+        from their local `grads` (None: zero) at the current count; the
+        exact leaves in one launch, the factored ones in plain torch. The
+        count stays: `advance` after the step's last group."""
+        cfg = self.cfg
+        idx = self.groups[group]
+        if len(grads) != len(idx):
+            raise ValueError(f"{len(grads)} grads for group {group} of "
+                             f"{len(idx)} leaves")
+        grads = [self._grad(i, g) for i, g in zip(idx, grads)]
+        lr_t, bc1, bc2 = step_scalars(self.count, self.lr_scale(), cfg.beta1,
+                                      cfg.beta2)
+        params, ms, vs = self.leaves()
+        exact = [k for k, i in enumerate(idx) if not self.factored[i]]
+        kernel = self._group_kernels.get(group)
+        if kernel is None and exact:
+            make = self.kernel_for([params[idx[k]] for k in exact])
+            if make is not None:
+                kernel = self._group_kernels[group] = make(
+                    *([t[idx[k]] for k in exact] for t in (params, ms, vs)),
+                    [self.lrs[idx[k]] for k in exact],
+                    [self.wds[idx[k]] for k in exact],
+                    cfg.beta1, cfg.beta2, cfg.eps)
+        if kernel is not None:
+            kernel([grads[k] for k in exact], lr_t, bc1, bc2)
+        for k, i in enumerate(idx):
+            args = (self.lrs[i], self.wds[i], lr_t, bc1, bc2, cfg.beta1,
+                    cfg.beta2, cfg.eps)
+            if self.factored[i]:
+                factored_leaf_update(params[i], ms[i], vs[i], grads[k], *args,
+                                     tuple(self.params[i].shape),
+                                     self._factor_sums(self.names[i]))
+            elif kernel is None:
+                adamw_leaf_update_plain(params[i], ms[i], vs[i], grads[k],
+                                        *args)
+
+    def advance(self) -> None:
+        """End the step of `update_group` calls: the count moves on."""
+        self.count += 1
+
+    def _factor_sums(self, name: str):
+        """The `sums` of `factored_leaf_update` for leaf `name`: over the
+        fsdp and tensor groups that split each weight dim."""
+        sh = self.sharding
+        if sh is None:
+            return None
+        pl = sh.placements[name]
+        split = {}
+        if sh.fsdp_group is not None and pl.fsdp is not None:
+            split.setdefault(pl.fsdp, []).append(sh.fsdp_group)
+        if sh.region is not None and pl.tensor is not None:
+            split.setdefault(pl.tensor, []).append(sh.tensor_group)
+        if not split:
+            return None
+
+        def sums(t: torch.Tensor, dim: int) -> None:
+            for group in split.get(dim, ()):
+                all_reduce_([t], group)
+
+        return sums

@@ -21,6 +21,11 @@ leaves FSDP2 does not hold are averaged over the data group. grad_norm is
 the norm of the global gradient: each shard counted once, a replicated
 leaf once. The loss is averaged and the decile bins summed over the data
 group. `LocalRing` (all ranks in one process) needs no reduction.
+
+`step_for(cfg)` picks the step of the config, as JAX's `build_train_step`
+branches on `optimizer.in_backward` (`step.py:218-317`): `train_step`,
+or the optimizer-in-backward step of `train/inloop.py`, which refuses the
+context axis and `log_grad_norm` as JAX's branch does.
 """
 
 from __future__ import annotations
@@ -116,6 +121,28 @@ def train_step(model: DiT, opt: MupAdamW, batch: Dict,
     for p in opt.params:
         p.grad = None
     return metrics
+
+
+def step_for(cfg: TrainConfig):
+    """The train step of `cfg`: `train_step`, or with
+    `optimizer.in_backward` `inloop_step` (same arguments and metrics),
+    after JAX's refusals: the context axis (no token-sharded path in the
+    hand-rolled forward) and `log_grad_norm` (the whole gradient never
+    exists)."""
+    if not cfg.optimizer.in_backward:
+        return train_step
+    if cfg.mesh.context > 1:
+        raise NotImplementedError(
+            "optimizer_in_backward does not support the context "
+            "(sequence-parallel) mesh axis: its hand-rolled forward has no "
+            "token-sharded path — use the standard step for CP runs")
+    if cfg.log_grad_norm:
+        raise ValueError(
+            "log_grad_norm is unavailable with optimizer_in_backward: the "
+            "full gradient never materializes (that is the point)")
+    from video_diffusion_speedrun_tpu_torch.train.inloop import inloop_step
+
+    return inloop_step
 
 
 def grad_norm(names, grads, sharding=None) -> torch.Tensor:
