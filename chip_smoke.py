@@ -169,14 +169,33 @@ Run from the root of a checkout. Phases, each of which raises on failure:
              optimizer flags on the card against the CPU (fp32, twins),
              and with fp32 parameters against the standard step on the
              card; 3 steps, losses and step-1 gradients at the
-             train-parity limits.
+             train-parity limits;
+26. train-remat — the remat policies (`--remat_policy`) through the train
+             CLI's flags: each of "nothing", "dots", "attn" and
+             "dots_attn" on train-long's cell (batch 2, L = 8208, bf16
+             moments) and "nothing" and "dots_attn" on the standard XL
+             step (width 2048, batch 8, L = 1040, fp32 parameters, bf16
+             moments): a run each, the zero-initialised layers made
+             random; the first step's loss and gradients against
+             "nothing" of the cell (within 1e-6 relative; bit equality
+             printed), then 4 steps (the first a warm-up) with the
+             counters set to 0 before and read after (under "attn" and
+             "dots_attn" one attention forward a block, not two), ms per
+             step, peak memory from a collected heap, a profiled step;
+27. cp-fallback — context parallelism where the ring does not run (the
+             gathered attention: each rank's q against k and v gathered
+             over the ring), depth 2, over `LocalRing(2)` against no ring
+             on the card: the demo DiT without RoPE at 512×512×16 (2
+             Euler steps), the canonical DiT without RoPE and at head_dim
+             32 in bf16 (3 train steps), at the CP limits; and
+             `attention_impl="fused"` at head_dim 32 under CP raises.
 
 Every run of the DiT's MLP launches the bias+GELU kernels. The kernels JSON
 lists every kernel with `launches` summed over the main-path runs (serve,
 serve-long, serve-cp over 4 and 2, serve with `fused_residual`, t2v,
 train, train-long, train-cp over 4 and 8, train with `fused_residual`,
-ckpt, train-t5, train-real, each rank of each train-fsdp mesh, and
-train-inloop's two runs),
+ckpt, train-t5, train-real, each rank of each train-fsdp mesh,
+train-inloop's two runs and train-remat's six),
 each run with the counters set to 0 just before it and read just after;
 the long kernels' kv-bias launches (the ring's fallback) are rows of their
 own. The next-to-last
@@ -1846,21 +1865,34 @@ def latent_len(latent) -> int:
     return (t // 2) * (hh // 2) * (ww // 2) + 16
 
 
-def first_step_grads(trainer, cfg, ring):
-    """The gradient of the loss on the Trainer's first batch with the
-    draws of the first timed step (a generator seeded as `phase_train`'s),
-    name → fp32 tensor on the host; the model's gradients are left unset."""
+def first_step(trainer, cfg, ring=None, memory=None):
+    """The loss on the Trainer's first batch with the draws of the first
+    timed step (a generator seeded as `phase_train`'s) and its gradient,
+    name → fp32 tensor on the host; the model's gradients are left unset.
+    A `memory` dict gets the GB allocated before the forward, when the
+    backward starts (what the forward keeps for it) and the peak of the
+    two."""
     from video_diffusion_speedrun_tpu_torch.train.step import _loss
 
     gen = torch.Generator(device=trainer.device).manual_seed(cfg.seed + 1)
-    loss, _ = _loss(trainer.model, next(trainer.batches("train")), gen, cfg,
-                    ring)
+    batch = next(trainer.batches("train"))
+    if memory is not None:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(trainer.device)
+        memory["held"] = torch.cuda.memory_allocated(trainer.device) / 1e9
+    loss, _ = _loss(trainer.model, batch, gen, cfg, ring)
+    if memory is not None:
+        memory["backward start"] = (
+            torch.cuda.memory_allocated(trainer.device) / 1e9)
     loss.backward()
+    if memory is not None:
+        memory["forward+backward peak"] = (
+            torch.cuda.max_memory_allocated(trainer.device) / 1e9)
     grads = {name: p.grad.float().cpu()
              for name, p in trainer.model.named_parameters()
              if p.grad is not None}
     trainer.model.zero_grad(set_to_none=True)
-    return grads
+    return loss.item(), grads
 
 
 def grad_rel_l2(grads, ref):
@@ -1883,12 +1915,15 @@ def grad_rel_l2(grads, ref):
 
 def train_step_launches(l: int, fused_residual: bool = False, ring=None,
                         depth: int = T_DEPTH, adamw: int = 1,
-                        bf16_params: bool = False):
+                        bf16_params: bool = False,
+                        kept_attention: bool = False):
     """Kernel → launches of one train step of a DiT of `depth` blocks (the
     canonical one by default) at L. The AdamW kernel runs `adamw` times a
     step: once, or once per group of the optimizer-in-backward step
     (depth + 1), whose forward without grad and recompute launch what the
-    standard step's forward and remat recompute do."""
+    standard step's forward and remat recompute do. With `kept_attention`
+    (the remat policies "attn" and "dots_attn") the recompute replays the
+    attention forwards' outputs: they launch once a block, not twice."""
     from video_diffusion_speedrun_tpu_torch.ops import fused_attention as fa
 
     short = l <= fa.SHORT_MAX_KV
@@ -1909,10 +1944,11 @@ def train_step_launches(l: int, fused_residual: bool = False, ring=None,
                  else "long_attention_bwd<bias>")
         per_layer = ring.size ** 2
     per_step = dict.fromkeys(counters(), 0)
+    attn_runs = 1 if kept_attention else 2
     per_step.update({
         # forward + remat recompute; the final layer's AdaLN runs once
-        fwd_k: 2 * depth * per_layer,
-        "short_attention_fwd<norope>": 2 * depth,
+        fwd_k: attn_runs * depth * per_layer,
+        "short_attention_fwd<norope>": attn_runs * depth,
         "adaln_rms_modulate_fwd": 2 * norms * depth + 1,
         "gated_residual_adaln_fwd": 2 * joins * depth,
         "bias_gelu_fwd": 2 * depth,
@@ -1951,7 +1987,7 @@ def phase_train(dev, batch: int, latent, steps: int, extra, tag: str,
     optionally one evaluation, one profiled step. With `probe` the
     zero-initialised layers are made random, so that the loss and every
     gradient go through attention, and the first step's gradients are
-    taken before the timed steps (`first_step_grads`). With a
+    taken before the timed steps (`first_step`). With a
     `prompt_encoder` (a `TimedEncoder`) the context of each batch is the
     T5 encoding of its captions, timed apart from the step. Returns the
     counts, the losses, those gradients (None without `probe`) and the
@@ -1990,7 +2026,7 @@ def phase_train(dev, batch: int, latent, steps: int, extra, tag: str,
         + ("; zero-initialised layers made random" if probe else "")
         + ("" if ring is None else f"; tokens over LocalRing({ring.size}), "
            "every rank's work on this one card"))
-    grads = first_step_grads(trainer, cfg, ring) if probe else None
+    grads = first_step(trainer, cfg, ring)[1] if probe else None
     gen = torch.Generator(device=dev).manual_seed(cfg.seed + 1)
     loader = trainer.batches("train")
     torch.cuda.reset_peak_memory_stats(dev)
@@ -2011,7 +2047,8 @@ def phase_train(dev, batch: int, latent, steps: int, extra, tag: str,
             f"{m['lr_scale']:.4f}, {step_ms[-1]:.2f} ms{t5}")
     launches = read_counters()
     peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
-    per_step = train_step_launches(l, cfg.model.fused_residual, ring)
+    per_step = train_step_launches(l, cfg.model.fused_residual, ring,
+                                   depth=cfg.model.depth)
     want = {k: steps * v for k, v in per_step.items()}
     skip = 2 if steps >= 6 else 1  # warm-up steps (cuBLAS, Triton, caches)
     steady = float(np.median(step_ms[skip:]))
@@ -2553,6 +2590,289 @@ def phase_train_cp(dev):
                                  "disagree")
         runs.append(launches)
     return runs
+
+
+# the remat policies (train-remat): each on the long canonical cell
+# (train-long's: batch 2, L = 8208, bf16 moments) and two on the XL width
+# (the standard XL step of train-inloop: batch 8, L = 1040, fp32
+# parameters, bf16 moments); REMAT_STEPS steps a run, the first a warm-up
+REMAT_POLICIES = ("nothing", "dots", "attn", "dots_attn")
+REMAT_XL_POLICIES = ("nothing", "dots_attn")
+REMAT_STEPS = 4
+# every policy's first-step loss and gradients against "nothing" in the
+# same call: the recompute reruns or reuses the same deterministic
+# launches, so the bits are expected equal; the phase fails above this
+REMAT_REL = 1e-6
+# the attention rows whose forward the kept policies launch once a block
+REMAT_ROWS = (("short_attention_fwd<rope>", "long_attention_fwd",
+               "short_attention_fwd<norope>"),
+              ("short_attention_bwd<rope>", "long_attention_bwd",
+               "short_attention_bwd<norope>"))
+
+
+def remat_run(dev, tag: str, argv, latent, policy: str, ref, smi: str):
+    """The train CLI's configuration `argv` with `--remat_policy policy`
+    (the zero-initialised layers made random), on `latent` rows: the first
+    step's loss and gradients, held against `ref` (those of "nothing"; None
+    for "nothing" itself); then REMAT_STEPS steps of `train_step` with the
+    counters set to 0 just before and read just after, peak memory from a
+    collected heap (and on the first step the memory when the backward
+    starts), and one profiled step. Returns (counts, loss and
+    gradients, ms per step, busy ms, peak GB)."""
+    import gc
+
+    from video_diffusion_speedrun_tpu_torch.train.__main__ import (
+        build_config,
+        parse_args,
+    )
+    from video_diffusion_speedrun_tpu_torch.train.loop import Trainer
+    from video_diffusion_speedrun_tpu_torch.train.step import train_step
+
+    cfg = build_config(parse_args([*argv, "--remat_policy", policy]))
+    cfg = dataclasses.replace(cfg, data=dataclasses.replace(
+        cfg.data, synthetic_shape=tuple(latent)))
+    gc.collect()
+    torch.cuda.empty_cache()
+    trainer = Trainer(cfg, device=dev)
+    randomize_zero_layers(trainer.model,
+                          torch.Generator(device=dev).manual_seed(1))
+    memory = {}
+    first = first_step(trainer, cfg, memory=memory)
+    log(f"[{tag}] first step's memory: " + ", ".join(
+        f"{k} {v:.2f} GB" for k, v in memory.items()))
+    if ref is not None:
+        loss_rel = abs(first[0] / ref[0] - 1)
+        rel, (worst, worst_rel) = grad_rel_l2(first[1], ref[1])
+        bits = first[0] == ref[0] and all(
+            torch.equal(first[1][n], ref[1][n]) for n in ref[1])
+        ok = max(loss_rel, rel, worst_rel) <= REMAT_REL
+        log(f"[{tag}] first step against 'nothing': loss {first[0]!r} vs "
+            f"{ref[0]!r} (relative {loss_rel:.3e}), gradients relative L2 "
+            f"{rel:.3e}, worst tensor {worst} {worst_rel:.3e} (tol "
+            f"{REMAT_REL}); bits equal: {bits} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"{tag}: remat policy {policy} changed the "
+                                 "first step")
+    gen = torch.Generator(device=dev).manual_seed(cfg.seed + 1)
+    loader = trainer.batches("train")
+    gc.collect()
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated(dev) / 1e9
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_counters()
+    losses, ms = [], []
+    for _ in range(REMAT_STEPS):
+        batch = next(loader)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        m = train_step(trainer.model, trainer.opt, batch, gen, cfg)
+        torch.cuda.synchronize()
+        ms.append(1e3 * (time.perf_counter() - t0))
+        losses.append(float(m["loss"]))
+    launches = read_counters()
+    peak = torch.cuda.max_memory_allocated(dev) / 1e9
+    l = latent_len(latent)
+    kept = policy in ("attn", "dots_attn")
+    want = {k: REMAT_STEPS * v for k, v in train_step_launches(
+        l, depth=cfg.model.depth, kept_attention=kept).items()}
+    batch = next(loader)
+    prof = profile_device(lambda: train_step(trainer.model, trainer.opt,
+                                             batch, gen, cfg),
+                          "one train step", tag + "-profile", rows=8)
+    busy = None if prof is None else prof[1]
+    steady = float(np.median(ms[1:]))
+    per_step = {k: launches[k] // REMAT_STEPS for k in REMAT_ROWS[0]
+                + REMAT_ROWS[1] if launches[k]}
+    log(f"[{tag}] --remat_policy {policy}: {steady:.2f} ms per step (median "
+        f"of steps 1–{REMAT_STEPS - 1}, {[round(t, 2) for t in ms]}), "
+        f"device busy {'not measured' if busy is None else f'{busy:.2f}'} "
+        f"ms of the profiled step; peak memory {peak:.2f} GB ({held:.2f} GB "
+        f"held before the steps); attention launches per step {per_step}; "
+        f"losses {losses}; {smi}")
+    log(f"[{tag}] launches {launches}, expected {want}")
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"{tag}: losses {losses}")
+    if launches != want:
+        raise AssertionError(f"{tag}: launch counts {launches} != {want}")
+    del trainer, loader, batch
+    return launches, first, steady, busy, peak
+
+
+def phase_train_remat(dev):
+    """The remat policies through the train CLI's flags (phase 26 of the
+    docstring): each of REMAT_POLICIES on the long canonical cell, and
+    REMAT_XL_POLICIES at the XL width; every run's first step against
+    "nothing" of its cell. Returns each run's counts."""
+    import gc
+
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    long_argv = train_argv(T_DEPTH, batch=TL_BATCH,
+                           extra=("--moments_dtype", "bf16"))
+    cells = (("train-remat-long", long_argv, TL_LATENT, REMAT_POLICIES),
+             ("train-remat-xl", list(XL_STD_ARGV), XL_LATENT,
+              REMAT_XL_POLICIES))
+    runs = []
+    for cell, argv, latent, policies in cells:
+        ref, res = None, {}
+        for policy in policies:
+            launches, first, steady, busy, peak = remat_run(
+                dev, f"{cell}-{policy}", argv, latent, policy, ref, smi)
+            ref = ref or first
+            res[policy] = (steady, busy, peak)
+            runs.append(launches)
+            gc.collect()
+            torch.cuda.empty_cache()
+        base = res["nothing"]
+        log(f"[{cell}] L={latent_len(latent)}: " + "; ".join(
+            f"{p} {ms:.2f} ms ({ms - base[0]:+.2f}), busy "
+            f"{'not measured' if b is None else f'{b:.2f}'}, peak "
+            f"{gb:.2f} GB ({gb - base[2]:+.2f})"
+            for p, (ms, b, gb) in res.items()) + f"; {smi}")
+        del ref
+        gc.collect()
+    return runs
+
+
+def cp_fallback_serve(dev):
+    """The demo DiT without RoPE (its positional table widened to L =
+    8208) at depth 2, 2 Euler steps at 512×512×16, over `LocalRing(2)`
+    (the gathered attention) against no ring (the long kernel without
+    RoPE), both bf16 on the card."""
+    from video_diffusion_speedrun_tpu_torch.models.dit import DiT
+    from video_diffusion_speedrun_tpu_torch.parallel.ring import LocalRing
+    from video_diffusion_speedrun_tpu_torch.sample import demo_config
+    from video_diffusion_speedrun_tpu_torch.sampling.euler import (
+        euler_cfg_sample,
+    )
+
+    cfg = demo_config(WIDTH, 2, HEAD_DIM, CTX_DIM, param_dtype=torch.bfloat16,
+                      use_rope=False, max_tokens_no_rope=LONG_L)
+    model = DiT(cfg, device=dev, init_std_factor=0.1, seed=0)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    randomize_zero_layers(model, gen)
+    with torch.no_grad():
+        model.positional_embedding.normal_(generator=gen)
+    rng = np.random.default_rng(0)
+    shape = (1, 16, LONG_FRAMES, LONG_PX // 8, LONG_PX // 8)
+    noise = torch.from_numpy(rng.standard_normal(shape, np.float32)).to(
+        dev).bfloat16()
+    ctx = torch.from_numpy(rng.standard_normal((1, CTX_LEN, CTX_DIM),
+                                               np.float32) * 0.05).to(dev)
+    outs = {}
+    for name, ring in (("no ring", None), ("LocalRing(2)", LocalRing(2))):
+        reset_counters()
+        outs[name] = euler_cfg_sample(model, noise, ctx.bfloat16(),
+                                      num_steps=2, cfg_scale=6.0,
+                                      context_parallel=ring).float()
+        outs[name + " launches"] = read_counters()
+    self_attn = {k: v for k, v in outs["LocalRing(2) launches"].items()
+                 if k in ("ring_attention_fwd", "long_attention_fwd",
+                          "long_attention_fwd<bias>")}
+    d_ref = outs["no ring"] - noise.float()
+    rel = ((outs["LocalRing(2)"] - outs["no ring"]).norm()
+           / d_ref.norm()).item()
+    ok = (rel <= CP_REL_L2 and bool(torch.isfinite(outs["LocalRing(2)"])
+                                    .all())
+          and not any(self_attn.values())
+          # depth 2 × 2 Euler steps, one CFG-batched forward each
+          and outs["no ring launches"]["long_attention_fwd"] == 2 * 2)
+    log(f"[cp-fallback] no-RoPE demo DiT, depth 2, L={LONG_L}, 2 Euler "
+        f"steps: LocalRing(2) (gathered attention; self-attention kernel "
+        f"launches {self_attn}) against no ring (the long kernel, "
+        f"{outs['no ring launches']['long_attention_fwd']} launches): "
+        f"relative L2 of the latent update {rel:.3e} (tol {CP_REL_L2}) "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("cp-fallback: the gathered attention and the "
+                             "one-card path disagree")
+
+
+def cp_fallback_train(dev, tag: str, argv_extra, **overrides):
+    """The canonical DiT at depth 2 (the train CLI's flags plus
+    `argv_extra`, config `overrides`), its zero-initialised layers (and a
+    no-RoPE model's positional table) made random: 3 steps on the same
+    batches and draws without a ring and over `LocalRing(2)`, losses and
+    first-step gradients held at the CP limits."""
+    from video_diffusion_speedrun_tpu_torch.parallel.ring import LocalRing
+    from video_diffusion_speedrun_tpu_torch.train.__main__ import (
+        build_config,
+        parse_args,
+    )
+    from video_diffusion_speedrun_tpu_torch.train.loop import Trainer
+    from video_diffusion_speedrun_tpu_torch.train.step import train_step
+
+    cfg = build_config(parse_args(train_argv(2, batch=T_BATCH,
+                                             extra=argv_extra)))
+    cfg = dataclasses.replace(cfg, model=cfg.model.replace(**overrides),
+                              data=dataclasses.replace(
+                                  cfg.data, synthetic_shape=T_LATENT))
+    res = {}
+    for name, ring in (("no ring", None), ("LocalRing(2)", LocalRing(2))):
+        trainer = Trainer(cfg, device=dev, context_parallel=ring)
+        gen = torch.Generator(device=dev).manual_seed(1)
+        randomize_zero_layers(trainer.model, gen)
+        if not cfg.model.use_rope:
+            with torch.no_grad():
+                trainer.model.positional_embedding.normal_(generator=gen)
+        _, grads = first_step(trainer, cfg, ring)
+        g = torch.Generator(device=dev).manual_seed(cfg.seed + 1)
+        loader = trainer.batches("train")
+        reset_counters()
+        losses = [float(train_step(trainer.model, trainer.opt, next(loader),
+                                   g, cfg, ring)["loss"]) for _ in range(3)]
+        res[name] = (losses, grads, read_counters())
+        del trainer, loader
+    (ref_losses, ref_grads, _), (losses, grads, launches) = (
+        res["no ring"], res["LocalRing(2)"])
+    rel = max(abs(a / w - 1) for a, w in zip(losses, ref_losses))
+    grad_rel, (worst, worst_rel) = grad_rel_l2(grads, ref_grads)
+    ring_launches = {k: launches[k] for k in (
+        "ring_attention_fwd", "ring_attention_bwd", "long_attention_fwd<bias>",
+        "long_attention_bwd<bias>")}
+    ok = (rel <= TRAIN_LOSS_REL and grad_rel <= TRAIN_GRAD_REL_L2
+          and worst_rel <= TRAIN_GRAD_REL_L2 and np.isfinite(losses).all()
+          and not any(ring_launches.values()))
+    log(f"[{tag}] depth 2, L={T_L}, {overrides or argv_extra}: LocalRing(2) "
+        f"(gathered attention; ring kernel launches {ring_launches}) losses "
+        f"{losses} against {ref_losses} without a ring: relative "
+        f"difference {rel:.3e} (tol {TRAIN_LOSS_REL}); first-step gradient "
+        f"relative L2 {grad_rel:.3e}, worst tensor {worst} {worst_rel:.3e} "
+        f"(tol {TRAIN_GRAD_REL_L2} each) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"{tag}: the gathered attention and the "
+                             "one-card path disagree")
+
+
+def phase_cp_fallback(dev):
+    """Context parallelism where the ring does not run (phase 27 of the
+    docstring): a no-RoPE long sampling model and a no-RoPE canonical
+    training model, and the canonical model at head_dim 32 in bf16 (the
+    kernels refuse it; "auto" gathers k and v), each over `LocalRing(2)`
+    against no ring; and "fused" at head_dim 32 under CP raises."""
+    from video_diffusion_speedrun_tpu_torch.models.dit import DiT
+    from video_diffusion_speedrun_tpu_torch.parallel.ring import LocalRing
+
+    cp_fallback_serve(dev)
+    cp_fallback_train(dev, "cp-fallback-norope", (), use_rope=False)
+    hd32 = ("--model_head_dim", "32")
+    cp_fallback_train(dev, "cp-fallback-hd32", hd32)
+    model = DiT(train_config(2, attention_impl="fused").replace(
+        num_heads=T_WIDTH // 32), device=dev)
+    x = torch.randn((1, *T_LATENT), device=dev)
+    try:
+        with torch.no_grad():
+            model(x, torch.zeros(1, 8, model.cfg.cross_attn_input_size,
+                                 device=dev), torch.full((1,), 0.5,
+                                                         device=dev),
+                  context_parallel=LocalRing(2))
+    except ValueError as e:
+        log(f"[cp-fallback] attention_impl='fused' at head_dim 32 under "
+            f"LocalRing(2) raises, as JAX's 'pallas': {e}")
+    else:
+        raise AssertionError("'fused' at head_dim 32 under CP did not raise")
 
 
 def _nccl_ring_worker(rank: int, port: int, inputs, out_path: str) -> None:
@@ -4223,6 +4543,7 @@ def main() -> int:
     runs += timed("train-fsdp", phase_train_fsdp, dev)
     runs += timed("train-inloop", phase_train_inloop, dev)
     timed("inloop-parity", phase_inloop_parity, dev)
+    runs += timed("train-remat", phase_train_remat, dev)
     runs.append(timed("train-fr", phase_train, dev, T_BATCH, T_LATENT,
                       FR_STEPS, (), "train-fr", evaluate=False,
                       fused_residual=True)[0])
@@ -4240,6 +4561,7 @@ def main() -> int:
           "cp-train-parity", cp=CP_PARITY)
     timed("cp-long-train-parity", phase_train_parity, dev, T_WIDTH,
           LP_LATENT, 2, "cp-long-train-parity", cp=CP_PARITY)
+    timed("cp-fallback", phase_cp_fallback, dev)
     timed("nccl-ring", phase_nccl_ring, dev)
 
     launches = {name: sum(r[name] for r in runs) for name in runs[0]}

@@ -13,9 +13,18 @@ the environment `torchrun` would set) and, on the CPU:
 2. run `STEPS` train steps of the tiny DiT through the `Trainer` built on
    the mesh `MESHES[WORLD]` (replica × context), each replica taking its
    rows of the injected global batches, and keep the losses and the
-   step-1 gradients as the optimizer receives them;
+   step-1 gradients as the optimizer receives them; then the same under
+   the remat policy "dots_attn";
 3. average their ranks with `avg_scalar_across_hosts` and meet at a
    `barrier`.
+
+    python tests/_torch_cp_workers.py gathered PORT IN.npz OUT.npz
+
+spawns 2 processes that run each model of `GATHERED` (the gathered
+attention of context parallelism: a no-RoPE model, and head_dim 16 with
+the plain attention) over a `DistRing` of both, on the inputs and the
+state dicts (`sd.<model>.<name>`) in IN.npz: the output and the
+parameter gradients of `gathered_loss`, summed over the ranks.
 
     python tests/_torch_cp_workers.py eval PORT OUT.npz
 
@@ -61,14 +70,15 @@ LATENT = (4, 4, 4, 10, 10)
 CTX = (4, 5, 32)
 
 
-def train_config(replica: int = 1, context: int = 1) -> TrainConfig:
+def train_config(replica: int = 1, context: int = 1,
+                 remat_policy: str = "nothing") -> TrainConfig:
     """The tiny DiT (width 64, depth 2, remat) in fp32 with the fused ops'
     twins, muP AdamW without warm-up, no caption dropout."""
     model = DiTConfig(
         in_channels=4, hidden_size=64, depth=2, num_heads=HEADS,
         cross_attn_input_size=32, residual_v=True, train_bias_and_rms=True,
         compute_dtype=torch.float32, attention_impl="fused",
-        fused_adaln="fused", remat=True)
+        fused_adaln="fused", remat=True, remat_policy=remat_policy)
     return TrainConfig(
         model=model, batch_size=LATENT[0], max_steps=STEPS,
         caption_dropout=0.0,
@@ -164,6 +174,95 @@ def train(data, trainer):
     return np.asarray(losses), seen[0].numpy()
 
 
+# the gathered attention's models (architecture fields, shared with the
+# JAX side) and the port's flags for each: a no-RoPE model, whose
+# self-attention under context parallelism is JAX's XLA attention on any
+# dispatch (here under remat "dots_attn"), and head_dim 16 under "plain"
+GATHERED = {
+    "norope": (dict(hidden_size=64, num_heads=2, use_rope=False),
+               dict(attention_impl="fused", fused_adaln="fused",
+                    remat_policy="dots_attn")),
+    "plain16": (dict(hidden_size=32, num_heads=2),
+                dict(attention_impl="plain", fused_adaln="off")),
+}
+GATHERED_ARCH = dict(in_channels=4, depth=2, cross_attn_input_size=32,
+                     residual_v=True, train_bias_and_rms=True)
+# [B, C, T, H, W] → 2·5·5 + 16 = 66 tokens: 30 padded rows at cp = 2
+GATHERED_LATENT = (2, 4, 4, 10, 10)
+
+
+def gathered_config(name: str) -> DiTConfig:
+    arch, flags = GATHERED[name]
+    return DiTConfig(**GATHERED_ARCH, **arch, **flags,
+                     compute_dtype=torch.float32)
+
+
+def gathered_inputs(seed: int = 5):
+    """The gathered models' inputs (x, context, timesteps, RoPE offsets)
+    and the loss weights w of the output's shape."""
+    r = np.random.default_rng(seed)
+    b = GATHERED_LATENT[0]
+    return dict(x=r.normal(size=GATHERED_LATENT).astype(np.float32),
+                context=r.normal(size=(b, 5, 32)).astype(np.float32),
+                timesteps=np.asarray([0.3, 0.7], np.float32),
+                rope_offsets=np.asarray([1, 2, 3], np.int32),
+                w=r.normal(size=GATHERED_LATENT).astype(np.float32))
+
+
+def gathered_loss(model, data, ring):
+    """Σ w·DiT(x) over `ring`, and the output."""
+    t = {k: torch.from_numpy(v) for k, v in data.items()
+         if not k.startswith("sd.")}
+    out = model(t["x"], t["context"], t["timesteps"],
+                rope_offsets=t["rope_offsets"], context_parallel=ring)
+    return (out * t["w"]).sum(), out
+
+
+def gathered(data, name: str, ring):
+    """The output and the parameter gradients (name → numpy, summed over
+    the ring's ranks across processes) of `gathered_loss` of model
+    `name` on the state dict `sd.<name>.*` in `data`."""
+    import torch.distributed as dist
+
+    from video_diffusion_speedrun_tpu_torch.models.dit import DiT
+
+    model = DiT(gathered_config(name), device="cpu")
+    prefix = f"sd.{name}."
+    model.load_state_dict({k[len(prefix):]: torch.from_numpy(v)
+                           for k, v in data.items() if k.startswith(prefix)},
+                          strict=True)
+    loss, out = gathered_loss(model, data, ring)
+    loss.backward()
+    grads = {}
+    for n, p in model.named_parameters():
+        g = torch.zeros_like(p) if p.grad is None else p.grad
+        if ring.group is not None:
+            dist.all_reduce(g, group=ring.group)
+        grads[n] = g.numpy()
+    return out.detach().numpy(), grads
+
+
+def _gathered_worker(rank: int, port: int, inp: str, out: str) -> None:
+    os.environ.update(WORLD_SIZE="2", RANK=str(rank), LOCAL_RANK=str(rank),
+                      MASTER_ADDR="localhost", MASTER_PORT=str(port))
+    import torch.distributed as dist
+
+    from video_diffusion_speedrun_tpu_torch.parallel import mesh as pmesh
+    from video_diffusion_speedrun_tpu_torch.parallel.ring import DistRing
+
+    torch.set_num_threads(1)
+    data = dict(np.load(inp))
+    pmesh.init_distributed(torch.device("cpu"))
+    res = {}
+    for name in GATHERED:
+        res[f"{name}.out"], grads = gathered(data, name,
+                                             DistRing(dist.group.WORLD))
+        res.update({f"{name}.grad.{n}": g for n, g in grads.items()})
+    if rank == 0:
+        np.savez(out, **res)
+    pmesh.shutdown()
+
+
 def _worker(rank: int, world: int, port: int, inp: str, out: str) -> None:
     os.environ.update(WORLD_SIZE=str(world), RANK=str(rank),
                       LOCAL_RANK=str(rank), MASTER_ADDR="localhost",
@@ -189,6 +288,9 @@ def _worker(rank: int, world: int, port: int, inp: str, out: str) -> None:
                    attention(data, DistRing(dist.group.WORLD))))
     trainer = Trainer(train_config(*MESHES[world]), device="cpu")
     res["losses"], res["grads"] = train(data, trainer)
+    trainer = Trainer(train_config(*MESHES[world], remat_policy="dots_attn"),
+                      device="cpu")
+    res["dots_attn.losses"], res["dots_attn.grads"] = train(data, trainer)
     res["avg_rank"] = np.asarray(avg_scalar_across_hosts(rank))
     # one card's peak of work in one second, over the group's cards
     card = "NVIDIA H100 80GB HBM3"
@@ -256,6 +358,11 @@ def main(argv) -> None:
     if argv[0] == "eval":
         mp.start_processes(_eval_worker, args=(int(argv[1]), argv[2]),
                            nprocs=EVAL_REPLICAS, start_method="spawn")
+        return
+    if argv[0] == "gathered":
+        mp.start_processes(_gathered_worker,
+                           args=(int(argv[1]), argv[2], argv[3]), nprocs=2,
+                           start_method="spawn")
         return
     world, port, inp, out = int(argv[0]), int(argv[1]), argv[2], argv[3]
     mp.start_processes(_worker, args=(world, port, inp, out), nprocs=world,

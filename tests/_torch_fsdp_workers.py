@@ -44,6 +44,7 @@ from __future__ import annotations
 import dataclasses
 import os
 import sys
+from typing import Optional
 
 import numpy as np
 import torch
@@ -75,21 +76,39 @@ MESHES = {
     4: {"hsdp": (2, 2, 1, 1), "fsdp_tensor": (1, 2, 1, 2),
         "context_tensor": (1, 1, 2, 2)},
 }
+# world → run name → (the mesh of MESHES it runs on, model flags): the
+# remat policies composed with FSDP2, the tensor region's collectives and
+# (under "fused") the ring over the context group — under the default
+# policy and under "attn" — held against the JAX reference of that mesh
+REMAT_MESHES = {
+    2: {"fsdp.dots": ("fsdp", dict(remat_policy="dots"))},
+    4: {"fsdp_tensor.dots_attn": ("fsdp_tensor",
+                                  dict(remat_policy="dots_attn")),
+        "context_tensor.ring": ("context_tensor",
+                                dict(attention_impl="fused")),
+        "context_tensor.ring_attn": ("context_tensor",
+                                     dict(attention_impl="fused",
+                                          remat_policy="attn"))},
+}
 T5_IDS = (2, 12)
 
 
 def model_config(**kw) -> DiTConfig:
     """The tiny DiT in fp32 with the plain attention and AdaLN (the JAX
-    "xla"/"off" pairing)."""
-    return DiTConfig(**TINY, compute_dtype=torch.float32,
-                     attention_impl="plain", fused_adaln="off", **kw)
+    "xla"/"off" pairing), `kw` over those."""
+    return DiTConfig(**{**TINY, "compute_dtype": torch.float32,
+                        "attention_impl": "plain", "fused_adaln": "off",
+                        **kw})
 
 
-def train_config(mesh=(1, 1, 1, 1), **kw) -> TrainConfig:
-    """muP AdamW without warm-up, no caption dropout, grad norms logged."""
+def train_config(mesh=(1, 1, 1, 1), model: Optional[DiTConfig] = None,
+                 **kw) -> TrainConfig:
+    """muP AdamW without warm-up, no caption dropout, grad norms logged;
+    the model `model_config()` unless given."""
     r, f, c, t = mesh
     return TrainConfig(
-        model=model_config(), batch_size=LATENT[0], max_steps=STEPS + 1,
+        model=model or model_config(), batch_size=LATENT[0],
+        max_steps=STEPS + 1,
         caption_dropout=0.0, log_grad_norm=True,
         data=DataConfig(synthetic_rows=8, test_rows=8, caption_tokens=CTX[1],
                         context_dim=CTX[2]),
@@ -540,6 +559,9 @@ def _worker(rank: int, world: int, port: int, port2: int, inp: str, out: str,
     res = {}
     for name, mesh in MESHES[world].items():
         _train_mesh(name, mesh, data, res)
+    for name, (base, flags) in REMAT_MESHES[world].items():
+        _train_mesh(name, MESHES[world][base], data, res,
+                    model=model_config(**flags))
     if world == 4:
         region_ops(res)
         checkpoints(data, res, directory)

@@ -2,9 +2,12 @@
 against JAX's rule (`video_diffusion_speedrun_tpu/models/dit.py:211-229`):
 "auto" takes the CUDA kernels only for operands they accept (bf16, head_dim
 64 or 128) and the plain composition otherwise; "fused" always takes the
-fused ops, which raise on what the kernels refuse; under context
-parallelism a CUDA tensor the ring kernels refuse raises
-NotImplementedError (ROADMAP A9), since the ring has no plain version.
+fused ops, which raise on what the kernels refuse. Under context
+parallelism (JAX's `cp_enabled`) a no-RoPE model and "plain" take the
+gathered attention (JAX's XLA attention over the token-sharded axis);
+"auto" takes the ring for CPU tensors (its twins) and CUDA tensors its
+kernels accept, the gathered attention for the rest; "fused" takes the
+ring and raises at once for CUDA tensors the kernels refuse.
 
 The on-card case (a head_dim-32 DiT forward under "auto") is in
 tests/test_torch_gpu_kernels.py.
@@ -40,17 +43,24 @@ def test_dispatch_without_context_parallelism(head_dim, dtype, impl,
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("head_dim", HEAD_DIMS)
 def test_dispatch_under_context_parallelism(head_dim, dtype, impl):
-    """The ring runs on every dispatch: its twins for CPU tensors, its
-    kernels for CUDA tensors they accept; the rest raises."""
+    """True: the ring (its twins for CPU tensors, its kernels for CUDA
+    tensors); False: the gathered attention. JAX's table
+    (`_use_fused_attention(cfg, l, cos, cp_enabled=True)`)."""
+    takes = dtype == torch.bfloat16 and head_dim in (64, 128)
+    for on_cuda in (False, True):
+        # a no-RoPE model: the gathered attention on every dispatch
+        assert use_fused_attention(impl, head_dim, dtype, on_cuda,
+                                   context_parallel=True, rope=False) is False
     assert use_fused_attention(impl, head_dim, dtype, False,
-                               context_parallel=True)
-    if dtype == torch.bfloat16 and head_dim in (64, 128):
-        assert use_fused_attention(impl, head_dim, dtype, True,
-                                   context_parallel=True)
-    else:
-        with pytest.raises(NotImplementedError, match="ROADMAP A9"):
+                               context_parallel=True) is (impl != "plain")
+    if impl == "fused" and not takes:
+        with pytest.raises(ValueError, match="ring kernels take bf16"):
             use_fused_attention(impl, head_dim, dtype, True,
                                 context_parallel=True)
+    else:
+        assert use_fused_attention(impl, head_dim, dtype, True,
+                                   context_parallel=True) is (
+            impl == "fused" or (impl == "auto" and takes))
 
 
 def _tiny(impl: str, head_dim: int) -> DiT:
@@ -98,18 +108,29 @@ def test_auto_takes_the_plain_composition_on_cpu(head_dim, monkeypatch):
 
 
 def test_ring_of_refused_operands_raises_before_any_attention(monkeypatch):
-    """The DiT's CP forward checks the operands once, up front: a CUDA
-    tensor the ring kernels refuse raises NotImplementedError (A9)."""
-    seen = []
+    """Operands the ring kernels refuse, seen as CUDA tensors: under
+    "fused" the DiT's CP forward raises once, up front, before any
+    attention (as JAX's "pallas"); under "auto" every block takes the
+    gathered attention and no ring runs."""
+    seen, ran = [], []
 
     def fake(attention_impl, head_dim, dtype, on_cuda,
-             context_parallel=False):
+             context_parallel=False, rope=True):
         seen.append((head_dim, dtype, context_parallel))
         return use_fused_attention(attention_impl, head_dim, dtype, True,
-                                   context_parallel)
+                                   context_parallel, rope)
 
     monkeypatch.setattr(tdit, "use_fused_attention", fake)
+    monkeypatch.setattr(tdit, "ring_flash_attention",
+                        lambda *a, **k: ran.append("ring"))
+    gather = tdit._gathered_attention
+    monkeypatch.setattr(tdit, "_gathered_attention",
+                        lambda *a, **k: ran.append("gathered") or gather(
+                            *a, **k))
     x, ctx, ts = _inputs()
-    with pytest.raises(NotImplementedError, match="ROADMAP A9"):
-        _tiny("auto", 32)(x, ctx, ts, context_parallel=LocalRing(2))
-    assert seen == [(32, torch.float32, True)]
+    with pytest.raises(ValueError, match="ring kernels take bf16"):
+        _tiny("fused", 32)(x, ctx, ts, context_parallel=LocalRing(2))
+    assert seen == [(32, torch.float32, True)] and ran == []
+    with torch.no_grad():
+        out = _tiny("auto", 32)(x, ctx, ts, context_parallel=LocalRing(2))
+    assert ran == ["gathered"] and torch.isfinite(out).all()

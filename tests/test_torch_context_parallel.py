@@ -13,7 +13,16 @@ Tolerances, fp32 on every side:
   merge sums the softmax in another order);
 - training over the meshes against one process: the losses of 3 steps to
   1e-5 relative and the step-1 gradients to 1e-5 relative L2 (the ring's
-  merge order and the all-reduce's summation order; measured ≤ 3e-7).
+  merge order and the all-reduce's summation order; measured ≤ 3e-7);
+  the same meshes under the remat policy "dots_attn" against the default
+  policy: 1e-6 relative (the same operations, the ring's forward kept
+  instead of run again; measured equal);
+- the gathered attention (JAX's XLA attention over the token-sharded axis:
+  a no-RoPE model, and head_dim 16 under "plain"), over `LocalRing(2)`
+  and over `DistRing(2)` in 2 spawned processes, against JAX
+  `dit_forward(token_sharding=…)` on a 2-device context mesh: the output
+  to 1e-5 of its largest magnitude, the parameter gradients (summed over
+  the ranks) to 1e-5 relative L2.
 
 The workers live in `tests/_torch_cp_workers.py`, which imports no JAX;
 they run in one subprocess per world size that spawns its ranks.
@@ -111,6 +120,127 @@ def test_dit_forward_over_local_ring_matches_jax(shape):
                                rtol=1e-3)
 
 
+def _port() -> int:
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+@pytest.fixture(scope="module")
+def gathered_refs(tmp_path_factory):
+    """For each model of `workers.GATHERED`: JAX's output and gradients of
+    Σ w·dit_forward with token_sharding on a 2-device context mesh (XLA
+    attention; the zero-initialised layers and the positional table made
+    random), and the port's state dict of the same weights, written with
+    the inputs to IN.npz for the spawned ranks."""
+    from jax.sharding import NamedSharding
+
+    from video_diffusion_speedrun_tpu.core.config import MeshConfig as JMesh
+    from video_diffusion_speedrun_tpu.parallel.mesh import (
+        build_mesh,
+        token_pspec,
+    )
+
+    mesh = build_mesh(JMesh(replica=1, fsdp=1, context=2, tensor=1),
+                      devices=jax.devices()[:2])
+    tok = NamedSharding(mesh, token_pspec())
+    data = workers.gathered_inputs()
+    jd = {k: jnp.asarray(v) for k, v in data.items()}
+    want = {}
+    for name, (arch, _) in workers.GATHERED.items():
+        jcfg = JCfg(**workers.GATHERED_ARCH, **arch, attention_impl="xla",
+                    fused_adaln="off", compute_dtype=jnp.float32,
+                    remat=False)
+        params = _jax_params(jcfg)
+        if not jcfg.use_rope:
+            params["positional_embedding"] = jnp.asarray(
+                np.random.default_rng(3).normal(
+                    size=params["positional_embedding"].shape).astype(
+                        np.float32))
+
+        def loss(p, jcfg=jcfg):
+            out = dit_forward(p, jcfg, jd["x"], jd["context"],
+                              jd["timesteps"], rope_offsets=jd["rope_offsets"],
+                              token_sharding=tok)
+            return jnp.sum(out * jd["w"]), out
+
+        (_, out), grads = jax.jit(jax.value_and_grad(loss, has_aux=True))(
+            params)
+        tcfg = workers.gathered_config(name)
+        sd = state_dict_from_jax_params(jax.tree.map(np.asarray, params),
+                                        tcfg)
+        data.update({f"sd.{name}.{k}": v.numpy() for k, v in sd.items()})
+        want[name] = (np.asarray(out), {
+            k: v.numpy() for k, v in state_dict_from_jax_params(
+                jax.tree.map(np.asarray, grads), tcfg).items()})
+    path = tmp_path_factory.mktemp("gathered") / "in.npz"
+    np.savez(path, **data)
+    return path, data, want
+
+
+def _hold_gathered(out, grads, want):
+    want_out, want_grads = want
+    assert float(np.abs(want_out).max()) > 1e-2
+    assert np.abs(out - want_out).max() <= 1e-5 * np.abs(want_out).max()
+    names = sorted(want_grads)
+    assert sorted(grads) == names
+    got = np.concatenate([grads[n].ravel() for n in names])
+    ref = np.concatenate([want_grads[n].ravel() for n in names])
+    rel = np.linalg.norm(got - ref) / np.linalg.norm(ref)
+    assert rel <= 1e-5, rel
+
+
+@pytest.mark.parametrize("name", sorted(workers.GATHERED))
+def test_gathered_attention_over_local_ring_matches_jax(gathered_refs, name,
+                                                        monkeypatch):
+    """Over `LocalRing(2)` the model takes the gathered attention (never
+    the ring) and matches JAX's token-sharded XLA attention."""
+    from video_diffusion_speedrun_tpu_torch.models import dit as tdit
+
+    _, data, want = gathered_refs
+    calls = []
+    monkeypatch.setattr(tdit, "ring_flash_attention",
+                        lambda *a, **k: calls.append("ring"))
+    gather = tdit._gathered_attention
+
+    def counted(*a, **k):
+        calls.append("gathered")
+        return gather(*a, **k)
+
+    monkeypatch.setattr(tdit, "_gathered_attention", counted)
+    out, grads = workers.gathered(data, name, LocalRing(2))
+    # each block's forward and its remat recompute
+    assert calls == ["gathered"] * 2 * workers.GATHERED_ARCH["depth"]
+    _hold_gathered(out, grads, want[name])
+
+
+@pytest.fixture(scope="module")
+def gathered_dist(gathered_refs):
+    path, _, _ = gathered_refs
+    out = path.parent / "out.npz"
+    run = subprocess.run(
+        [sys.executable, str(ROOT / "tests" / "_torch_cp_workers.py"),
+         "gathered", str(_port()), str(path), str(out)],
+        capture_output=True, text=True, timeout=300, cwd=ROOT)
+    assert run.returncode == 0, run.stderr[-4000:]
+    return dict(np.load(out))
+
+
+@pytest.mark.parametrize("name", sorted(workers.GATHERED))
+def test_gathered_attention_over_dist_ring_matches_jax(gathered_refs,
+                                                       gathered_dist, name):
+    """Over `DistRing(2)` (gloo, 2 processes) each rank attends its q rows
+    to the k and v gathered from both; their gradients are summed back
+    over the ranks (without that sum the k/v projections' gradients would
+    miss the other rank's queries)."""
+    _, _, want = gathered_refs
+    res = gathered_dist
+    prefix = f"{name}.grad."
+    grads = {k[len(prefix):]: v for k, v in res.items()
+             if k.startswith(prefix)}
+    _hold_gathered(res[f"{name}.out"], grads, want[name])
+
+
 @pytest.fixture(scope="module")
 def inputs(tmp_path_factory):
     path = tmp_path_factory.mktemp("cp") / "inputs.npz"
@@ -125,12 +255,9 @@ def spawned(request, inputs):
     world = request.param
     path, data = inputs
     out = path.parent / f"out{world}.npz"
-    with socket.socket() as s:
-        s.bind(("localhost", 0))
-        port = s.getsockname()[1]
     run = subprocess.run(
         [sys.executable, str(ROOT / "tests" / "_torch_cp_workers.py"),
-         str(world), str(port), str(path), str(out)],
+         str(world), str(_port()), str(path), str(out)],
         capture_output=True, text=True, timeout=300, cwd=ROOT)
     assert run.returncode == 0, run.stderr[-4000:]
     return world, data, dict(np.load(out))
@@ -168,6 +295,19 @@ def test_mesh_training_matches_one_process(spawned):
     rel = np.linalg.norm(res["grads"] - grads) / np.linalg.norm(grads)
     assert rel < 1e-5, rel
     assert np.isfinite(losses).all() and losses[0] != losses[-1]
+
+
+def test_mesh_training_under_dots_attn_matches_the_default_policy(spawned):
+    """The same 3 steps under the remat policy "dots_attn": the ring's
+    forward is kept for the backward (no chunk forward, merge or shift in
+    the recompute) and the linear layers' outputs reused, over `DistRing`
+    and the replica group."""
+    _, _, res = spawned
+    np.testing.assert_allclose(res["dots_attn.losses"], res["losses"],
+                               rtol=1e-6)
+    rel = np.linalg.norm(res["dots_attn.grads"] - res["grads"]) / \
+        np.linalg.norm(res["grads"])
+    assert rel <= 1e-6, rel
 
 
 def test_mfu_holds_a_step_against_every_card_of_the_group(spawned):
@@ -238,9 +378,7 @@ def test_eval_batch_clamps_to_the_replicas(tmp_path):
     shards that the 40-row test split fills, and logs it, as JAX's
     `_loader` (`train/loop.py:132-157`)."""
     out = tmp_path / "eval.npz"
-    with socket.socket() as s:
-        s.bind(("localhost", 0))
-        port = s.getsockname()[1]
+    port = _port()
     # run in tmp_path: the evaluation saves a checkpoint under the working
     # directory's checkpoints/
     run = subprocess.run(

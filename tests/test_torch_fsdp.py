@@ -379,6 +379,19 @@ def test_fsdp_training_matches_jax(world2):
     assert not np.array_equal(*res["fsdp.draws"])
 
 
+def test_fsdp_training_under_dots_matches_jax(world2):
+    """The remat policy "dots" at fsdp 2: selective checkpointing keeps the
+    products' outputs while FSDP2 gathers each block again for its
+    recompute."""
+    res, (losses, norms, grads) = world2
+    names = [n for n, _ in DiT(workers.model_config(),
+                               device="meta").named_parameters()]
+    np.testing.assert_allclose(res["fsdp.dots.losses"], losses, rtol=RTOL)
+    np.testing.assert_allclose(res["fsdp.dots.grad_norm"], norms, rtol=RTOL)
+    rel = ref.rel_l2(res["fsdp.dots.grads"], ref.flat_grads(grads, names))
+    assert rel < RTOL, rel
+
+
 def test_t5_sharded_over_fsdp_encodes_as_unsharded(world2):
     res, _ = world2
     assert int(res["t5.sharded"]) > 0  # FSDP2 holds some of its leaves

@@ -5,8 +5,12 @@ parameters (`state_dict_from_jax_params`) and the same injected
 timesteps, noise and RoPE offsets; and the sharded checkpoints.
 
 Meshes (replica, fsdp, context, tensor): (2, 2, 1, 1) HSDP, (1, 2, 1, 2)
-fsdp × tensor, (1, 1, 2, 2) context × tensor. Tolerances, fp32 on both
-sides (those of `test_mesh_training_matches_one_process`): the losses of
+fsdp × tensor, (1, 1, 2, 2) context × tensor (the plain attention: the
+gathered attention of context parallelism); and the remat policies on
+them (`workers.REMAT_MESHES`): "dots_attn" at fsdp × tensor, the ring
+under the default policy and under "attn" at context × tensor.
+Tolerances, fp32 on both sides (those of
+`test_mesh_training_matches_one_process`): the losses of
 3 steps and the grad norms to rtol 1e-5, the step-1 gradients to 1e-5
 relative L2 (the summation orders of the collectives and of XLA differ;
 measured ≤ 3e-7). Every rank's λ and row-parallel bias gradient equals
@@ -76,6 +80,25 @@ def test_mesh_training_matches_jax(world4, mesh):
     rel = ref.rel_l2(res[f"{mesh}.grads"], ref.flat_grads(grads, names))
     assert rel < RTOL, rel
     assert np.isfinite(losses).all() and losses[0] != losses[-1]
+
+
+@pytest.mark.parametrize("name", sorted(workers.REMAT_MESHES[4]))
+def test_mesh_training_under_remat_policies_matches_jax(world4, name):
+    """The remat policies on the sharded block: "dots_attn" at fsdp ×
+    tensor (selective checkpointing beside FSDP2's re-gathers and the
+    tensor region's collectives), and the ring (`attention_impl="fused"`,
+    its twins at the local heads) at context × tensor under the default
+    policy (its forward recomputed) and under "attn" (replayed), held
+    against JAX's reference of that mesh at its limits."""
+    _, _, res, want = world4
+    losses, norms, grads = want[workers.REMAT_MESHES[4][name][0]]
+    names = [n for n, _ in DiT(workers.model_config(),
+                               device="meta").named_parameters()]
+    np.testing.assert_allclose(res[f"{name}.losses"], losses, rtol=RTOL)
+    np.testing.assert_allclose(res[f"{name}.grad_norm"], norms, rtol=RTOL)
+    rel = ref.rel_l2(res[f"{name}.grads"], ref.flat_grads(grads, names))
+    assert rel < RTOL, rel
+    assert res[f"{name}.lambda0_none"].all()
 
 
 @pytest.mark.parametrize("mesh", sorted(workers.MESHES[4]))

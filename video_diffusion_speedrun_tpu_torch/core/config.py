@@ -1,7 +1,7 @@
 """Configuration dataclasses (port of `video_diffusion_speedrun_tpu/core/config.py`).
 
 The model, sampler, data, optimizer, mesh and training configs. Dtypes
-are torch dtypes. Options of later slices raise where they are set.
+are torch dtypes.
 
 Kernel dispatch (`attention_impl`, `fused_adaln`):
   "fused" — the port's fused op: on a CUDA tensor it launches the hand-written
@@ -58,9 +58,13 @@ class DiTConfig:
     # default, as in JAX, where it is net-slower on the canonical config
     fused_residual: bool = False
     # recompute each block in the backward (torch.utils.checkpoint), the
-    # JAX `jax.checkpoint` with policy "nothing"; sampling (no grad) skips it
+    # JAX `jax.checkpoint`; sampling (no grad) skips it. What the recompute
+    # may reuse (`models/dit.py:remat_context_fn`): "nothing"; "dots" the
+    # outputs of the products with no batch dims (the linear layers); "attn"
+    # the attention kernels' o and lse, so no attention forward runs again
+    # (the long-context policy); "dots_attn" both
     remat: bool = True
-    remat_policy: str = "nothing"
+    remat_policy: str = "nothing"  # nothing | dots | attn | dots_attn
 
     def __post_init__(self):
         if self.hidden_size % self.num_heads != 0:
@@ -73,11 +77,7 @@ class DiTConfig:
             raise ValueError(f"unknown attention_impl: {self.attention_impl}")
         if self.fused_adaln not in ("auto", "fused", "off"):
             raise ValueError(f"unknown fused_adaln: {self.fused_adaln}")
-        if self.remat_policy != "nothing":
-            if self.remat_policy in ("dots", "attn", "dots_attn"):
-                raise NotImplementedError(
-                    f"remat_policy {self.remat_policy!r} is not ported yet "
-                    "(ROADMAP A9); the port has 'nothing'")
+        if self.remat_policy not in ("nothing", "dots", "attn", "dots_attn"):
             raise ValueError(f"unknown remat_policy: {self.remat_policy}")
 
     @property

@@ -15,14 +15,16 @@ the long path (`rope_flash_attention`) beyond, as `dit.py:287-299` does;
 a no-RoPE model goes through `norope_flash_attention`. Under context
 parallelism (`context_parallel`, a ring of `parallel/ring.py`; JAX's
 `token_sharding`) the tokens are padded to the ring's layout, each rank
-keeps its chunk, self-attention is the ring (`ring_flash_attention`, on
-every dispatch: the tokens are really split) and everything else stays
-per token; the output is gathered over the ring after the final
-projection. Under tensor parallelism (`DiTBlock.tp`, set by
-`parallel/fsdp.py:shard_model`) each block computes on its rank's heads and
-MLP columns, Megatron-style: the column-parallel products (qkv, q_cross,
-context_kv, the AdaLN modulation, fc1) take this rank's output columns of
-the whole replicated input, the row-parallel ones (attn_proj, cross_proj,
+keeps its chunk, self-attention is the ring (`ring_flash_attention`: its
+kernels, or their twins for CPU tensors) or, where JAX takes XLA
+attention over the token-sharded axis (a no-RoPE model, "plain", CUDA
+operands the kernels refuse under "auto"), the gathered attention
+(`_gathered_attention`), and everything else stays per token; the output
+is gathered over the ring after the final projection. Under tensor
+parallelism (`DiTBlock.tp`, set by `parallel/fsdp.py:shard_model`) each
+block computes on its rank's heads and MLP columns, Megatron-style: the
+column-parallel products (qkv, q_cross, context_kv, the AdaLN modulation,
+fc1) take this rank's output columns of the whole replicated input, the row-parallel ones (attn_proj, cross_proj,
 fc2) sum their partial products over the tensor group and add their bias
 once; the modulation is gathered whole. Where the fused
 AdaLN runs, the MLP's bias + Φ-poly GELU after the fc1 product is the
@@ -30,21 +32,30 @@ bias+GELU kernel (`mlp_bias_gelu`, the JAX fc1 epilogue at
 `dit.py:383-385`), and with `cfg.fused_residual` the joins after self- and
 cross-attention fuse with the next norm (`gated_residual_adaln`,
 `dit.py:312-325,356-366`). With `cfg.remat` and grad enabled, each block
-runs under `torch.utils.checkpoint`: its backward recomputes the whole
-block, kernels included, as `jax.checkpoint` with policy "nothing" does
-(`dit.py:481-501`).
+runs under `torch.utils.checkpoint` and its backward recomputes the block,
+as `jax.checkpoint` does (`dit.py:480-501`), reusing what
+`cfg.remat_policy` keeps (`remat_context_fn`): under "nothing" the whole
+block runs again, kernels included; "dots" keeps the outputs of the
+products with no batch dims; "attn" the attention kernels' o and lse, so
+the recompute launches no attention forward; "dots_attn" both.
 """
 
 from __future__ import annotations
 
 import math
+from contextlib import ExitStack
 from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 from torch.distributed.tensor import DTensor
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+    noop_context_fn,
+)
 
 from video_diffusion_speedrun_tpu_torch.core.config import (
     DiTConfig,
@@ -67,6 +78,7 @@ from video_diffusion_speedrun_tpu_torch.ops.fused_adaln import (
 from video_diffusion_speedrun_tpu_torch.ops.fused_attention import (
     SHORT_MAX_KV,
     cross_flash_attention,
+    keep_attention_contexts,
     norope_flash_attention,
     qkv_rope_flash_attention,
     ring_flash_attention,
@@ -100,33 +112,125 @@ def fused_attention_takes(head_dim: int, dtype: torch.dtype) -> bool:
 
 def use_fused_attention(attention_impl: str, head_dim: int,
                         dtype: torch.dtype, on_cuda: bool,
-                        context_parallel: bool = False) -> bool:
+                        context_parallel: bool = False,
+                        rope: bool = True) -> bool:
     """Attention dispatch (JAX `_use_fused_attention`, `dit.py:211-229`).
     "fused" always takes the fused ops, which raise on operands the kernels
     refuse, as JAX's "pallas" does. "auto" takes them for CUDA tensors the
     kernels accept and the plain composition otherwise (the port of XLA
-    attention, never a kernel's twin). Under context parallelism every
-    dispatch runs the ring, which exists only as kernels (and their twins
-    for CPU tensors): a CUDA tensor the kernels refuse raises
-    NotImplementedError, where JAX would run XLA attention over
-    GSPMD-sharded tokens."""
+    attention, never a kernel's twin).
+
+    Under context parallelism True means the ring and False the gathered
+    attention (JAX's XLA attention over the token-sharded axis): a no-RoPE
+    model (the ring kernels are RoPE-fused) and "plain" take the gathered
+    attention everywhere; "auto" takes the ring for CPU tensors (its
+    twins) and CUDA tensors its kernels accept, the gathered attention for
+    the rest; "fused" takes the ring and raises ValueError at once for
+    CUDA tensors the kernels refuse."""
+    takes = fused_attention_takes(head_dim, dtype)
     if context_parallel:
-        if on_cuda and not fused_attention_takes(head_dim, dtype):
-            raise NotImplementedError(
-                f"context parallelism with head_dim {head_dim} and {dtype} "
-                "(the ring kernels take bf16 and head_dim 64 or 128; JAX "
-                "sends the rest to XLA attention over GSPMD-sharded tokens) "
-                "is not ported (ROADMAP A9)")
-        return True
+        if not rope or attention_impl == "plain":
+            return False
+        if attention_impl == "fused" and on_cuda and not takes:
+            raise ValueError(
+                f"attention_impl 'fused' under context parallelism: the ring "
+                f"kernels take bf16 with head_dim 64 or 128, got head_dim "
+                f"{head_dim} and {dtype}")
+        return attention_impl == "fused" or not on_cuda or takes
     if attention_impl == "fused":
         return True
-    return (attention_impl == "auto" and on_cuda
-            and fused_attention_takes(head_dim, dtype))
+    return attention_impl == "auto" and on_cuda and takes
 
 
 def _use_fused_attention(cfg: DiTConfig, x: torch.Tensor) -> bool:
     return use_fused_attention(cfg.attention_impl, cfg.head_dim, x.dtype,
                                x.is_cuda)
+
+
+def _ring_attention(cfg: DiTConfig, x: torch.Tensor, rope: bool) -> bool:
+    """Whether self-attention under context parallelism runs the ring
+    (else the gathered attention)."""
+    return use_fused_attention(cfg.attention_impl, cfg.head_dim, x.dtype,
+                               x.is_cuda, context_parallel=True, rope=rope)
+
+
+def _gathered_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        cos: Optional[torch.Tensor],
+                        sin: Optional[torch.Tensor], kbias: torch.Tensor,
+                        num_heads: int, ring) -> torch.Tensor:
+    """Self-attention under context parallelism without the ring: JAX's
+    XLA attention over the token-sharded axis (`dit.py:300-309`, where
+    GSPMD gathers k and v). q, k, v [B, lc, H·D] are the ring's local rows
+    of the padded axis, cos/sin [lp, D/2] (None: no RoPE) and kbias [lp]
+    cover all of it. Each rank rotates its q and k rows with their rows of
+    the tables, gathers k and v over the ring (`ring.gather_kv`, whose
+    backward sums their gradients over the ranks) and runs the plain
+    composition of its q rows against the whole kv, the padded tail masked
+    by the kv-bias."""
+    b, lc, d = q.shape
+    hd = d // num_heads
+    qh, kh, vh = (t.reshape(b, lc, num_heads, hd).transpose(1, 2)
+                  for t in (q, k, v))
+    if cos is not None:
+        cos, sin = ring.local(cos, dim=0), ring.local(sin, dim=0)
+        qh, kh = apply_rotary(qh, cos, sin), apply_rotary(kh, cos, sin)
+    kh, vh = ring.gather_kv(kh, dim=2), ring.gather_kv(vh, dim=2)
+    out = dot_product_attention(qh, kh, vh, kbias=kbias)
+    return out.transpose(1, 2).reshape(b, lc, d)
+
+
+# the products with no batch dims: what `_dense` / `_column` / `_row` /
+# the fused MLP's fc1 lower to (`F.linear` → addmm, `torch.matmul` of a
+# 3-D input and a weight → mm); the attention's batched products (bmm)
+# are not among them, in JAX either
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _save_dots(ctx, op, *args, **kwargs) -> CheckpointPolicy:
+    """JAX `dots_with_no_batch_dims_saveable` as a selective-checkpoint
+    policy: keep the outputs of `_DOTS`, recompute everything else (the
+    fused ops' allocations and launches included)."""
+    return (CheckpointPolicy.MUST_SAVE if op in _DOTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+class _Together:
+    """Context managers entered together, in order, as one."""
+
+    def __init__(self, managers):
+        self.managers = managers
+
+    def __enter__(self):
+        self.stack = ExitStack()
+        for m in self.managers:
+            self.stack.enter_context(m)
+        return self
+
+    def __exit__(self, *exc):
+        return self.stack.__exit__(*exc)
+
+
+def remat_context_fn(policy: str):
+    """The `context_fn` of `torch.utils.checkpoint` for a remat policy
+    (JAX `dit.py:486-497`): "nothing" none (the whole block runs again);
+    "dots" selective checkpointing that keeps `_DOTS` outputs; "attn" the
+    attention outputs (o, lse) kept and replayed
+    (`ops/fused_attention.py:keep_attention_contexts`); "dots_attn" both
+    pairs at once (JAX `save_from_both_policies`)."""
+    if policy == "nothing":
+        return noop_context_fn
+    makers = []
+    if policy in ("dots", "dots_attn"):
+        makers.append(lambda: create_selective_checkpoint_contexts(_save_dots))
+    if policy in ("attn", "dots_attn"):
+        makers.append(keep_attention_contexts)
+
+    def context_fn():
+        pairs = [make() for make in makers]
+        return (_Together([f for f, _ in pairs]),
+                _Together([r for _, r in pairs]))
+
+    return context_fn
 
 
 def _dense(lin: nn.Linear, x: torch.Tensor) -> torch.Tensor:
@@ -220,16 +324,17 @@ class DiTBlock(nn.Module):
                 t_emb: torch.Tensor, cos: Optional[torch.Tensor],
                 sin: Optional[torch.Tensor], v0: Optional[torch.Tensor],
                 context_kv: Optional[torch.Tensor] = None,
-                context_parallel=None, kbias: Optional[torch.Tensor] = None
-                ) -> Tuple[torch.Tensor, torch.Tensor]:
+                context_parallel=None, kbias: Optional[torch.Tensor] = None,
+                use_ring: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
         """Returns (x, v): v is the (value-residual-mixed) self-attention
         value; the model keeps block 0's as v0. v0 is None in block 0.
         With `context_parallel` (a ring), x holds the ring's local tokens of
         the padded axis, cos/sin [lp, D/2] and `kbias` [lp] cover all of
-        it, and self-attention runs over the ring. Under tensor
-        parallelism (`self.tp`) x stays whole and replicated; the heads,
-        the MLP columns and v/v0 are this rank's (nh and d below are local),
-        and the AdaLN modulation is gathered whole."""
+        it, and self-attention runs over the ring (`use_ring`, which the
+        model decides once a forward) or gathers k and v.
+        Under tensor parallelism (`self.tp`) x stays whole and replicated;
+        the heads, the MLP columns and v/v0 are this rank's (nh and d below
+        are local), and the AdaLN modulation is gathered whole."""
         cfg = self.cfg
         tp = self.tp
         ways = 1 if tp is None else tp.size
@@ -257,8 +362,13 @@ class DiTBlock(nn.Module):
             v = lam * v + (1 - lam) * v0
 
         if context_parallel is not None:
-            attn = ring_flash_attention(qkv[..., :d], qkv[..., d:2 * d], v,
-                                        cos, sin, kbias, nh, context_parallel)
+            q, k = qkv[..., :d], qkv[..., d:2 * d]
+            if use_ring:
+                attn = ring_flash_attention(q, k, v, cos, sin, kbias, nh,
+                                            context_parallel)
+            else:
+                attn = _gathered_attention(q, k, v, cos, sin, kbias, nh,
+                                           context_parallel)
         elif _use_fused_attention(cfg, x):
             q, k = qkv[..., :d], qkv[..., d:2 * d]
             if cos is None:  # no-RoPE model
@@ -439,30 +549,31 @@ class DiT(nn.Module):
         tokens, t_emb, cos, sin = self.prefix(x, timesteps, rope_offsets)
 
         ring, kbias, l_all = context_parallel, None, tokens.shape[1]
+        use_ring = False
         if ring is not None:
-            use_fused_attention(cfg.attention_impl, cfg.head_dim,
-                                tokens.dtype, tokens.is_cuda,
-                                context_parallel=True)
-            if cos is None:
-                raise NotImplementedError(
-                    "context parallelism of a no-RoPE model (JAX sends it to "
-                    "XLA attention over GSPMD-sharded tokens) is not ported "
-                    "(ROADMAP A9)")
+            # "fused" on operands the ring kernels refuse raises here, before
+            # any block runs
+            use_ring = _ring_attention(cfg, tokens, cos is not None)
             # pad to cp·chunk rows (the tail masked by the kv-bias) and keep
-            # this rank's chunk; the tables and the bias stay whole
+            # this rank's chunk; the tables and the bias stay whole (a no-RoPE
+            # model's positional table is already in the tokens)
             _, lp = ring_layout(l_all, ring.size)
             tokens = ring.local(F.pad(tokens, (0, 0, 0, lp - l_all)))
-            cos, sin = (F.pad(t, (0, 0, 0, lp - l_all)) for t in (cos, sin))
+            if cos is not None:
+                cos, sin = (F.pad(t, (0, 0, 0, lp - l_all))
+                            for t in (cos, sin))
             kbias = ring_kbias(l_all, lp, x.device)
 
         remat = cfg.remat and torch.is_grad_enabled()
+        context_fn = remat_context_fn(cfg.remat_policy)
         v0 = None
         for i, blk in enumerate(self.blocks):
             args = (tokens, context, t_emb, cos, sin, v0,
                     None if context_kv is None else context_kv[i], ring,
-                    kbias)
+                    kbias, use_ring)
             if remat:
-                tokens, v = checkpoint(blk, *args, use_reentrant=False)
+                tokens, v = checkpoint(blk, *args, use_reentrant=False,
+                                       context_fn=context_fn)
             else:
                 tokens, v = blk(*args)
             if i == 0:

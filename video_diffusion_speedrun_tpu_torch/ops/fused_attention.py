@@ -47,11 +47,23 @@ Head h of q, k and v lives in columns [h·D, (h+1)·D). The self-attention
 entry reads q at column h·D and k at column (H+h)·D of qkv through strides;
 the cross entry reads k/v as strided column views of the (2, h, d)-laid-out
 context projection. Neither copies a slice.
+
+Outputs kept across a checkpoint's recompute (the remat policies "attn"
+and "dots_attn"; JAX names o and lse with `_name_attn_residuals`,
+:57-68, and saves them by name): `keep_attention_contexts` gives the
+`context_fn` pair of one `torch.utils.checkpoint` call. Under the first
+(the checkpointed forward) each Function records its (o, lse) in call
+order; under the second (the recompute in the backward) each hands them
+back in the same order and launches nothing (for the ring: no chunk
+kernel, merge or shift). Everything else a Function saves is recomputed,
+`_LongFlash`'s rotated q and k included. A replay whose record is missing
+or belongs to another Function or shape raises.
 """
 
 from __future__ import annotations
 
 import ctypes
+import threading
 from typing import List, Optional, Tuple
 
 import torch
@@ -81,8 +93,8 @@ _MAX_DQ_PARTIALS = 16
 # On the TPU they are a VMEM limit (the whole chunk's k/v, and the fp32
 # dk/dv scratch, stay resident); the H100 kernels stream kv and have no
 # such limit, but the ceilings decide where the port rounds as the long
-# path instead of the ring kernels, so they stay JAX's (unifying them is a
-# later option, ROADMAP A9)
+# path instead of the ring kernels, so they stay JAX's (unifying them is an
+# option: the ROADMAP note on the ring ceilings)
 _RING_FULLK_MAX_FWD = 4096
 _RING_FULLK_MAX_BWD = SHORT_MAX_KV
 # q rows of the backward kernel's tiles and kv rows of its blocks (BM, BN of
@@ -908,13 +920,88 @@ def ring_chunk_backward(q, k, v, cos_q, sin_q, cos_k, sin_k, kbias, o, lse,
 ring_chunk_backward.launches = 0
 
 
+class _Kept:
+    """The (o, lse) of the attention forwards of one checkpointed call, in
+    call order, each under its Function's key; `cursor`: the next one a
+    replay hands back."""
+
+    def __init__(self):
+        self.entries: List[Tuple[tuple, torch.Tensor, torch.Tensor]] = []
+        self.cursor = 0
+
+
+class _KeepMode:
+    """Records into `kept` (the checkpointed forward) or replays from it
+    (the recompute) while entered, on this thread: the recompute runs on
+    the thread that runs the backward."""
+
+    _local = threading.local()
+
+    def __init__(self, kept: _Kept, replay: bool):
+        self.kept, self.replay = kept, replay
+
+    @classmethod
+    def active(cls) -> Optional["_KeepMode"]:
+        stack = getattr(cls._local, "stack", None)
+        return stack[-1] if stack else None
+
+    def __enter__(self):
+        if self.replay:  # each recompute replays from the first
+            self.kept.cursor = 0
+        self._local.__dict__.setdefault("stack", []).append(self)
+        return self
+
+    def __exit__(self, *exc):
+        # early stop ends a recompute with records left over: not an error
+        self._local.stack.pop()
+        return False
+
+
+def keep_attention_contexts():
+    """The `context_fn` pair of one `torch.utils.checkpoint` call that
+    keeps the attention outputs (o, lse) of the checkpointed forward and
+    hands them to the recompute, which then launches no attention forward
+    (JAX `save_only_these_names("attn_out", "attn_lse")`)."""
+    kept = _Kept()
+    return _KeepMode(kept, replay=False), _KeepMode(kept, replay=True)
+
+
+def _kept_or_run(key: tuple, run) -> Tuple[torch.Tensor, torch.Tensor]:
+    """`run()` → (o, lse), recorded under `key` inside a keeping forward;
+    inside a replay the recorded pair, with no launch. Raises when the
+    replay's record is missing or is another key's."""
+    mode = _KeepMode.active()
+    if mode is None:
+        return run()
+    kept = mode.kept
+    if not mode.replay:
+        o, lse = run()
+        kept.entries.append((key, o.detach(), lse.detach()))
+        return o, lse
+    i = kept.cursor
+    if i >= len(kept.entries):
+        raise RuntimeError(
+            f"attention replay: no kept output for forward {i} {key} of the "
+            f"recompute ({len(kept.entries)} kept by the checkpointed "
+            "forward)")
+    want, o, lse = kept.entries[i]
+    if want != key:
+        raise RuntimeError(f"attention replay out of order: forward {i} of "
+                           f"the recompute is {key}, the kept one {want}")
+    kept.cursor = i + 1
+    return o.detach(), lse.detach()
+
+
 class _QKVRopeFlash(torch.autograd.Function):
     """The JAX `_qkv_rope_flash` custom_vjp: saves (qkv, v, cos, sin, o,
     lse) and differentiates qkv and v."""
 
     @staticmethod
     def forward(ctx, qkv, v, cos, sin, num_heads, scale):
-        o, lse = qkv_rope_flash_forward(qkv, v, cos, sin, num_heads, scale)
+        o, lse = _kept_or_run(
+            ("qkv_rope", tuple(v.shape), num_heads),
+            lambda: qkv_rope_flash_forward(qkv, v, cos, sin, num_heads,
+                                           scale))
         ctx.save_for_backward(qkv, v, cos, sin, o, lse)
         ctx.num_heads, ctx.scale = num_heads, scale
         return o
@@ -933,7 +1020,9 @@ class _CrossFlash(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, num_heads, scale):
-        o, lse = cross_flash_forward(q, k, v, num_heads, scale)
+        o, lse = _kept_or_run(
+            ("cross", tuple(q.shape), tuple(k.shape), num_heads),
+            lambda: cross_flash_forward(q, k, v, num_heads, scale))
         ctx.save_for_backward(q, k, v, o, lse)
         ctx.num_heads, ctx.scale = num_heads, scale
         return o
@@ -957,7 +1046,9 @@ class _LongFlash(torch.autograd.Function):
         rope = cos is not None
         q_r = rotate_flat(q, cos, sin, num_heads) if rope else q
         k_r = rotate_flat(k, cos, sin, num_heads) if rope else k
-        o, lse = long_attention_forward(q_r, k_r, v, num_heads, scale)
+        o, lse = _kept_or_run(
+            ("long", tuple(q.shape), tuple(k.shape), num_heads),
+            lambda: long_attention_forward(q_r, k_r, v, num_heads, scale))
         ctx.save_for_backward(q_r, k_r, v, o, lse, cos, sin)
         ctx.num_heads, ctx.scale = num_heads, scale
         return o
@@ -1048,6 +1139,28 @@ def _ring_tables(cos, sin, kbias, chunk: int, i: int, j: int):
             kbias[k_rows])
 
 
+def _ring_forward(q, k, v, cos, sin, kbias, num_heads: int, scale: float,
+                  ring) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The forward ring of `_RingFlash`: the merged (o, lse) of the ring's
+    local q rows."""
+    cp = ring.size
+    chunk = cos.shape[0] // cp
+    qs = ring.split(q)
+    carry = list(zip(ring.split(k), ring.split(v)))
+    outs: List[Optional[Tuple[torch.Tensor, torch.Tensor]]] = [None] * len(qs)
+    for r in range(cp):
+        for i, rank in enumerate(ring.ranks):
+            tabs = _ring_tables(cos, sin, kbias, chunk, rank, (rank - r) % cp)
+            part = ring_chunk_forward(qs[i], *carry[i], *tabs, num_heads,
+                                      scale)
+            outs[i] = part if outs[i] is None else online_merge(
+                *outs[i], *part, num_heads)
+        if r < cp - 1:
+            carry = ring.shift(carry)
+    return (ring.join([o for o, _ in outs]),
+            ring.join([lse for _, lse in outs], dim=2))
+
+
 class _RingFlash(torch.autograd.Function):
     """The JAX `_ring_attention` custom_vjp (:1314-1370) over a ring
     (`parallel/ring.py`). q, k, v are the ring's local tensors of the
@@ -1058,28 +1171,15 @@ class _RingFlash(torch.autograd.Function):
     with k/v. The forward runs cp ring steps, merging each chunk's partial
     into the running (o, lse), and saves the merged ones; the backward runs
     the ring again: dq accumulates in fp32 at home, the fp32 dk/dv travel
-    with their chunk and come home after one last shift."""
+    with their chunk and come home after one last shift. A replay of kept
+    outputs skips the whole forward ring."""
 
     @staticmethod
     def forward(ctx, q, k, v, cos, sin, kbias, num_heads, scale, ring):
-        cp = ring.size
-        chunk = cos.shape[0] // cp
-        qs = ring.split(q)
-        carry = list(zip(ring.split(k), ring.split(v)))
-        outs: List[Optional[Tuple[torch.Tensor, torch.Tensor]]] = \
-            [None] * len(qs)
-        for r in range(cp):
-            for i, rank in enumerate(ring.ranks):
-                tabs = _ring_tables(cos, sin, kbias, chunk, rank,
-                                    (rank - r) % cp)
-                part = ring_chunk_forward(qs[i], *carry[i], *tabs, num_heads,
-                                          scale)
-                outs[i] = part if outs[i] is None else online_merge(
-                    *outs[i], *part, num_heads)
-            if r < cp - 1:
-                carry = ring.shift(carry)
-        o = ring.join([o for o, _ in outs])
-        lse = ring.join([lse for _, lse in outs], dim=2)
+        o, lse = _kept_or_run(
+            ("ring", tuple(q.shape), ring.size, num_heads),
+            lambda: _ring_forward(q, k, v, cos, sin, kbias, num_heads, scale,
+                                  ring))
         ctx.save_for_backward(q, k, v, cos, sin, kbias, o, lse)
         ctx.num_heads, ctx.scale, ctx.ring = num_heads, scale, ring
         return o

@@ -10,9 +10,13 @@ small interface:
   those ranks, and back;
 - `shift(per_rank)`: each held rank's tuple of tensors goes to rank + 1,
   each receives rank − 1's;
-- `local(x)` / `gather(x)`: a tensor of the whole padded token axis to the
-  local tensor, and back (the gather's backward keeps the local rows: every
-  rank computes the same loss from the same gathered output).
+- `local(x, dim)` / `gather(x)`: a tensor of the whole padded token axis to
+  the local tensor, and back (the gather's backward keeps the local rows:
+  every rank computes the same loss from the same gathered output);
+- `gather_kv(x, dim)`: the local tensor gathered whole for every rank to
+  read (the k and v of the gathered attention under context parallelism,
+  `models/dit.py`); its backward sums the ranks' gradients of the whole
+  and keeps this rank's rows (a reduce-scatter).
 
 Two rings implement it:
 
@@ -57,10 +61,13 @@ class LocalRing:
     def shift(self, per_rank: Chunks) -> Chunks:
         return per_rank[-1:] + per_rank[:-1]
 
-    def local(self, x: torch.Tensor) -> torch.Tensor:
+    def local(self, x: torch.Tensor, dim: int = 1) -> torch.Tensor:
         return x
 
     def gather(self, x: torch.Tensor) -> torch.Tensor:
+        return x
+
+    def gather_kv(self, x: torch.Tensor, dim: int = 1) -> torch.Tensor:
         return x
 
 
@@ -80,6 +87,30 @@ class _Gather(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         return g.narrow(1, ctx.rank * ctx.rows, ctx.rows), None
+
+
+class _GatherSummed(torch.autograd.Function):
+    """All-gather of each rank's chunk along `dim`, read by every rank;
+    the backward sums the ranks' gradients of the whole onto each rank's
+    chunk (reduce-scatter)."""
+
+    @staticmethod
+    def forward(ctx, x, ring, dim):
+        x = x.contiguous()
+        parts = [torch.empty_like(x) for _ in range(ring.size)]
+        dist.all_gather(parts, x, group=ring.group)
+        ctx.group, ctx.dim = ring.group, dim
+        return torch.cat(parts, dim=dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        n = dist.get_world_size(ctx.group)
+        parts = [c.contiguous() for c in g.chunk(n, ctx.dim)]
+        out = torch.empty_like(parts[0])
+        dist.reduce_scatter_tensor(out.view(-1),
+                                   torch.cat([c.view(-1) for c in parts]),
+                                   group=ctx.group)
+        return out, None, None
 
 
 class DistRing:
@@ -114,9 +145,12 @@ class DistRing:
             req.wait()
         return [tuple(recvs)]
 
-    def local(self, x: torch.Tensor) -> torch.Tensor:
-        rows = x.shape[1] // self.size
-        return x.narrow(1, self.rank * rows, rows)
+    def local(self, x: torch.Tensor, dim: int = 1) -> torch.Tensor:
+        rows = x.shape[dim] // self.size
+        return x.narrow(dim, self.rank * rows, rows)
 
     def gather(self, x: torch.Tensor) -> torch.Tensor:
         return _Gather.apply(x, self)
+
+    def gather_kv(self, x: torch.Tensor, dim: int = 1) -> torch.Tensor:
+        return _GatherSummed.apply(x, self, dim)

@@ -8,7 +8,10 @@ the video DiT on Cosmos latents, real or synthetic.
 
 Flags keep the names and defaults of the JAX package's `train.py` (its
 `--platform`, a JAX backend override, has no counterpart; `--scan_blocks`,
-an XLA compile option, is accepted and changes nothing). Runs on the card
+an XLA compile option, is accepted and changes nothing). `--remat_policy
+attn` keeps the attention outputs across the remat recompute (no attention
+forward runs in the backward): the policy for long clips; `dots_attn` also
+keeps the linear layers' outputs, at more memory. Runs on the card
 by default (`--device cuda`, which raises when no card is present);
 `--device cpu` runs on the CPU. `--synthetic_t_choices 5,9,17` mixes
 clips of 5, 9 and 17 latent frames (L = 528, 1040 and 2064 at the default
@@ -146,6 +149,12 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     add("--seed", type=int, default=0)
     add("--grad_accum", type=int, default=1)
     add("--remat", type=_bool, default=True)
+    add("--remat_policy", choices=["nothing", "dots", "attn", "dots_attn"],
+        default="nothing",
+        help="what the checkpointed backward may reuse: 'dots' saves "
+             "matmul outputs; 'attn' saves the flash kernel's o/lse "
+             "(skips the O(L²) recompute — the long-context policy); "
+             "'dots_attn' both")
     add("--context_dim", type=int, default=4096)
     add("--moments_dtype", choices=["fp32", "bf16"], default="fp32")
     add("--param_dtype", choices=["fp32", "bf16"], default="fp32")
@@ -211,6 +220,7 @@ def build_config(args: argparse.Namespace) -> TrainConfig:
         cross_attn_input_size=args.context_dim, residual_v=True,
         train_bias_and_rms=args.train_bias_and_rms, use_rope=True,
         rope_order=rope_order, remat=args.remat,
+        remat_policy=args.remat_policy,
         param_dtype=(torch.bfloat16 if args.param_dtype == "bf16"
                      else torch.float32))
     return TrainConfig(

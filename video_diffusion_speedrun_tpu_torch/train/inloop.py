@@ -24,7 +24,11 @@ gradients are summed in fp32 and cast once: the exact full-batch gradient
 (`inloop.py:359-404`), with the backward's residuals of one chunk at a
 time. Block 0's λ never mixes v0 and gets JAX's zero gradient (C8).
 JAX's software pipelining (block i+1's update under block i's backward,
-`inloop.py:406-411`) is XLA scheduling and is not reproduced.
+`inloop.py:406-411`) is XLA scheduling and is not reproduced. The
+recompute of step 3 is the step's own, with no remat policy: JAX's
+calls the raw `block_forward` there (`inloop.py:301,356`), so
+`DiTConfig.remat_policy` (`models/dit.py:remat_context_fn`) acts only in
+the standard step.
 
 Across processes the step gathers and reduces by hand instead of through
 FSDP2's hooks, which would become the root in a block called outside
