@@ -7,7 +7,7 @@
     torchrun --nproc_per_node N chip_smoke.py --train-mesh STEPS FLAGS...
 
 The second form times the attention backward and forward rows, the AdaLN
-backward rows, a serve-long request (ms per Euler step, profiled busy ms)
+backward rows, the bias+GELU backward rows, a serve-long request (ms per Euler step, profiled busy ms)
 and the train steps (with `fused_residual` too) of two checkouts' packages
 in alternating processes on one card (`main_ab`). The third times the
 AdaLN backward under configurations other than its default
@@ -76,9 +76,13 @@ Run from the root of a checkout. Phases, each of which raises on failure:
              backward also against a second launch bit for bit; the
              bias+GELU forward and backward (rows 15–16) at the MLP's
              shapes ([2, 1040, 8192], [2, 8208, 8192], [64, 528, 2048],
-             [2, 8208, 2048]) and L = 333, the MLP's variant and
-             `bias_gelu` on bf16 and fp32 with and without bias, and the
-             MLP's variant at saturated tails (|x| = 4.5, 64, 1e4); times
+             [2, 8208, 2048], the tensor-parallel [64, 528, 1024] and
+             [64, 528, 512]; the backward not at the first two, which only
+             serve, and also at the XL step's [16, 1040, 8192]) and
+             L = 333, the MLP's variant and `bias_gelu` on bf16 and fp32
+             with and without bias, a width the bulk copies refuse, and
+             the MLP's variant at saturated tails (|x| = 4.5, 64, 1e4), the
+             backward also against a second launch bit for bit; times
              beside `F.gelu`;
 12. fused residual — `DiTConfig.fused_residual`: 2 requests of the demo
              DiT at 256×256×8 through `generate_latents` and 4 train steps
@@ -1319,9 +1323,10 @@ def gelu_atol(s, factor, coeffs, fp32: bool):
     """How far two fp32 evaluations of a fitted polynomial may part: four
     fp32 ulps of factor·(0.5 + Σ|c_i|·t^2i), t = min(|s|/R, 1), its largest
     term (the fits cancel terms up to 20·t^8 for Φ, 180·t^8 for Φ', 256·t^8
-    for gelu'; Triton contracts the Horner chain into FMAs, the twin does
-    not). The fp32 A&S form (exp2, a division) within 2^-20 of
-    factor·(1 + |s|)."""
+    for gelu'; the kernels contract their Horner chains into FMAs — Triton
+    and nvcc alike — and the CUDA backward evaluates the MLP's Φ + s·Φ' as
+    one summed polynomial, the twin does neither). The fp32 A&S form (exp2,
+    a division) within 2^-20 of factor·(1 + |s|)."""
     from video_diffusion_speedrun_tpu_torch.ops import fused_gelu as fg
 
     if fp32:
@@ -1329,6 +1334,82 @@ def gelu_atol(s, factor, coeffs, fp32: bool):
     t2 = (s.abs() / fg._POLY_R).clamp(max=1.0).square()
     terms = sum(abs(c) * t2 ** i for i, c in enumerate(coeffs))
     return 2.0 ** -22 * factor * (0.5 + terms)
+
+
+def gelu_bwd_bound(shape):
+    """Row 16's bound at x [..., F] in bf16 with a bf16 bias: reads x and g
+    and the bias, writes dx and dbias; ~40 fp32 flops an element."""
+    n = int(np.prod(shape))
+    return bound(3 * n * 2 + shape[-1] * 2 * 2, 0, 40 * n)
+
+
+def hold_gelu_bwd(name, what, x, bias, g, mode):
+    """Row 16 on one input against its twin and a second launch: dx within
+    one ulp of x's dtype plus the polynomial's term (`gelu_atol`; the MLP's
+    variant times 1 + |s|/R, for s·Φ'), dbias within the dx bound and each
+    rounding of dx summed over the rows plus 1e-5 (fp32 sums in another
+    order); a second launch gives the same bits. Returns the largest error
+    of dx and dbias."""
+    from video_diffusion_speedrun_tpu_torch.ops import fused_gelu as fg
+
+    fp32 = x.dtype == torch.float32
+    coeffs = fg._DPHI_C if mode == fg.BLOCK else fg._DGELU_C
+    note = ("2^-20 of the inputs' scale: the kernel's exp2 and division "
+            "round otherwise" if fp32 else
+            "one ulp of the output + four fp32 ulps of the polynomial's "
+            "largest term: nvcc contracts the Horner chains into FMAs and "
+            "the MLP's variant sums Φ + s·Φ' into one")
+
+    def run():
+        return fg.bias_gelu_backward(x, bias, g, mode)
+
+    dx, db = run()
+    rdx, rdb = fg.bias_gelu_bwd_plain(x, bias, g, mode)
+    torch.cuda.synchronize()
+    s = fg._preact(x, bias, mode)
+    ulp = 2.0 ** -20 if fp32 else 2.0 ** -7
+    atol = gelu_atol(s, g.float().abs(), coeffs, fp32)
+    if mode == fg.BLOCK:  # g·(Φ + hf·Φ'): |hf|/R times Φ''s terms
+        atol = atol * (1 + s.abs() / fg._POLY_R)
+    del s
+    err = check_close(name, what + " dx", dx, rdx, ulp, atol, note)
+    if bias is not None:
+        col = (atol + ulp * rdx.float().abs()).reshape(-1, x.shape[-1])
+        err = max(err, check_close(
+            name, what + " dbias", db, rdb, 1e-5, col.sum(0),
+            "the dx bound summed over the rows, fp32 sum order"))
+    del atol, rdx, rdb
+    check_deterministic(name, what, run, (dx, db), ("dx", "dbias"))
+    return err
+
+
+def hold_gelu_bwd_exact(name, dev, gen, shape, bias_dtype):
+    """Row 16 (the MLP's variant, bf16 rows) on inputs where every number is
+    exact, against its twin bit for bit: |x + bias| ≥ 5, 3 in 4 positive,
+    so dg is exactly 0 or 1, and g of integers 1..7, so every dx is exact
+    and every fp32 partial sum of dbias an integer below 2^24. A finish
+    that drops or repeats a split, a group of splits or a row then moves a
+    column of the fp32 dbias by at least 1; a bf16 dbias (the main path's)
+    is the same exact sum, rounded once. Returns the largest error (0)."""
+    from video_diffusion_speedrun_tpu_torch.ops import fused_gelu as fg
+
+    def rand(*size):
+        return torch.rand(*size, generator=gen, device=dev)
+
+    sign = torch.where(rand(*shape) < 0.75, 1.0, -1.0)
+    x = (sign * (6.0 + 2.0 * rand(*shape))).bfloat16()
+    bias = (2.0 * rand(shape[-1]) - 1.0).to(bias_dtype)
+    g = torch.randint(1, 8, shape, generator=gen, device=dev).bfloat16()
+    del sign
+    dx, db = fg.bias_gelu_backward(x, bias, g, fg.BLOCK)
+    rdx, rdb = fg.bias_gelu_bwd_plain(x, bias, g, fg.BLOCK)
+    torch.cuda.synchronize()
+    what = f"exact {list(shape)} {bias_dtype} bias"
+    err = check_close(name, what + " dx", dx, rdx, 0.0, 0.0,
+                      "exact: dg is 0 or 1, g an integer")
+    err = max(err, check_close(name, what + " dbias", db, rdb, 0.0, 0.0,
+                               "exact: integer sums below 2^24"))
+    return err
 
 
 def epilogue_rows(dev):
@@ -1348,8 +1429,10 @@ def epilogue_rows(dev):
     def randn(*shape, std=1.0):
         return torch.randn(*shape, generator=gen, device=dev) * std
 
-    def row(name, module, line, ms, plain_ms, bms, by, lib_ms):
-        rows[name] = dict(name=name, route="triton", source=src.format(module),
+    def row(name, module, line, ms, plain_ms, bms, by, lib_ms,
+            route="triton", source=None):
+        rows[name] = dict(name=name, route=route,
+                          source=source or src.format(module),
                           replaces=rep.format(module, line),
                           max_abs_err=errs[name], ms=ms, plain_ms=plain_ms,
                           bound_ms=bms, bound_by=by, library_ms=lib_ms)
@@ -1449,16 +1532,19 @@ def epilogue_rows(dev):
     # rows 15–16: the MLP's variant at its shapes, bias_gelu on both dtypes
     mlp, fwd, bwd = fg.BLOCK, "bias_gelu_fwd", "bias_gelu_bwd"
     coeffs = {fg.BLOCK: fg._PHI_C, fg.POLY: fg._PHI_C, fg.ERF: ()}
-    dcoeffs = {fg.BLOCK: fg._DPHI_C, fg.POLY: fg._DGELU_C, fg.ERF: ()}
     poly_note = ("one ulp of the output + four fp32 ulps of the polynomial's "
-                 "largest term: Triton contracts the Horner chain into FMAs")
-    erf_note = ("2^-20 of the inputs' scale: Triton's exp2 and division are "
-                "approximate")
+                 "largest term: the kernels contract the Horner chains into "
+                 "FMAs (the backward's MLP variant sums Φ + s·Φ' into one)")
+    erf_note = ("2^-20 of the inputs' scale: the kernels' exp2 and division "
+                "round otherwise")
     cases = [(mlp, (2, 1040, MLP), True), (mlp, (2, LONG_L, MLP), True),
              (mlp, (T_BATCH, T_L, T_MLP), True),
              (mlp, (2, LONG_L, T_MLP), True), (mlp, (3, 333, 320), True)]
     # the training shape at the tensor-parallel local columns F/t
     cases += [(mlp, (T_BATCH, T_L, T_MLP // t), True) for t in TP_WAYS]
+    # the XL in-backward step's MLP (train-inloop); a width the backward's
+    # bulk copies refuse (200-byte rows: its masked loads)
+    cases += [(mlp, XL_GELU, True), (mlp, (3, 77, 100), True)]
     cases += [(mode, (2, 333, T_MLP), with_bias)
               for mode in (fg.POLY, fg.ERF) for with_bias in (True, False)]
     for mode, shape, with_bias in cases:
@@ -1477,23 +1563,12 @@ def epilogue_rows(dev):
         check(fwd, what, y, want, ulp,
               gelu_atol(s, s.abs(), coeffs[mode], fp32), note)
         del y, want
-        big = shape in ((2, LONG_L, MLP), (2, 1040, MLP))
-        if not big:  # the backward at the training shapes and the rest
+        serve = shape in ((2, LONG_L, MLP), (2, 1040, MLP))
+        if not serve:  # the backward at the training shapes and the rest
             g = randn(*shape).to(x.dtype)
-            dx, db = fg.bias_gelu_backward(x, bias, g, mode)
-            rdx, rdb = fg.bias_gelu_bwd_plain(x, bias, g, mode)
-            torch.cuda.synchronize()
-            atol = gelu_atol(s, g.float().abs(), dcoeffs[mode], fp32)
-            if mode == fg.BLOCK:  # g·(Φ + hf·Φ'): |hf|/R times Φ''s terms
-                atol = atol * (1 + s.abs() / fg._POLY_R)
-            check(bwd, what + " dx", dx, rdx, ulp, atol, note)
-            if with_bias:
-                # the per-element bound and each rounding of dx, summed over
-                # the rows, plus fp32 sums in another order
-                col = (atol + ulp * rdx.float().abs()).reshape(-1, shape[-1])
-                check(bwd, what + " dbias", db, rdb, 1e-5, col.sum(0),
-                      "the dx bound summed over the rows, fp32 sum order")
-            del g, dx, rdx
+            errs[bwd] = max(errs.get(bwd, 0.0),
+                            hold_gelu_bwd(bwd, what, x, bias, g, mode))
+            del g
         if shape == (2, LONG_L, MLP):  # time the forward at the CLI default
             n = x.numel()
             ms = cuda_ms(lambda: fg.bias_gelu_forward(x, bias, mode),
@@ -1509,23 +1584,24 @@ def epilogue_rows(dev):
                 f"{plain_ms:.4f} ms, F.gelu on x + bias {lib_ms:.4f} ms, "
                 f"bound {bms:.4f} ms ({by}), {2 * n * 2 / ms / 1e6:.1f} GB/s")
             row(fwd, "gelu", 157, ms, plain_ms, bms, by, lib_ms)
-        elif mode == mlp and shape != (3, 333, 320):
+        elif mode == mlp and shape[1] in (T_L, LONG_L, XL_L):
             n = x.numel()
             ms = cuda_ms(lambda: fg.bias_gelu_forward(x, bias, mode))
             log(f"[kernels] {fwd} {what}: kernel {ms:.4f} ms, bound "
                 f"{bound(2 * n * 2, 0, 20 * n)[0]:.4f} ms")
-            if not big:
+            if not serve:
                 g = randn(*shape).to(x.dtype)
                 ms = cuda_ms(lambda: fg.bias_gelu_backward(x, bias, g, mode))
-                # reads x and g, writes dx; ~40 fp32 flops an element
-                bms, by = bound(3 * n * 2 + shape[-1] * 6, 0, 40 * n)
+                bms, by = gelu_bwd_bound(shape)
                 log(f"[kernels] {bwd} {what}: kernel {ms:.4f} ms, bound "
                     f"{bms:.4f} ms ({by}), {3 * n * 2 / ms / 1e6:.1f} GB/s")
                 if shape == (T_BATCH, T_L, T_MLP):
                     plain_ms = cuda_ms(lambda: fg.bias_gelu_bwd_plain(
                         x, bias, g, mode), iters=5, warmup=1)
                     log(f"[kernels] {bwd} {what}: twin {plain_ms:.4f} ms")
-                    row(bwd, "gelu", 184, ms, plain_ms, bms, by, None)
+                    row(bwd, "gelu", 184, ms, plain_ms, bms, by, None,
+                        route="cuda", source="video_diffusion_speedrun_tpu_"
+                                             "torch/csrc/bias_gelu_bwd.cu")
                 del g
         del x, s
 
@@ -1542,6 +1618,33 @@ def epilogue_rows(dev):
     check(bwd, "mlp saturated tails dx", dx, pos, 0.0, 0.0, "exactly 1 or 0")
     check(bwd, "mlp saturated tails dbias", db, pos.sum((0, 1)), 0.0, 0.0,
           "exactly the count of positive rows")
+    # s = ±∞: dx and dbias NaN in those columns, as the twin's s·Φ'(s)
+    x = torch.tensor([float("inf"), -float("inf"), 4.5, -4.5], device=dev)
+    x = x.repeat(2, 7, 8).bfloat16()  # [2, 7, 32]
+    bias = torch.zeros(x.shape[-1], device=dev).bfloat16()
+    dx, db = fg.bias_gelu_backward(x, bias, torch.ones_like(x), mlp)
+    rdx, rdb = fg.bias_gelu_bwd_plain(x, bias, torch.ones_like(x), mlp)
+    torch.cuda.synchronize()
+    inf = x.float().isinf()
+    nan_ok = (torch.equal(dx.isnan(), inf) and torch.equal(rdx.isnan(), inf)
+              and torch.equal(db.isnan(), inf[0, 0])
+              and torch.equal(rdb.isnan(), inf[0, 0]))
+    log(f"[kernels] {bwd} mlp s = ±inf: dx and dbias NaN where the twin's "
+        f"are {'ok' if nan_ok else 'FAIL'}")
+    if not nan_ok:
+        raise AssertionError(f"{bwd} keeps no NaN at s = ±inf")
+    check(bwd, "mlp s = ±inf, finite dx", dx[~inf], rdx[~inf], 0.0, 0.0,
+          "exactly 1 or 0")
+    check(bwd, "mlp s = ±inf, finite dbias", db[~inf[0, 0]],
+          rdb[~inf[0, 0]], 0.0, 0.0, "exactly the count of positive rows")
+    # integer sums at the main path's shapes: every split and group counts
+    for shape in ((T_BATCH, T_L, T_MLP), (T_BATCH, T_L, T_MLP // 4),
+                  XL_GELU):
+        for bias_dtype in (torch.float32, torch.bfloat16):
+            errs[bwd] = max(errs[bwd], hold_gelu_bwd_exact(
+                bwd, dev, gen, shape, bias_dtype))
+            torch.cuda.empty_cache()
+    rows[bwd]["max_abs_err"] = errs[bwd]
     torch.cuda.empty_cache()
     return rows
 
@@ -1733,13 +1836,14 @@ def profile_step(model, context, lat, tag: str, ring=None):
 # profile rows grouped by kernel name: (kind, substrings), first match wins
 KERNEL_KINDS = (
     ("AdaLN backward kernel (csrc/adaln_bwd.cu)", ("adaln_bwd_kernel",)),
+    ("bias+GELU kernels (Triton forward, csrc/bias_gelu_bwd.cu)",
+     ("bias_gelu",)),
     ("attention kernels (csrc/attention_{fwd,bwd}.cuh)",
      ("short_attention", "long_attention", "fwd_kernel", "bwd_kernel",
       "dq_store", "dkv_reduce", "prep_q", "prep_k", "rope_rotate")),
     ("AdaLN forward kernels (Triton)", ("adaln_rms_modulate",)),
     ("gated-residual AdaLN forward kernels (Triton)",
      ("gated_residual_adaln",)),
-    ("bias+GELU kernels (Triton)", ("bias_gelu",)),
     ("AdamW kernel (csrc/adamw_multi_tensor.cu)", ("adamw_multi_tensor",)),
     ("convolutions (cuDNN)", ("fprop", "implicit_convolve", "conv3d",
                               "convolve_sgemm", "winograd")),
@@ -2175,6 +2279,8 @@ XL_STD_ARGV = ("--model_width", "2048", "--model_depth", "24",
                "--batch_size", "8", "--synthetic_t_choices", "8",
                "--moments_dtype", "bf16")
 XL_LATENT, XL_L, XL_STEPS = (16, 8, 32, 32), 1040, 4
+# the XL in-backward step's MLP activations (batch 16, L = 1040, 4·2048)
+XL_GELU = (16, XL_L, MLP)
 
 
 def xl_block_leaves():
@@ -4296,6 +4402,39 @@ def ab_adaln_rows(dev):
     torch.cuda.empty_cache()
 
 
+def ab_gelu_rows(dev):
+    """Row 16, the bias+GELU backward of the MLP's variant (bf16 rows and
+    bias), at the main path's shapes, each timed once (`cuda_ms`) through
+    the wrapper of whichever package is first on sys.path, after a check
+    against its twin (the kernels line's limits, `hold_gelu_bwd`), against
+    a second launch bit for bit and on exact inputs bit for bit
+    (`hold_gelu_bwd_exact`): the train shape [64, 528, 2048], train-long's
+    [2, 8208, 2048], its tensor-parallel columns at t = 2 and 4
+    ([64, 528, 1024], [64, 528, 512]) and the XL in-backward step's
+    [16, 1040, 8192]. Logs `[ab] <row> <ms> ms` lines."""
+    from video_diffusion_speedrun_tpu_torch.ops import fused_gelu as fg
+
+    gen = torch.Generator(device=dev).manual_seed(14)
+    for tag, shape in (("528", (T_BATCH, T_L, T_MLP)),
+                       ("8208", (2, LONG_L, T_MLP)),
+                       ("528-t2", (T_BATCH, T_L, T_MLP // 2)),
+                       ("528-t4", (T_BATCH, T_L, T_MLP // 4)),
+                       ("xl", XL_GELU)):
+        x = (torch.randn(*shape, generator=gen, device=dev) * 3).bfloat16()
+        g = torch.randn(*shape, generator=gen, device=dev).bfloat16()
+        bias = (torch.randn(shape[-1], generator=gen, device=dev)
+                * 0.5).bfloat16()
+
+        def fn():
+            return fg.bias_gelu_backward(x, bias, g, fg.BLOCK)
+
+        hold_gelu_bwd(f"row16-{tag}", str(list(shape)), x, bias, g, fg.BLOCK)
+        hold_gelu_bwd_exact(f"row16-{tag}", dev, gen, shape, torch.bfloat16)
+        torch.cuda.empty_cache()
+        log(f"[ab] row16-{tag} {cuda_ms(fn, iters=20, warmup=3):.4f} ms")
+    torch.cuda.empty_cache()
+
+
 def adaln_configs(dev) -> int:
     """`--adaln-configs`: the AdaLN backward's design choices, measured —
     rows 12 and 14 at [64, 528, 512] and row 12 at [2, 8208, 512], with γ
@@ -4383,8 +4522,9 @@ AB_PATTERNS = (
 def ab_child(tree: str, what: str) -> int:
     """One turn of the A/B in a process of its own, with the package of
     `tree` first on sys.path and this file's measurements: `build` its
-    kernels; or, for `what` a "+"-joined list, time the backward, forward
-    and AdaLN backward `rows`, serve one serve-long request (`serve`) and
+    kernels; or, for `what` a "+"-joined list, time the backward, forward,
+    AdaLN backward and bias+GELU backward `rows`, serve one serve-long
+    request (`serve`) and
     run the `train` steps (L = 528, L = 8208 and L = 528 with
     `fused_residual`)."""
     sys.path.insert(0, tree)
@@ -4400,6 +4540,7 @@ def ab_child(tree: str, what: str) -> int:
     ab_rows(dev)
     ab_fwd_rows(dev)
     ab_adaln_rows(dev)
+    ab_gelu_rows(dev)
     if "serve" in parts:
         model, context = build_demo(dev)
         phase_serve(dev, model, context, LONG_PX, LONG_FRAMES, LONG_STEPS,

@@ -26,8 +26,8 @@ On the CPU the port's ops run their plain twins.
 - The C2 difference: at |h| = 1e4 JAX's autodiff of the block gives NaN,
   the port the saturated 0/1 of the JAX `bias_gelu` VJP.
 
-The Triton kernels are held against the twins in
-tests/test_torch_gpu_kernels.py.
+The kernels (the Triton forward, the CUDA backward) are held against the
+twins in tests/test_torch_gpu_kernels.py.
 """
 
 import re
@@ -179,22 +179,34 @@ def test_mlp_gelu_gradient_saturates_where_jax_gives_nan(dtype):
 
 
 def test_kernel_coefficients_are_the_modules():
-    """The Triton helpers spell the polynomial and A&S coefficients out
-    (a kernel may not read Python globals); they must be these."""
-    src = Path(tg.__file__).read_text()
-    body = {name: src.split(f"def {name}(x):")[1].split("@triton.jit")[0]
-            for name in ("_tl_phi_poly", "_tl_dphi_poly", "_tl_dgelu_poly",
-                         "_tl_gelu_parts")}
+    """The kernels spell the polynomial and A&S coefficients out (a Triton
+    kernel may not read Python globals; the CUDA backward has none to read):
+    the Triton forward's helpers in the module and the helpers of
+    csrc/bias_gelu_bwd.cu must hold these numbers. The backward's MLP
+    variant sums Φ_poly + s·Φ_poly' into one polynomial, coefficients
+    (2i+2)·c_i of `_PHI_C`."""
 
     def literals(text):
         return [float(v) for v in re.findall(r"-?\d+\.\d+", text)]
 
-    for name, coeffs in (("_tl_phi_poly", tg._PHI_C),
-                         ("_tl_dphi_poly", tg._DPHI_C),
-                         ("_tl_dgelu_poly", tg._DGELU_C)):
-        found = literals(body[name])
-        assert found[0] == 1.0 / tg._POLY_R, name
-        assert found[1:1 + len(coeffs)] == list(reversed(coeffs)), name
-    assert all(v in literals(body["_tl_gelu_parts"])
-               for v in (tg._INV_SQRT2, tg._AS_P, *tg._AS_A, tg._LOG2E))
-    assert "0.7213475204444817" in src and 0.5 * tg._LOG2E == 0.7213475204444817
+    src = Path(tg.__file__).read_text()
+    cu = (Path(tg.__file__).parent.parent / "csrc"
+          / "bias_gelu_bwd.cu").read_text()
+    tl_body = {name: src.split(f"def {name}(x):")[1].split("@triton.jit")[0]
+               for name in ("_tl_phi_poly", "_tl_gelu_parts")}
+    cu_body = {name: cu.split(f"float {name}(float s) {{")[1].split("}")[0]
+               for name in ("dmlp_poly", "dgelu_poly", "gelu_parts")}
+    summed = tuple((2 * i + 2) * c for i, c in enumerate(tg._PHI_C))
+    for body, coeffs in ((tl_body["_tl_phi_poly"], tg._PHI_C),
+                         (cu_body["dmlp_poly"], summed),
+                         (cu_body["dgelu_poly"], tg._DGELU_C)):
+        found = literals(body)
+        assert found[0] == 1.0 / tg._POLY_R, body
+        assert found[1:1 + len(coeffs)] == list(reversed(coeffs)), body
+        assert tg._POLY_R in found[1 + len(coeffs):], body  # the saturation
+    for body in (tl_body["_tl_gelu_parts"], cu_body["gelu_parts"]):
+        assert all(v in literals(body)
+                   for v in (tg._INV_SQRT2, tg._AS_P, *tg._AS_A, tg._LOG2E))
+    assert 0.5 * tg._LOG2E == 0.7213475204444817
+    assert "0.7213475204444817f" in cu and "0.3989422804014327f" in cu
+    assert float("0.3989422804014327") == tg._INV_SQRT2PI

@@ -7,6 +7,8 @@ installed; on such a machine run it without the JAX-importing conftest:
     python -m pytest --noconftest -m gpu tests/test_torch_gpu_kernels.py
 """
 
+import math
+
 import pytest
 import torch
 
@@ -474,8 +476,9 @@ def test_gated_residual_autograd_launches_both_kernels(dev):
 
 def _gelu_atol(s, factor, coeffs):
     """Four fp32 ulps of factor·(0.5 + Σ|c_i|·t^2i), t = min(|s|/R, 1):
-    the polynomial's largest term (Triton contracts its Horner chain into
-    FMAs, the twin does not)."""
+    the polynomial's largest term (the kernels contract their Horner chains
+    into FMAs and the CUDA backward sums the MLP's Φ + s·Φ' into one
+    polynomial; the twin does neither)."""
     t2 = (s.abs() / tfg._POLY_R).clamp(max=1.0).square()
     terms = sum(abs(c) * t2 ** i for i, c in enumerate(coeffs))
     return 2.0 ** -22 * factor * (0.5 + terms)
@@ -483,14 +486,22 @@ def _gelu_atol(s, factor, coeffs):
 
 @pytest.mark.parametrize("mode,shape,with_bias", [
     (tfg.BLOCK, (8, 528, 2048), True), (tfg.BLOCK, (3, 333, 320), True),
+    (tfg.BLOCK, (64, 528, 512), True), (tfg.BLOCK, (4, 1040, 8192), True),
+    (tfg.BLOCK, (3, 77, 100), True),
     (tfg.POLY, (2, 333, 512), True), (tfg.POLY, (2, 333, 512), False),
-    (tfg.ERF, (2, 333, 512), True), (tfg.ERF, (2, 19, 96), False)])
+    (tfg.ERF, (2, 333, 512), True), (tfg.ERF, (2, 19, 96), False),
+    (tfg.ERF, (2, 33, 333), True)])
 def test_bias_gelu_kernels_match_twins(dev, mode, shape, with_bias):
     """Rows 15–16 against their twins on the same inputs: one ulp of the
     output plus four fp32 ulps of the fitted polynomial's largest term
-    (bf16), or 2^-20 relative to the inputs' scale (fp32, where Triton's
-    exp2 and division are approximate); dbias within the dx bound summed
-    over the rows plus 1e-5."""
+    (bf16), or 2^-20 relative to the inputs' scale (fp32, where the
+    kernels' exp2 and division round otherwise); dbias within the dx bound
+    summed over the rows plus 1e-5. The shapes: the train shape's rows,
+    the ragged (3, 333, 320), the tensor-parallel t = 4 columns
+    [64, 528, 512], the XL width's 8192 columns (eight slabs of the
+    backward), rows of 200 and 1332 bytes (the backward's masked loads; at
+    F = 333 also its scalar sums). A second backward launch gives the same
+    bits."""
     gen = torch.Generator(device=dev).manual_seed(12)
     dt = torch.float32 if mode == tfg.ERF else torch.bfloat16
     x = (torch.randn(*shape, generator=gen, device=dev) * 3).to(dt)
@@ -528,6 +539,128 @@ def test_bias_gelu_kernels_match_twins(dev, mode, shape, with_bias):
                          <= col.sum(0) + 1e-5 * want_db.float().abs())
     else:
         assert db is None
+    again = tfg.bias_gelu_backward(x, bias, g, mode)
+    assert torch.equal(again[0], dx)
+    assert db is None or torch.equal(again[1], db)
+
+
+@pytest.mark.parametrize("bias_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(64, 528, 2048), (64, 528, 512),
+                                   (16, 1040, 8192)])
+def test_bias_gelu_backward_sums_exactly(dev, shape, bias_dtype):
+    """The MLP's backward at the main path's shapes (the train step, its
+    t = 4 columns, the XL in-backward step) on inputs where every number is
+    exact: |x + bias| ≥ 5 (dg exactly 0 or 1), g of integers 1..7, so every
+    dx and every fp32 partial sum of dbias is exact and dbias must equal
+    the twin's bit for bit. A finish that drops or repeats a split, a group
+    of splits or a row moves an fp32 dbias column by at least 1."""
+    gen = torch.Generator(device=dev).manual_seed(17)
+
+    def rand(*size):
+        return torch.rand(*size, generator=gen, device=dev)
+
+    sign = torch.where(rand(*shape) < 0.75, 1.0, -1.0)
+    x = (sign * (6.0 + 2.0 * rand(*shape))).bfloat16()
+    bias = (2.0 * rand(shape[-1]) - 1.0).to(bias_dtype)
+    g = torch.randint(1, 8, shape, generator=gen, device=dev).bfloat16()
+    dx, db = tfg.bias_gelu_backward(x, bias, g, tfg.BLOCK)
+    want_dx, want_db = tfg.bias_gelu_bwd_plain(x, bias, g, tfg.BLOCK)
+    assert db.dtype == bias_dtype
+    assert torch.equal(dx, want_dx)
+    assert torch.equal(db, want_db)
+
+
+@pytest.mark.parametrize("mode", [tfg.BLOCK, tfg.POLY, tfg.ERF])
+def test_bias_gelu_backward_keeps_the_twins_nan(dev, mode):
+    """At s = ±∞ and NaN the backward gives NaN where the twin does (the
+    MLP's s·Φ'(s) and the erf form's s·φ(s) are ±∞·0; POLY's own fit
+    saturates to 0 / 1), in dx and in dbias, and the twin's values
+    elsewhere."""
+    dt = torch.float32 if mode == tfg.ERF else torch.bfloat16
+    x = torch.tensor([math.inf, -math.inf, math.nan, 4.5, -4.5, 0.5, 1e4,
+                      -1e4], device=dev).repeat(2, 5, 4).to(dt)  # [2, 5, 32]
+    bias = torch.zeros(32, device=dev).to(dt)
+    g = torch.ones_like(x)
+    dx, db = tfg.bias_gelu_backward(x, bias, g, mode)
+    want_dx, want_db = tfg.bias_gelu_bwd_plain(x, bias, g, mode)
+    assert torch.equal(dx.isnan(), want_dx.isnan())
+    assert torch.equal(db.isnan(), want_db.isnan())
+    assert bool(dx.isnan()[..., 2::8].all())
+    fin = ~want_dx.isnan()
+    assert torch.allclose(dx[fin].float(), want_dx[fin].float(), rtol=2 ** -7,
+                          atol=1e-5)
+
+
+_ONE_GELU_BACKWARD = """
+import json, sys
+import torch
+from torch.autograd import DeviceType
+from torch.profiler import ProfilerActivity, profile
+sys.path.insert(0, sys.argv[1])
+from video_diffusion_speedrun_tpu_torch.ops import fused_gelu as tfg
+
+dev = torch.device("cuda")
+gen = torch.Generator(device=dev).manual_seed(16)
+h = torch.randn(64, 528, 512, generator=gen, device=dev).bfloat16()
+bias = torch.randn(512, generator=gen, device=dev).bfloat16()
+cot = torch.randn(64, 528, 512, generator=gen, device=dev).bfloat16()
+
+
+def run():
+    hh = h.clone().requires_grad_()
+    bb = bias.clone().requires_grad_()
+    return hh, bb, tfg.mlp_bias_gelu(hh, bb)
+
+
+hh, bb, y = run()
+y.backward(cot)  # warm-up: build, tickets
+hh, bb, y = run()
+torch.cuda.synchronize()
+before = tfg.bias_gelu_backward.launches
+with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    y.backward(cot)
+    torch.cuda.synchronize()
+print(json.dumps({
+    "launches": tfg.bias_gelu_backward.launches - before,
+    "kernels": [e.name for e in prof.events()
+                if e.device_type == DeviceType.CUDA],
+    "dtypes": [str(hh.grad.dtype), str(bb.grad.dtype)]}))
+"""
+
+
+def test_bias_gelu_backward_is_one_kernel(dev):
+    """The autograd path's backward is one launch of the CUDA kernel and
+    nothing else on the device (no sum, no cast; after the first call,
+    which zeroes the tickets), also on a bf16 bias. Profiled in a fresh
+    interpreter: late in a pytest process that had profiled before and
+    built kernels for minutes, the profiler kept a profile's host events
+    and none of its device events."""
+    import json
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    root = str(Path(__file__).resolve().parent.parent)
+    out = subprocess.run([sys.executable, "-c", _ONE_GELU_BACKWARD, root],
+                         capture_output=True, text=True, timeout=600)
+    assert out.returncode == 0, out.stderr[-3000:]
+    got = json.loads(out.stdout.splitlines()[-1])
+    assert got["launches"] == 1
+    kernels = got["kernels"]
+    assert len(kernels) == 1 and "bias_gelu_bwd_kernel" in kernels[0], kernels
+    assert got["dtypes"] == ["torch.bfloat16"] * 2
+
+
+def test_gelu_bwd_smem_matches_the_kernel_layout(dev):
+    """The wrapper sizes the backward's shared memory as the kernel lays it
+    out (`_bwd_smem` against `bias_gelu_bwd_smem`)."""
+    lib = tfg._library()
+    for f in (96, 100, 320, 333, 512, 1024, 2048, 8192):
+        for t_size in (2, 4):
+            fc = tfg._bwd_plan(1024, f, t_size, 264).fc
+            for bulk in (True, False):
+                assert tfg._bwd_smem(bulk, fc, t_size) == \
+                    lib.bias_gelu_bwd_smem(int(t_size == 2), int(bulk), fc)
 
 
 def test_mlp_gelu_autograd_saturates_and_refuses(dev):

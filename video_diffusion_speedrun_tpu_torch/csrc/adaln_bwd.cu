@@ -104,27 +104,6 @@ namespace {
 
 enum Mode { C16 = 0, C32 = 1, SMEM = 2, MASKED = 3 };
 
-__device__ __forceinline__ float to_f(float v) { return v; }
-__device__ __forceinline__ float to_f(bf16 v) { return __bfloat162float(v); }
-__device__ __forceinline__ void from_f(float* p, float v) { *p = v; }
-__device__ __forceinline__ void from_f(bf16* p, float v) {
-  *p = __float2bfloat16_rn(v);
-}
-
-__device__ __forceinline__ float ld_any(const void* p, long long i,
-                                        int is_bf16) {
-  return is_bf16 ? to_f(static_cast<const bf16*>(p)[i])
-                 : static_cast<const float*>(p)[i];
-}
-
-__device__ __forceinline__ void st_any(void* p, long long i, float v,
-                                       int is_bf16) {
-  if (is_bf16)
-    from_f(static_cast<bf16*>(p) + i, v);
-  else
-    static_cast<float*>(p)[i] = v;
-}
-
 // N contiguous values stored from fp32 (16 or 8 bytes, aligned).
 template <int N>
 __device__ __forceinline__ void store_vec(float* p, const float* f) {
@@ -177,69 +156,7 @@ __device__ __forceinline__ int cta_of(int r, int base, int rem) {
 // CTAs whose slots of one b a first-level finish adds (`_BwdPlan.GROUP`)
 constexpr int GROUP = 8;
 
-// Thread 0 of a CTA, after a barrier behind the CTA's writes of its share:
-// one ticket of *t; whether it was the last of last + 1. The fence before
-// the atomic releases the whole CTA's share (fences are cumulative over
-// what the barrier ordered before them), the fence after it acquires the
-// others' shares for the reads after the next barrier: the pattern of a
-// cooperative-groups grid barrier. One thread fences, so the others do
-// not wait for their stores of dx to drain.
-__device__ __forceinline__ int take_ticket(int* t, int last) {
-  __threadfence();
-  const int prev = atomicAdd(t, 1);
-  __threadfence();
-  return prev == last;
-}
-
-// out(e, Σ_{k<n} src[k·stride + e]) for the elements e < m of this thread
-// (one of nt), each sum a left fold in k order read from L2, with the loads
-// of 4 elements × 8 terms in flight at a time.
-template <typename F>
-__device__ __forceinline__ void ordered_sums(const float* src, int stride,
-                                             int n, int m, int nt, F&& out) {
-  constexpr int E = 4, K = 8;
-  for (int e0 = threadIdx.x; e0 < m; e0 += E * nt) {
-    float v[E];
-#pragma unroll
-    for (int u = 0; u < E; ++u) v[u] = 0.f;
-    for (int k = 0; k < n; k += K) {
-      float t[E][K];
-#pragma unroll
-      for (int u = 0; u < E; ++u)
-#pragma unroll
-        for (int q = 0; q < K; ++q) {
-          const int e = e0 + u * nt;
-          t[u][q] = e < m && k + q < n
-                        ? __ldcg(src + static_cast<size_t>(k + q) * stride + e)
-                        : 0.f;
-        }
-#pragma unroll
-      for (int u = 0; u < E; ++u)
-#pragma unroll
-        for (int q = 0; q < K; ++q)
-          if (k + q < n) v[u] += t[u][q];
-    }
-#pragma unroll
-    for (int u = 0; u < E; ++u)
-      if (e0 + u * nt < m) out(e0 + u * nt, v[u]);
-  }
-}
-
-__device__ __forceinline__ size_t align16(size_t n) {
-  return (n + 15) & ~size_t(15);
-}
-
-// 16 / 8 bytes of shared memory into registers, in program order with the
-// mbarrier waits around them.
-__device__ __forceinline__ uint4 lds128(const void* p) {
-  uint4 v;
-  asm volatile("ld.shared.v4.b32 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
-               : "r"(smem_u32(p))
-               : "memory");
-  return v;
-}
-
+// 8 bytes of shared memory into registers (lds128's half)
 __device__ __forceinline__ uint2 lds64(const void* p) {
   uint2 v;
   asm volatile("ld.shared.v2.b32 {%0, %1}, [%2];\n"
@@ -247,23 +164,6 @@ __device__ __forceinline__ uint2 lds64(const void* p) {
                : "r"(smem_u32(p))
                : "memory");
   return v;
-}
-
-// 16 bytes of T as fp32 (bf16: 8 values, fp32: 4)
-__device__ __forceinline__ void unpack(const uint4& w, bf16*, float* f) {
-  const uint32_t u[4] = {w.x, w.y, w.z, w.w};
-#pragma unroll
-  for (int q = 0; q < 4; ++q) {
-    f[2 * q] = __uint_as_float(u[q] << 16);
-    f[2 * q + 1] = __uint_as_float(u[q] & 0xffff0000u);
-  }
-}
-
-__device__ __forceinline__ void unpack(const uint4& w, float*, float* f) {
-  f[0] = __uint_as_float(w.x);
-  f[1] = __uint_as_float(w.y);
-  f[2] = __uint_as_float(w.z);
-  f[3] = __uint_as_float(w.w);
 }
 
 // N elements of U from shared memory at p (16-byte aligned, 8 where
@@ -309,9 +209,6 @@ __device__ __forceinline__ void lds_cst(const float* base, int k, int nk,
     }
   }
 }
-
-// A consumer-only barrier (the producer warp takes no part).
-__device__ __forceinline__ void cbar(int nw) { named_sync(1, nw * 32); }
 
 // Bulk copies of n consecutive rows of `row` bytes from src (rows `sl`
 // elements of U apart) into dst, completing on bar: one copy where the rows

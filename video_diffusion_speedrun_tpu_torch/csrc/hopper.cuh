@@ -1,9 +1,12 @@
-// Device and host helpers shared by the attention kernels for Hopper
-// (sm_90a), forward (`attention_fwd.cuh`) and backward (`attention_bwd.cuh`):
-// bf16 packing and the fp32 RoPE rotation over 8 pairs; the warpgroup
-// tensor instruction (wgmma) with its shared-memory descriptors; mbarriers,
-// TMA loads, named barriers and fences; and the host-side encoding of TMA
-// maps. Header-only; every device function is inlined into its kernel.
+// Device and host helpers shared by the kernels for Hopper (sm_90a): bf16
+// packing and the fp32 RoPE rotation over 8 pairs; the warpgroup tensor
+// instruction (wgmma) with its shared-memory descriptors; mbarriers, TMA and
+// bulk loads, named barriers and fences; the host-side encoding of TMA maps
+// (the attention kernels, `attention_fwd.cuh` and `attention_bwd.cuh`); and
+// what the column-sum kernels (`adaln_bwd.cu`, `bias_gelu_bwd.cu`) share:
+// dtype-generic loads and stores, 16-byte shared loads, the ticket and the
+// ordered sums that finish a sum across CTAs inside one launch.
+// Header-only; every device function is inlined into its kernel.
 #pragma once
 
 #include <cuda.h>  // CUtensorMap
@@ -410,5 +413,145 @@ inline cudaError_t bf16_map(CUtensorMap* map, const void* ptr, int rank,
       CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
+
+// ---- the column-sum kernels' helpers (csrc/adaln_bwd.cu, csrc/bias_gelu_bwd.cu)
+
+__device__ __forceinline__ float to_f(float v) { return v; }
+__device__ __forceinline__ float to_f(bf16 v) { return __bfloat162float(v); }
+__device__ __forceinline__ void from_f(float* p, float v) { *p = v; }
+__device__ __forceinline__ void from_f(bf16* p, float v) {
+  *p = __float2bfloat16_rn(v);
+}
+
+__device__ __forceinline__ float ld_any(const void* p, long long i,
+                                        int is_bf16) {
+  return is_bf16 ? to_f(static_cast<const bf16*>(p)[i])
+                 : static_cast<const float*>(p)[i];
+}
+
+__device__ __forceinline__ void st_any(void* p, long long i, float v,
+                                       int is_bf16) {
+  if (is_bf16)
+    from_f(static_cast<bf16*>(p) + i, v);
+  else
+    static_cast<float*>(p)[i] = v;
+}
+
+// Thread 0 of a CTA, after a barrier behind the CTA's writes of its share:
+// one ticket of *t; whether it was the last of last + 1. The fence before
+// the atomic releases the whole CTA's share (fences are cumulative over
+// what the barrier ordered before them), the fence after it acquires the
+// others' shares for the reads after the next barrier: the pattern of a
+// cooperative-groups grid barrier. One thread fences, so the others do
+// not wait for their stores of dx to drain.
+__device__ __forceinline__ int take_ticket(int* t, int last) {
+  __threadfence();
+  const int prev = atomicAdd(t, 1);
+  __threadfence();
+  return prev == last;
+}
+
+// out(e, Σ_{k<n} src[k·stride + e]) for the elements e < m of this thread
+// (one of nt), each sum a left fold in k order read from L2, so the bits do
+// not depend on how the loads are grouped. Where m, the stride and src
+// allow 16-byte vectors, a thread takes 4 adjacent elements a vector, 16
+// vectors in flight; else 4 elements nt apart, 8 terms of each in flight.
+template <typename F>
+__device__ __forceinline__ void ordered_sums(const float* src, int stride,
+                                             int n, int m, int nt, F&& out) {
+  if (m % 4 == 0 && stride % 4 == 0 &&
+      (reinterpret_cast<uintptr_t>(src) & 15) == 0) {
+    constexpr int K = 16;
+    for (int e = 4 * threadIdx.x; e < m; e += 4 * nt) {
+      float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+      for (int k = 0; k < n; k += K) {
+        float4 t[K];
+#pragma unroll
+        for (int q = 0; q < K; ++q)
+          t[q] = k + q < n
+                     ? __ldcg(reinterpret_cast<const float4*>(
+                           src + static_cast<size_t>(k + q) * stride + e))
+                     : make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+        for (int q = 0; q < K; ++q) {
+          if (k + q < n) {
+            v.x += t[q].x;
+            v.y += t[q].y;
+            v.z += t[q].z;
+            v.w += t[q].w;
+          }
+        }
+      }
+      out(e, v.x);
+      out(e + 1, v.y);
+      out(e + 2, v.z);
+      out(e + 3, v.w);
+    }
+    return;
+  }
+  constexpr int E = 4, K = 8;
+  for (int e0 = threadIdx.x; e0 < m; e0 += E * nt) {
+    float v[E];
+#pragma unroll
+    for (int u = 0; u < E; ++u) v[u] = 0.f;
+    for (int k = 0; k < n; k += K) {
+      float t[E][K];
+#pragma unroll
+      for (int u = 0; u < E; ++u)
+#pragma unroll
+        for (int q = 0; q < K; ++q) {
+          const int e = e0 + u * nt;
+          t[u][q] = e < m && k + q < n
+                        ? __ldcg(src + static_cast<size_t>(k + q) * stride + e)
+                        : 0.f;
+        }
+#pragma unroll
+      for (int u = 0; u < E; ++u)
+#pragma unroll
+        for (int q = 0; q < K; ++q)
+          if (k + q < n) v[u] += t[u][q];
+    }
+#pragma unroll
+    for (int u = 0; u < E; ++u)
+      if (e0 + u * nt < m) out(e0 + u * nt, v[u]);
+  }
+}
+
+__device__ __forceinline__ size_t align16(size_t n) {
+  return (n + 15) & ~size_t(15);
+}
+
+// 16 bytes of shared memory into registers, in program order with the
+// mbarrier waits around them (a plain 16-byte read may be split into four
+// 4-byte ones, with bank conflicts).
+__device__ __forceinline__ uint4 lds128(const void* p) {
+  uint4 v;
+  asm volatile("ld.shared.v4.b32 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
+               : "r"(smem_u32(p))
+               : "memory");
+  return v;
+}
+
+// 16 bytes of T as fp32 (bf16: 8 values, fp32: 4)
+__device__ __forceinline__ void unpack(const uint4& w, bf16*, float* f) {
+  const uint32_t u[4] = {w.x, w.y, w.z, w.w};
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    f[2 * q] = __uint_as_float(u[q] << 16);
+    f[2 * q + 1] = __uint_as_float(u[q] & 0xffff0000u);
+  }
+}
+
+__device__ __forceinline__ void unpack(const uint4& w, float*, float* f) {
+  f[0] = __uint_as_float(w.x);
+  f[1] = __uint_as_float(w.y);
+  f[2] = __uint_as_float(w.z);
+  f[3] = __uint_as_float(w.w);
+}
+
+// A barrier of the nw consumer warps (a producer warp after them takes no
+// part).
+__device__ __forceinline__ void cbar(int nw) { named_sync(1, nw * 32); }
 
 }  // namespace

@@ -17,34 +17,43 @@ Two ops of one kernel pair:
   select and gives NaN; here Φ_poly' is selected to 0 before it meets hf or
   g, so the gradient saturates to 0/1, as JAX's own `bias_gelu` gives.
 
-Both ops are `torch.autograd.Function`s. Their forward replaces the Pallas
-`_forward` (`ops/fused_gelu.py:157`), their backward the Pallas `_backward`
-(`:184`). On CUDA tensors both launch the Triton kernels below (bf16 or
-fp32); on CPU tensors they run the plain twins `bias_gelu_fwd_plain` and
-`bias_gelu_bwd_plain`, fp32 inside.
+Both ops are `torch.autograd.Function`s (bf16 or fp32 x). On CPU tensors
+they run the plain twins `bias_gelu_fwd_plain` and `bias_gelu_bwd_plain`,
+fp32 inside; on CUDA tensors:
 
-What bounds it on the card: an elementwise pass with a few tens of fp32
-flops an element (the polynomial), so bandwidth: the forward reads x and
-writes y once (~0.54 GB at 2×8208×8192 bf16), the backward reads x and g
-and writes dx. The design is the plain one: 2-D tiles over (rows, F), so
-F = 8192 need not fit one program and the bias loads once per tile as a row
-vector. The dbias column sum cannot carry across programs the way the TPU
-kernel carries it across its row grid in VMEM: each backward program walks
-256 rows of one column block, keeps a 2-D register partial, and writes one
-fp32 row of partials [programs, F]; one torch sum over those finishes it.
+- the forward replaces the Pallas `_forward` (`ops/fused_gelu.py:157`) with
+  the Triton kernel below. What bounds it: bytes — it reads x and writes y
+  once (~0.54 GB at 2×8208×8192 bf16) at ~20 fp32 flops an element. The
+  plain design reaches that: 2-D tiles over (rows, F), the bias loaded once
+  a tile as a row vector.
+- the backward replaces the Pallas `_backward` (`:184`) with the CUDA
+  kernel of `csrc/bias_gelu_bwd.cu` (whose note gives the design), one
+  launch a call. What bounds it: bytes — it reads x and g and writes dx
+  once (415 MB at [64, 528, 2048] bf16) — with ~40 fp32 flops an element,
+  and the dbias column sum runs across all rows, which the TPU kernel
+  carries across its sequential row grid in VMEM. Why CUDA: the kernel
+  keeps the next rows in flight by bulk copies into a shared-memory ring
+  while it computes a row, and finishes the column sum in the same launch
+  through release/acquire tickets between CTAs, in a fixed order (the same
+  bits every launch). Triton leaves both to its compiler; its kernel waited
+  on each tile's loads in program order and needed a torch sum and a cast
+  after it. The host plans the work (`_bwd_plan`).
 """
 
 from __future__ import annotations
 
-from typing import Optional
+import ctypes
+import math
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
+
+from video_diffusion_speedrun_tpu_torch.ops import _build
 
 # bound at the first launch (triton is imported there, never at import:
 # the CPU tests import this module on a machine without triton)
 tl = None
 _fwd_kernel = None
-_bwd_kernel = None
 
 _LOG2E = 1.4426950408889634
 _INV_SQRT2 = 0.7071067811865476
@@ -53,7 +62,8 @@ _INV_SQRT2PI = 0.3989422804014327
 _AS_P = 0.3275911
 _AS_A = (0.254829592, -0.284496736, 1.421413741, -1.453152027, 1.061405429)
 # odd fits of Φ(x)-1/2 and gelu'(x)-1/2 on |x| ≤ _POLY_R, saturated to 0/1
-# outside; the Triton helpers below spell the same numbers out
+# outside; the Triton helpers below and csrc/bias_gelu_bwd.cu spell the same
+# numbers out
 _POLY_R = 4.2
 _PHI_C = (1.6730854313132952, -4.819356366004858, 11.665324048457048,
           -19.2571592112833, 20.043393683968894, -11.692634553213583,
@@ -69,11 +79,9 @@ BLOCK = 0  # the MLP: s rounded to x's dtype, Φ_poly, exact Φ_poly'
 POLY = 1  # `bias_gelu` on bf16: s in fp32, Φ_poly, `_dgelu_poly`
 ERF = 2  # `bias_gelu` on fp32: s in fp32, A&S erf and its closed form
 
-# launch shapes: rows × columns of a tile, warps; backward row tiles a
-# program walks before writing its dbias partials — the fastest of the
-# shapes tried on the H100 at the MLP's shapes (the forward barely moves)
+# the forward's launch shape: rows × columns of a tile, warps — the fastest
+# of the shapes tried on the H100 at the MLP's shapes
 _BLOCK_R, _BLOCK_F, _WARPS = 16, 512, 8
-_BWD_ITERS = 16
 
 
 def _even_poly(coeffs, t2: torch.Tensor) -> torch.Tensor:
@@ -163,17 +171,16 @@ def bias_gelu_bwd_plain(x, bias, g, mode: int):
     return dx_out, dbias
 
 
-def _triton_kernels():
-    global tl, _fwd_kernel, _bwd_kernel
-    global _tl_phi_poly, _tl_dphi_poly, _tl_dgelu_poly, _tl_gelu_parts
+def _triton_kernel():
+    global tl, _fwd_kernel, _tl_phi_poly, _tl_gelu_parts
     if _fwd_kernel is not None:
-        return _fwd_kernel, _bwd_kernel
+        return _fwd_kernel
     import triton
     import triton.language as tl
 
     # Triton kernels may not read Python globals that are not constexpr, so
-    # the coefficients of `_PHI_C`, `_DPHI_C`, `_DGELU_C` and `_AS_A` are
-    # written out; 0.23809523809523808 = 1 / _POLY_R
+    # the coefficients of `_PHI_C` and `_AS_A` are written out;
+    # 0.23809523809523808 = 1 / _POLY_R
 
     @triton.jit
     def _tl_phi_poly(x):
@@ -187,33 +194,6 @@ def _triton_kernels():
         acc = acc * t2 + 1.6730854313132952
         phi = 0.5 + acc * t
         return tl.where(x <= -4.2, 0.0, tl.where(x >= 4.2, 1.0, phi))
-
-    @triton.jit
-    def _tl_dphi_poly(x):
-        t = x * 0.23809523809523808
-        t2 = t * t
-        acc = t2 * 37.54153917907545 + -128.61898008534942
-        acc = acc * t2 + 180.39054315572005
-        acc = acc * t2 + -134.80011447898312
-        acc = acc * t2 + 58.326620242285244
-        acc = acc * t2 + -14.458069098014576
-        acc = acc * t2 + 1.6730854313132952
-        d = acc * 0.23809523809523808
-        return tl.where(tl.abs(x) < 4.2, d, 0.0)
-
-    @triton.jit
-    def _tl_dgelu_poly(x):
-        t = x * 0.23809523809523808
-        t2 = t * t
-        acc = t2 * -28.13100148328976 + 125.8564616128173
-        acc = acc * t2 + -239.9744046965949
-        acc = acc * t2 + 256.1130938463848
-        acc = acc * t2 + -169.03201824319132
-        acc = acc * t2 + 71.6240707797499
-        acc = acc * t2 + -19.301024758068174
-        acc = acc * t2 + 3.3437508389045996
-        dg = 0.5 + acc * t
-        return tl.where(x <= -4.2, 0.0, tl.where(x >= 4.2, 1.0, dg))
 
     @triton.jit
     def _tl_gelu_parts(x):
@@ -250,55 +230,8 @@ def _triton_kernels():
         tl.store(y_ptr + off, (s * cdf).to(y_ptr.dtype.element_ty),
                  mask=mask)
 
-    @triton.jit
-    def bias_gelu_bwd(x_ptr, b_ptr, g_ptr, dx_ptr, part_ptr, N, F,
-                      MODE: tl.constexpr, HAS_BIAS: tl.constexpr,
-                      BLOCK_R: tl.constexpr, BLOCK_F: tl.constexpr,
-                      ITERS: tl.constexpr):
-        pid = tl.program_id(0)
-        cols = tl.program_id(1) * BLOCK_F + tl.arange(0, BLOCK_F)
-        cmask = cols < F
-        if HAS_BIAS:
-            b = tl.load(b_ptr + cols, mask=cmask, other=0.0)
-            if MODE == 0:
-                b = b.to(x_ptr.dtype.element_ty)
-            b = b.to(tl.float32)
-        # the dbias partial stays 2-D in registers across the row tiles;
-        # one cross-row reduction at the end
-        acc = tl.zeros([BLOCK_R, BLOCK_F], dtype=tl.float32)
-        for it in range(ITERS):
-            rows = (pid * ITERS + it) * BLOCK_R + tl.arange(0, BLOCK_R)
-            mask = (rows < N)[:, None] & cmask[None, :]
-            off = rows[:, None].to(tl.int64) * F + cols[None, :]
-            s = tl.load(x_ptr + off, mask=mask, other=0.0).to(tl.float32)
-            if HAS_BIAS:
-                s = s + b[None, :]
-                if MODE == 0:
-                    s = s.to(x_ptr.dtype.element_ty).to(tl.float32)
-            g = tl.load(g_ptr + off, mask=mask, other=0.0).to(tl.float32)
-            # every derivative is selected before it meets s or g
-            if MODE == 0:
-                dg = _tl_phi_poly(s) + s * _tl_dphi_poly(s)
-            elif MODE == 1:
-                dg = _tl_dgelu_poly(s)
-            else:  # 0.7213475204444817 = _LOG2E / 2
-                pdf = tl.exp2(-(s * s) * 0.7213475204444817) \
-                    * 0.3989422804014327
-                dg = _tl_gelu_parts(s) + s * pdf
-            dx = g * dg
-            dx_out = dx.to(dx_ptr.dtype.element_ty)
-            tl.store(dx_ptr + off, dx_out, mask=mask)
-            if HAS_BIAS:
-                if MODE == 0:  # the MLP sums the rounded dh
-                    acc += dx_out.to(tl.float32)
-                else:
-                    acc += dx
-        if HAS_BIAS:
-            tl.store(part_ptr + pid.to(tl.int64) * F + cols,
-                     tl.sum(acc, axis=0), mask=cmask)
-
-    _fwd_kernel, _bwd_kernel = bias_gelu_fwd, bias_gelu_bwd
-    return _fwd_kernel, _bwd_kernel
+    _fwd_kernel = bias_gelu_fwd
+    return _fwd_kernel
 
 
 def _check(x, bias, g=None) -> None:
@@ -331,7 +264,7 @@ def bias_gelu_forward(x: torch.Tensor, bias: Optional[torch.Tensor],
     n = x.numel() // f
     y = torch.empty_like(x)
     block_f = _tile_f(f)
-    kernel, _ = _triton_kernels()
+    kernel = _triton_kernel()
     with torch.cuda.device(x.device):
         kernel[(-(-n // _BLOCK_R), -(-f // block_f))](
             x, x if bias is None else bias, y, n, f, MODE=mode,
@@ -344,30 +277,212 @@ def bias_gelu_forward(x: torch.Tensor, bias: Optional[torch.Tensor],
 bias_gelu_forward.launches = 0
 
 
+# ---------------------------------------------------------------------------
+# the backward kernel (row 16): csrc/bias_gelu_bwd.cu
+# ---------------------------------------------------------------------------
+
+_LIB = "bias_gelu_bwd"
+_SMEM_LIMIT = 232448  # dynamic shared memory of one block on sm_90
+# the kernel's consumer warps a CTA, ring stages and rows a consumer thread
+# takes from one stage (NW, STAGES, RPT)
+_BWD_WARPS, _BWD_STAGES, _RPT = 8, 3, 4
+# 16-byte chunks of a slab at most: 2 KB of a row
+_SLAB_CHUNKS = 128
+_DTYPES = (torch.bfloat16, torch.float32)
+
+
+class _Params(ctypes.Structure):
+    """`BiasGeluBwdParams` of csrc/bias_gelu_bwd.cu, field for field."""
+    _fields_ = ([(n, ctypes.c_void_p) for n in (
+        "x", "g", "bias", "dx", "dbias", "part", "ticket")]
+        + [(n, ctypes.c_int) for n in (
+            "N", "F", "fc", "slabs", "splits", "base", "rem", "group",
+            "bias_bf16")])
+
+
+class _BwdPlan(NamedTuple):
+    """The backward's work over x [N, F], as the kernel does it: the columns
+    in `slabs` slabs of `fc` (the last may be narrower), the rows in
+    `splits` contiguous runs [start(k), start(k + 1)) that differ by at
+    most one row; CTA c takes slab c % slabs of split c // slabs. Its
+    consumer thread owns one chunk of `vec` columns of the slab in one of
+    `row_groups` groups; group r takes rows start + r, start + r +
+    row_groups, ... of the run. A slab's dbias adds, per split, the row
+    groups' sums in group order; then the splits in order, in groups of
+    `group` (split k in group k // group); then the group sums in order."""
+    n: int
+    f: int
+    vec: int  # columns of a 16-byte chunk
+    fc: int
+    slabs: int
+    splits: int
+    base: int  # rows of a run; the first `rem` runs hold one more
+    rem: int
+    group: int  # splits a first-level finish adds
+
+    @property
+    def ctas(self) -> int:
+        return self.slabs * self.splits
+
+    @property
+    def row_groups(self) -> int:
+        """Consumer threads over the chunks of a slab."""
+        return 32 * _BWD_WARPS // _build.cdiv(self.fc, self.vec)
+
+    def start(self, k: int) -> int:
+        return k * self.base + min(k, self.rem)
+
+    def columns(self, slab: int) -> Tuple[int, int]:
+        """[first, end) columns of the slab."""
+        return slab * self.fc, min(self.f, (slab + 1) * self.fc)
+
+    @property
+    def split_groups(self) -> int:
+        return _build.cdiv(self.splits, self.group)
+
+    @property
+    def tickets(self) -> int:
+        """(slab, group of splits), then slab."""
+        return self.slabs * (self.split_groups + 1)
+
+    @property
+    def scratch(self) -> int:
+        """fp32 scratch of the finish: [splits + split_groups, F]."""
+        return (self.splits + self.split_groups) * self.f
+
+
+def _bwd_plan(n: int, f: int, t_size: int, ctas: int) -> _BwdPlan:
+    """The plan of a launch of about `ctas` CTAs over x [n, f] of
+    t_size-byte elements: at least two column slabs (where F has two
+    chunks), each at most 2 KB of a row and one chunk a consumer thread, as
+    even as whole chunks allow; the rows split `ctas // slabs` ways, at
+    most one split a row; the finish in groups of ⌈√splits⌉ splits, so that
+    both of its levels add about √splits rows. On the H100 2 KB slabs beat
+    4 KB ones and whole rows at F = 2048 and 8192, and two slabs of 512
+    bytes one of 1 KB at F = 512: the finish reads splits·(slab width)
+    partials a slab, and neighbouring CTAs read the slabs of the same rows;
+    1 KB slabs lost at F = 8192."""
+    vec = 16 // t_size
+    chunks = _build.cdiv(f, vec)
+    per = min(32 * _BWD_WARPS, _SLAB_CHUNKS)
+    slabs = max(min(2, chunks), _build.cdiv(chunks, per))
+    fc = _build.cdiv(chunks, slabs) * vec
+    slabs = _build.cdiv(f, fc)
+    splits = max(1, min(n, ctas // slabs))
+    return _BwdPlan(n, f, vec, fc, slabs, splits, n // splits, n % splits,
+                    math.isqrt(splits - 1) + 1)
+
+
+def _align16(n: int) -> int:
+    return (n + 15) & ~15
+
+
+def _bwd_smem(bulk: bool, fc: int, t_size: int) -> int:
+    """Shared memory of one CTA, the layout of `smem_bytes` in the kernel:
+    the ring (stages of x and g, RPT·row_groups rows of a slab each) and
+    its mbarriers, the row groups' dbias sums, the flags."""
+    vec = 16 // t_size
+    nt = 32 * _BWD_WARPS
+    n = 0
+    if bulk:
+        rows = _RPT * (nt // _build.cdiv(fc, vec))
+        n = _align16(_BWD_STAGES * 2 * rows * fc * t_size) + _BWD_STAGES * 16
+    return _align16(n + nt * vec * 4) + 16
+
+
+# (device, flags, shared memory) → CTAs an SM holds
+_occupancy: Dict[tuple, int] = {}
+# (device, stream) → int32 tickets, zero between launches
+_tickets: Dict[Tuple[int, int], torch.Tensor] = {}
+
+
+def _library() -> ctypes.CDLL:
+    lib = _build.load(_LIB)
+    if lib.bias_gelu_bwd.argtypes is None:
+        lib.bias_gelu_bwd.argtypes = ([ctypes.POINTER(_Params)]
+                                      + [ctypes.c_int] * 4
+                                      + [ctypes.c_void_p,
+                                         ctypes.POINTER(ctypes.c_int)])
+        lib.bias_gelu_bwd.restype = ctypes.c_int
+        lib.bias_gelu_bwd_smem.argtypes = [ctypes.c_int] * 3
+        lib.bias_gelu_bwd_smem.restype = ctypes.c_longlong
+    return lib
+
+
+def _bwd_cuda(x, bias, g, mode: int):
+    """One launch of csrc/bias_gelu_bwd.cu on contiguous x and g: (dx,
+    dbias or None). Raises on what the kernel does not take."""
+    if g.dtype != x.dtype:
+        raise TypeError(f"g must have x's dtype {x.dtype}, got {g.dtype}")
+    if bias is not None and bias.dtype not in _DTYPES:
+        raise TypeError(f"the bias must be bf16 or fp32, got {bias.dtype}")
+    if mode not in (BLOCK, POLY, ERF):
+        raise ValueError(f"unknown bias+GELU mode {mode}")
+    f = x.shape[-1] if x.dim() else 0
+    n = x.numel() // f if f else 0
+    if n == 0 or n >= 2 ** 31:
+        raise ValueError(f"the bias+GELU backward takes 0 < rows < 2^31 and "
+                         f"F > 0, got {tuple(x.shape)}")
+    t_size = x.element_size()
+    bulk = f * t_size % 16 == 0 and x.data_ptr() % 16 == 0 \
+        and g.data_ptr() % 16 == 0
+    fc = _bwd_plan(n, f, t_size, 1).fc
+    smem = _bwd_smem(bulk, fc, t_size)
+    flags = (int(x.dtype == torch.bfloat16), mode, int(bias is not None),
+             int(bulk))
+    lib = _library()
+    dev = x.device
+    p = _Params(F=f, fc=fc)
+    with torch.cuda.device(dev):
+        key = (dev.index, *flags, smem)
+        occ = _occupancy.get(key)
+        if occ is None:
+            k = ctypes.c_int(0)
+            _build.check(_LIB, lib.bias_gelu_bwd(ctypes.byref(p), *flags, None,
+                                                 ctypes.byref(k)))
+            if k.value < 1:
+                raise ValueError(f"no CTA of the bias+GELU backward fits an "
+                                 f"SM at F = {f}")
+            occ = _occupancy[key] = k.value
+        n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+        plan = _bwd_plan(n, f, t_size, occ * n_sm)
+        dx = torch.empty_like(x)
+        dbias = part = tickets = None
+        if bias is not None:
+            stream = torch.cuda.current_stream(dev).cuda_stream
+            tickets = _tickets.get((dev.index, stream))
+            if tickets is None or tickets.numel() < plan.tickets:
+                tickets = torch.zeros(max(plan.tickets, 1024),
+                                      dtype=torch.int32, device=dev)
+                _tickets[(dev.index, stream)] = tickets
+            part = torch.empty(plan.scratch, dtype=torch.float32, device=dev)
+            dbias = torch.empty(f, dtype=bias.dtype, device=dev)
+            p.bias, p.dbias = bias.data_ptr(), dbias.data_ptr()
+            p.part, p.ticket = part.data_ptr(), tickets.data_ptr()
+            p.bias_bf16 = int(bias.dtype == torch.bfloat16)
+        p.x, p.g, p.dx = x.data_ptr(), g.data_ptr(), dx.data_ptr()
+        p.N, p.slabs, p.splits = n, plan.slabs, plan.splits
+        p.base, p.rem, p.group = plan.base, plan.rem, plan.group
+        err = lib.bias_gelu_bwd(ctypes.byref(p), *flags,
+                                torch.cuda.current_stream(dev).cuda_stream,
+                                None)
+    _build.check(_LIB, err)
+    return dx, dbias
+
+
 def bias_gelu_backward(x: torch.Tensor, bias: Optional[torch.Tensor],
                        g: torch.Tensor, mode: int):
-    """The backward of `mode`: (dx, dbias or None). The Triton kernel on
-    CUDA, the twin on the CPU. `.launches` counts kernel launches."""
+    """The backward of `mode`: (dx, dbias or None, in the bias's dtype).
+    One launch of csrc/bias_gelu_bwd.cu on CUDA tensors (g is copied first
+    only if it is not contiguous), the twin on CPU tensors. `.launches`
+    counts kernel launches."""
     if not x.is_cuda:
         return bias_gelu_bwd_plain(x, bias, g, mode)
     g = g.contiguous()
     _check(x, bias, g)
-    f = x.shape[-1]
-    n = x.numel() // f
-    dx = torch.empty_like(x)
-    block_f = _tile_f(f)
-    n_prog = -(-n // (_BLOCK_R * _BWD_ITERS))
-    part = torch.empty((n_prog, f) if bias is not None else (1,),
-                       dtype=torch.float32, device=x.device)
-    _, kernel = _triton_kernels()
-    with torch.cuda.device(x.device):
-        kernel[(n_prog, -(-f // block_f))](
-            x, x if bias is None else bias, g, dx, part, n, f, MODE=mode,
-            HAS_BIAS=bias is not None, BLOCK_R=_BLOCK_R, BLOCK_F=block_f,
-            ITERS=_BWD_ITERS, num_warps=_WARPS)
+    out = _bwd_cuda(x, bias, g, mode)
     bias_gelu_backward.launches += 1
-    dbias = None if bias is None else part.sum(dim=0).to(bias.dtype)
-    return dx, dbias
+    return out
 
 
 bias_gelu_backward.launches = 0
