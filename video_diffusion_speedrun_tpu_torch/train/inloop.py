@@ -19,6 +19,13 @@ stack of block inputs. The step, as JAX's (`inloop.py:114-496`):
 4. the prefix's gradients from (dx₀, d(t_emb)), and the update of the
    prefix's and suffix's leaves. The count advances once.
 
+Under a profiler (`utils/profiling.py:span`) the step is a `vds/step`
+span: one `vds/step/forward` over steps 1–2's forward, a
+`vds/step/backward` over each gradient computation (the suffix's, each
+block's recompute and gradients, the prefix's: depth + 2) and a
+`vds/optim/update` in each group's update (depth + 1); the casts and
+reductions between them are the step's own time.
+
 With `grad_accum > 1` each block's backward runs over batch chunks whose
 gradients are summed in fp32 and cast once: the exact full-batch gradient
 (`inloop.py:359-404`), with the backward's residuals of one chunk at a
@@ -65,6 +72,7 @@ from video_diffusion_speedrun_tpu_torch.train.loss import (
     flow_loss,
 )
 from video_diffusion_speedrun_tpu_torch.train.optim import MupAdamW
+from video_diffusion_speedrun_tpu_torch.utils.profiling import span
 
 
 def _fsdp_module(module) -> bool:
@@ -182,96 +190,104 @@ def inloop_step(model: DiT, opt: MupAdamW, batch: Dict,
             "`_build_inloop_branch` refuses it too); use the standard step")
     mcfg = model.cfg
     latent = batch["latent"]
-    context = batch.get("context")
-    if context is None and mcfg.cross_attn_input_size is not None:
-        context = 0.05 * torch.randn(
-            latent.shape[0], cfg.data.caption_tokens, cfg.data.context_dim,
-            generator=generator, device=latent.device,
-            dtype=mcfg.compute_dtype)
-    inp = flow_inputs(mcfg, latent, context, generator,
-                      alpha=cfg.time_shift_alpha,
-                      caption_dropout=cfg.caption_dropout,
-                      timesteps=batch.get("timesteps"),
-                      noise=batch.get("noise"),
-                      rope_offsets=batch.get("rope_offsets"))
+    dev = latent.device
     accum = cfg.grad_accum
-    if inp.z_t.shape[0] % accum:
-        raise ValueError(f"batch {inp.z_t.shape[0]} is not a multiple of "
+    if latent.shape[0] % accum:
+        raise ValueError(f"batch {latent.shape[0]} is not a multiple of "
                          f"grad_accum {accum}")
-    ctx = inp.context
-    grid = model.grid(inp.z_t)
-    # later blocks mix block 0's v only in a residual-v model
-    use_v0 = mcfg.residual_v
-    lr_scale = opt.lr_scale()
-    _init_fsdp_root(model)
+    with span("step", dev):
+        context = batch.get("context")
+        if context is None and mcfg.cross_attn_input_size is not None:
+            context = 0.05 * torch.randn(
+                latent.shape[0], cfg.data.caption_tokens,
+                cfg.data.context_dim, generator=generator,
+                device=latent.device, dtype=mcfg.compute_dtype)
+        # later blocks mix block 0's v only in a residual-v model
+        use_v0 = mcfg.residual_v
+        lr_scale = opt.lr_scale()
+        _init_fsdp_root(model)
 
-    rest = opt.groups["rest"]
-    rest_names = [opt.names[i] for i in rest]
-    with _gathered(model):
-        # ---- forward: the prefix with grad, the blocks without ----
-        tokens0, t_emb, cos, sin = model.prefix(inp.z_t, inp.timesteps,
-                                                inp.rope_offsets)
-        te = t_emb.detach()
-        x, v0, xs = tokens0.detach(), None, []
-        with torch.no_grad():
-            for i, blk in enumerate(model.blocks):
-                xs.append(x)
+        rest = opt.groups["rest"]
+        rest_names = [opt.names[i] for i in rest]
+        with _gathered(model):
+            # ---- forward: the prefix with grad, the blocks without; the
+            # suffix and the loss ----
+            with span("step/forward", dev):
+                inp = flow_inputs(mcfg, latent, context, generator,
+                                  alpha=cfg.time_shift_alpha,
+                                  caption_dropout=cfg.caption_dropout,
+                                  timesteps=batch.get("timesteps"),
+                                  noise=batch.get("noise"),
+                                  rope_offsets=batch.get("rope_offsets"))
+                ctx = inp.context
+                grid = model.grid(inp.z_t)
+                tokens0, t_emb, cos, sin = model.prefix(
+                    inp.z_t, inp.timesteps, inp.rope_offsets)
+                te = t_emb.detach()
+                x, v0, xs = tokens0.detach(), None, []
+                with torch.no_grad():
+                    for i, blk in enumerate(model.blocks):
+                        xs.append(x)
+                        with _gathered(blk):
+                            x, v = blk.forward(x, ctx, te, cos, sin, v0)
+                        if i == 0:
+                            v0 = v
+                x_last = x.requires_grad_()
+                te_s = te.clone().requires_grad_()
+                out = model.suffix(x_last, te_s, grid)
+                loss, aux = flow_loss(out, inp.v_objective, inp.timesteps)
+
+            # ---- the suffix's gradients: d(tokens), d(t_emb), its leaves
+            rest_leaves = _leaves(model, rest_names, "")
+            with span("step/backward", dev):
+                got = torch.autograd.grad(
+                    loss, [x_last, te_s] + rest_leaves, allow_unused=True)
+            dx = got[0]
+            dte = got[1].float()
+            suffix_grads = [None if g is None else local(g)
+                            for g in got[2:]]
+            del out, got
+            dv0 = (torch.zeros(v0.shape, dtype=torch.float32,
+                               device=v0.device) if use_v0 else None)
+
+            # ---- reverse walk: each block's gradients, then its update --
+            for i in reversed(range(len(model.blocks))):
+                blk = model.blocks[i]
+                group = f"blocks.{i}"
+                idx = opt.groups[group]
                 with _gathered(blk):
-                    x, v = blk.forward(x, ctx, te, cos, sin, v0)
-                if i == 0:
-                    v0 = v
+                    params = _leaves(blk, [opt.names[k] for k in idx],
+                                     group + ".")
+                    dv_out = (dv0.to(v0.dtype) if i == 0 and use_v0
+                              else None)
+                    with span("step/backward", dev):
+                        grads, dx, dv0_in, dte_i = _block_grads(
+                            blk, params, xs[i], v0 if i and use_v0 else None,
+                            te, ctx, cos, sin, dx, dv_out, accum)
+                xs[i] = None
+                dte += dte_i.float()
+                if dv0_in is not None:
+                    dv0 += dv0_in.float()
+                opt.update_group(group, _reduce(model, opt, idx, grads,
+                                                data_group))
+                del grads
 
-        # ---- the suffix and the loss, and their gradients ----
-        x_last = x.requires_grad_()
-        te_s = te.clone().requires_grad_()
-        out = model.suffix(x_last, te_s, grid)
-        loss, aux = flow_loss(out, inp.v_objective, inp.timesteps)
-        rest_leaves = _leaves(model, rest_names, "")
-        got = torch.autograd.grad(loss, [x_last, te_s] + rest_leaves,
-                                  allow_unused=True)
-        dx = got[0]
-        dte = got[1].float()
-        suffix_grads = [None if g is None else local(g) for g in got[2:]]
-        del out, got
-        dv0 = (torch.zeros(v0.shape, dtype=torch.float32, device=v0.device)
-               if use_v0 else None)
+            # ---- the prefix's gradients; the prefix and suffix update ----
+            with span("step/backward", dev):
+                got = torch.autograd.grad((tokens0, t_emb), rest_leaves,
+                                          (dx, dte.to(t_emb.dtype)),
+                                          allow_unused=True)
+            grads = [s if g is None else local(g) if s is None
+                     else local(g) + s for g, s in zip(got, suffix_grads)]
+            del got, tokens0, t_emb
+            opt.update_group("rest", _reduce(model, opt, rest, grads,
+                                             data_group))
+        opt.advance()
 
-        # ---- reverse walk: each block's gradients, then its update ----
-        for i in reversed(range(len(model.blocks))):
-            blk = model.blocks[i]
-            group = f"blocks.{i}"
-            idx = opt.groups[group]
-            with _gathered(blk):
-                params = _leaves(blk, [opt.names[k] for k in idx],
-                                 group + ".")
-                dv_out = (dv0.to(v0.dtype) if i == 0 and use_v0
-                          else None)
-                grads, dx, dv0_in, dte_i = _block_grads(
-                    blk, params, xs[i], v0 if i and use_v0 else None, te,
-                    ctx, cos, sin, dx, dv_out, accum)
-            xs[i] = None
-            dte += dte_i.float()
-            if dv0_in is not None:
-                dv0 += dv0_in.float()
-            opt.update_group(group, _reduce(model, opt, idx, grads,
-                                            data_group))
-            del grads
-
-        # ---- the prefix's gradients; the prefix and suffix update ----
-        got = torch.autograd.grad((tokens0, t_emb), rest_leaves,
-                                  (dx, dte.to(t_emb.dtype)),
-                                  allow_unused=True)
-        grads = [s if g is None else local(g) if s is None
-                 else local(g) + s for g, s in zip(got, suffix_grads)]
-        del got, tokens0, t_emb
-        opt.update_group("rest", _reduce(model, opt, rest, grads,
-                                         data_group))
-    opt.advance()
-
-    loss = loss.detach()
-    all_reduce_([loss], data_group, mean=True)
-    all_reduce_([aux["bin_sums"], aux["bin_counts"]], data_group)
-    return {"loss": loss, "lr_scale": lr_scale,
-            "bin_sums": aux["bin_sums"], "bin_counts": aux["bin_counts"],
-            "timesteps": aux["timesteps"],
-            "loss_per_sample": aux["loss_per_sample"]}
+        loss = loss.detach()
+        all_reduce_([loss], data_group, mean=True)
+        all_reduce_([aux["bin_sums"], aux["bin_counts"]], data_group)
+        return {"loss": loss, "lr_scale": lr_scale,
+                "bin_sums": aux["bin_sums"], "bin_counts": aux["bin_counts"],
+                "timesteps": aux["timesteps"],
+                "loss_per_sample": aux["loss_per_sample"]}

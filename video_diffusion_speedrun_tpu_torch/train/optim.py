@@ -25,7 +25,8 @@ Sharded parameters (DTensors of FSDP2 or the tensor axis,
 the update runs on each rank's local shards, the muP table reads the
 global shapes. The kernel's table of leaf pointers is built at the first
 step (after FSDP2 has settled its sharded storage) and again after
-`refresh()`, which a checkpoint load calls.
+`refresh()`, which a checkpoint load calls. Under a profiler each `step`
+and `update_group` is a `vds/optim/update` span (`utils/profiling.py`).
 """
 
 from __future__ import annotations
@@ -48,6 +49,7 @@ from video_diffusion_speedrun_tpu_torch.parallel.collectives import (
 )
 from video_diffusion_speedrun_tpu_torch.train.mup import mup_table
 from video_diffusion_speedrun_tpu_torch.train.schedules import get_schedule
+from video_diffusion_speedrun_tpu_torch.utils.profiling import span
 
 
 def _zeros_like(p: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
@@ -181,23 +183,26 @@ class MupAdamW:
         """One update from `grads` (one per parameter, in order; None is a
         zero gradient). Advances the count."""
         cfg = self.cfg
-        grads = [self._grad(i, g) for i, g in enumerate(grads)]
-        lr_t, bc1, bc2 = step_scalars(self.count, self.lr_scale(), cfg.beta1,
-                                      cfg.beta2)
-        params, ms, vs = self.leaves()
-        if self._kernel is None:
-            kernel = self.kernel_for(params)
-            if kernel is not None:
-                self._kernel = kernel(params, ms, vs, self.lrs, self.wds,
-                                      cfg.beta1, cfg.beta2, cfg.eps)
-        if self._kernel is not None:
-            self._kernel(grads, lr_t, bc1, bc2)
-        else:
-            for p, m, v, g, lr, wd in zip(params, ms, vs, grads, self.lrs,
-                                          self.wds):
-                adamw_leaf_update_plain(p, m, v, g, lr, wd, lr_t, bc1, bc2,
-                                        cfg.beta1, cfg.beta2, cfg.eps)
-        self.count += 1
+        with span("optim/update", self.params[0].device):
+            grads = [self._grad(i, g) for i, g in enumerate(grads)]
+            lr_t, bc1, bc2 = step_scalars(self.count, self.lr_scale(),
+                                          cfg.beta1, cfg.beta2)
+            params, ms, vs = self.leaves()
+            if self._kernel is None:
+                kernel = self.kernel_for(params)
+                if kernel is not None:
+                    self._kernel = kernel(params, ms, vs, self.lrs,
+                                          self.wds, cfg.beta1, cfg.beta2,
+                                          cfg.eps)
+            if self._kernel is not None:
+                self._kernel(grads, lr_t, bc1, bc2)
+            else:
+                for p, m, v, g, lr, wd in zip(params, ms, vs, grads,
+                                              self.lrs, self.wds):
+                    adamw_leaf_update_plain(p, m, v, g, lr, wd, lr_t, bc1,
+                                            bc2, cfg.beta1, cfg.beta2,
+                                            cfg.eps)
+            self.count += 1
 
     @torch.no_grad()
     def update_group(self, group: str,
@@ -211,32 +216,34 @@ class MupAdamW:
         if len(grads) != len(idx):
             raise ValueError(f"{len(grads)} grads for group {group} of "
                              f"{len(idx)} leaves")
-        grads = [self._grad(i, g) for i, g in zip(idx, grads)]
-        lr_t, bc1, bc2 = step_scalars(self.count, self.lr_scale(), cfg.beta1,
-                                      cfg.beta2)
-        params, ms, vs = self.leaves()
-        exact = [k for k, i in enumerate(idx) if not self.factored[i]]
-        kernel = self._group_kernels.get(group)
-        if kernel is None and exact:
-            make = self.kernel_for([params[idx[k]] for k in exact])
-            if make is not None:
-                kernel = self._group_kernels[group] = make(
-                    *([t[idx[k]] for k in exact] for t in (params, ms, vs)),
-                    [self.lrs[idx[k]] for k in exact],
-                    [self.wds[idx[k]] for k in exact],
-                    cfg.beta1, cfg.beta2, cfg.eps)
-        if kernel is not None:
-            kernel([grads[k] for k in exact], lr_t, bc1, bc2)
-        for k, i in enumerate(idx):
-            args = (self.lrs[i], self.wds[i], lr_t, bc1, bc2, cfg.beta1,
-                    cfg.beta2, cfg.eps)
-            if self.factored[i]:
-                factored_leaf_update(params[i], ms[i], vs[i], grads[k], *args,
-                                     tuple(self.params[i].shape),
-                                     self._factor_sums(self.names[i]))
-            elif kernel is None:
-                adamw_leaf_update_plain(params[i], ms[i], vs[i], grads[k],
-                                        *args)
+        with span("optim/update", self.params[0].device):
+            grads = [self._grad(i, g) for i, g in zip(idx, grads)]
+            lr_t, bc1, bc2 = step_scalars(self.count, self.lr_scale(),
+                                          cfg.beta1, cfg.beta2)
+            params, ms, vs = self.leaves()
+            exact = [k for k, i in enumerate(idx) if not self.factored[i]]
+            kernel = self._group_kernels.get(group)
+            if kernel is None and exact:
+                make = self.kernel_for([params[idx[k]] for k in exact])
+                if make is not None:
+                    kernel = self._group_kernels[group] = make(
+                        *([t[idx[k]] for k in exact]
+                          for t in (params, ms, vs)),
+                        [self.lrs[idx[k]] for k in exact],
+                        [self.wds[idx[k]] for k in exact],
+                        cfg.beta1, cfg.beta2, cfg.eps)
+            if kernel is not None:
+                kernel([grads[k] for k in exact], lr_t, bc1, bc2)
+            for k, i in enumerate(idx):
+                args = (self.lrs[i], self.wds[i], lr_t, bc1, bc2, cfg.beta1,
+                        cfg.beta2, cfg.eps)
+                if self.factored[i]:
+                    factored_leaf_update(params[i], ms[i], vs[i], grads[k],
+                                         *args, tuple(self.params[i].shape),
+                                         self._factor_sums(self.names[i]))
+                elif kernel is None:
+                    adamw_leaf_update_plain(params[i], ms[i], vs[i], grads[k],
+                                            *args)
 
     def advance(self) -> None:
         """End the step of `update_group` calls: the count moves on."""

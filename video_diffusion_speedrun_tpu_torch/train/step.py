@@ -8,7 +8,10 @@ and losses are averaged and whose bins are summed (`accumulate_grads`,
 `step.py:42-74`). A batch may inject `timesteps`, `noise` (split with the
 batch) and `rope_offsets` (shared); a batch with no `context` gets
 0.05·N(0, 1) [b, caption_tokens, context_dim] drawn on the device in the
-compute dtype (`step.py:132-141`).
+compute dtype (`step.py:132-141`). Under a profiler the step is a
+`vds/step` span holding each microbatch's `vds/step/forward` and
+`vds/step/backward` (`utils/profiling.py:span`); the reductions after them
+are the step's own time.
 
 Across processes (`parallel/mesh.py`) the step reduces what GSPMD reduces
 in JAX. FSDP2 (`parallel/fsdp.py`) reduce-scatters the sharded parameters'
@@ -42,6 +45,7 @@ from video_diffusion_speedrun_tpu_torch.parallel.collectives import (
 )
 from video_diffusion_speedrun_tpu_torch.train.loss import rectified_flow_loss
 from video_diffusion_speedrun_tpu_torch.train.optim import MupAdamW
+from video_diffusion_speedrun_tpu_torch.utils.profiling import span
 
 _SPLIT = ("latent", "context", "timesteps", "noise")
 
@@ -83,44 +87,50 @@ def train_step(model: DiT, opt: MupAdamW, batch: Dict,
     draws [b]. `context_parallel`: the ring that splits
     the tokens; `data_group`: the process group of the replicas (None:
     one)."""
-    accum = cfg.grad_accum
-    loss_sum = 0.0
-    bin_sums = bin_counts = 0.0
-    timesteps = []
-    for mb in _microbatches(batch, accum):
-        loss, aux = _loss(model, mb, generator, cfg, context_parallel)
-        loss.backward()
-        loss_sum = loss_sum + loss.detach()
-        bin_sums = bin_sums + aux["bin_sums"]
-        bin_counts = bin_counts + aux["bin_counts"]
-        timesteps.append(aux["timesteps"])
-    grads = [p.grad for p in opt.params]
-    if accum > 1:
-        for g in grads:
-            if g is not None:
-                local(g).mul_(1.0 / accum)
-    sharding = getattr(model, "sharding", None)
-    all_reduce_(grads, getattr(context_parallel, "group", None))
-    if sharding is None:
-        all_reduce_(grads, data_group, mean=True)
-    else:
-        all_reduce_([g for n, g in zip(opt.names, grads)
-                     if n in sharding.tensor_partial], sharding.tensor_group)
-        all_reduce_([g for n, g in zip(opt.names, grads)
-                     if n not in sharding.fsdp_managed], data_group,
-                    mean=True)
-    loss = loss_sum / accum if accum > 1 else loss_sum
-    all_reduce_([loss], data_group, mean=True)
-    all_reduce_([bin_sums, bin_counts], data_group)
-    metrics = {"loss": loss, "lr_scale": opt.lr_scale(),
-               "bin_sums": bin_sums, "bin_counts": bin_counts,
-               "timesteps": torch.cat(timesteps)}
-    if cfg.log_grad_norm:
-        metrics["grad_norm"] = grad_norm(opt.names, grads, sharding)
-    opt.step(grads)
-    for p in opt.params:
-        p.grad = None
-    return metrics
+    dev = batch["latent"].device
+    with span("step", dev):
+        accum = cfg.grad_accum
+        loss_sum = 0.0
+        bin_sums = bin_counts = 0.0
+        timesteps = []
+        for mb in _microbatches(batch, accum):
+            with span("step/forward", dev):
+                loss, aux = _loss(model, mb, generator, cfg,
+                                  context_parallel)
+            with span("step/backward", dev):
+                loss.backward()
+            loss_sum = loss_sum + loss.detach()
+            bin_sums = bin_sums + aux["bin_sums"]
+            bin_counts = bin_counts + aux["bin_counts"]
+            timesteps.append(aux["timesteps"])
+        grads = [p.grad for p in opt.params]
+        if accum > 1:
+            for g in grads:
+                if g is not None:
+                    local(g).mul_(1.0 / accum)
+        sharding = getattr(model, "sharding", None)
+        all_reduce_(grads, getattr(context_parallel, "group", None))
+        if sharding is None:
+            all_reduce_(grads, data_group, mean=True)
+        else:
+            all_reduce_([g for n, g in zip(opt.names, grads)
+                         if n in sharding.tensor_partial],
+                        sharding.tensor_group)
+            all_reduce_([g for n, g in zip(opt.names, grads)
+                         if n not in sharding.fsdp_managed], data_group,
+                        mean=True)
+        loss = loss_sum / accum if accum > 1 else loss_sum
+        all_reduce_([loss], data_group, mean=True)
+        all_reduce_([bin_sums, bin_counts], data_group)
+        metrics = {"loss": loss, "lr_scale": opt.lr_scale(),
+                   "bin_sums": bin_sums, "bin_counts": bin_counts,
+                   "timesteps": torch.cat(timesteps)}
+        if cfg.log_grad_norm:
+            metrics["grad_norm"] = grad_norm(opt.names, grads, sharding)
+        opt.step(grads)
+        for p in opt.params:
+            p.grad = None
+        return metrics
 
 
 def step_for(cfg: TrainConfig):
