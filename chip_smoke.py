@@ -35,7 +35,9 @@ Run from the root of a checkout. Phases, each of which raises on failure:
              timed at [64, 528, 512]); attention at a ragged shape too
              (L=333, Lk=77); AdamW on leaves of the canonical DiT with fp32
              and bf16 moments, timed over all 299, and on bf16 parameters
-             and moments over one XL block's 12 leaves;
+             and moments over one XL block's 12 leaves; the factored-ν
+             update on one XL block group's 8 factored weights (bf16), 3
+             steps against its twin, timed beside its bound and the twin;
 3. serve   — sample 2 requests (two seeds, 8 Euler steps, CFG 6.0) with the
              demo DiT (width 2048, depth 24, head 128) at 256×256×8 frames
              through `generate_latents`, the launch counters set to 0 just
@@ -164,11 +166,12 @@ Run from the root of a checkout. Phases, each of which raises on failure:
              CLI's `main` at batch 16 of [16, 8, 32, 32] latents (L =
              1040): 4 steps, counters set to 0 before `main` and read
              after (AdamW once per block group and once for the rest,
-             in its bf16 mode), ms per step, a profiled step's busy ms,
+             in its bf16 mode; the factored-ν kernel twice per block
+             group), ms per step, a profiled step's busy ms,
              peak memory; then the standard step at the XL width, batch
              8, fp32 parameters and bf16 moments, the same way; and one
-             block's update: the AdamW launch on its exact leaves against
-             its bound, the factored update (plain torch) of its weights;
+             block's update: the AdamW launch on its exact leaves and the
+             factored-ν kernel on its weights, each against its bound;
 25. inloop-parity — depth 2, L = 528: the in-backward step with the XL
              optimizer flags on the card against the CPU (fp32, twins),
              and with fp32 parameters against the standard step on the
@@ -561,6 +564,7 @@ def phase_kernels(dev):
     rows.update(adaln_bwd_row(dev))
     rows.update(adamw_row(dev))
     rows.update(adamw_bf16_row(dev))
+    rows.update(factored_adamw_row(dev))
     return rows
 
 
@@ -1681,6 +1685,7 @@ def counters():
            "short_attention_bwd<norope>": fa.cross_flash_backward,
            "adaln_rms_modulate_bwd": fad.adaln_rms_modulate_bwd,
            "adamw_multi_tensor": fw.MultiTensorAdamW,
+           "factored_adamw": fw.FactoredAdamW,
            "long_attention_fwd": fa.long_attention_forward,
            "long_attention_bwd": fa.long_attention_backward,
            "gated_residual_adaln_fwd": fad.gated_residual_adaln,
@@ -1845,6 +1850,7 @@ KERNEL_KINDS = (
     ("gated-residual AdaLN forward kernels (Triton)",
      ("gated_residual_adaln",)),
     ("AdamW kernel (csrc/adamw_multi_tensor.cu)", ("adamw_multi_tensor",)),
+    ("factored-ν AdamW kernel (csrc/factored_adamw.cu)", ("factored_adamw",)),
     ("convolutions (cuDNN)", ("fprop", "implicit_convolve", "conv3d",
                               "convolve_sgemm", "winograd")),
     ("GEMMs (cuBLAS)", ("nvjet", "gemm", "cutlass", "xmma")),
@@ -2020,11 +2026,13 @@ def grad_rel_l2(grads, ref):
 def train_step_launches(l: int, fused_residual: bool = False, ring=None,
                         depth: int = T_DEPTH, adamw: int = 1,
                         bf16_params: bool = False,
-                        kept_attention: bool = False):
+                        kept_attention: bool = False, factored: int = 0):
     """Kernel → launches of one train step of a DiT of `depth` blocks (the
     canonical one by default) at L. The AdamW kernel runs `adamw` times a
     step: once, or once per group of the optimizer-in-backward step
-    (depth + 1), whose forward without grad and recompute launch what the
+    (depth + 1), where the factored-ν kernel launches `factored` times (2
+    a block group with factored weights), and whose forward without grad
+    and recompute launch what the
     standard step's forward and remat recompute do. With `kept_attention`
     (the remat policies "attn" and "dots_attn") the recompute replays the
     attention forwards' outputs: they launch once a block, not twice."""
@@ -2062,7 +2070,8 @@ def train_step_launches(l: int, fused_residual: bool = False, ring=None,
         "gated_residual_adaln_bwd": joins * depth,
         "bias_gelu_bwd": depth,
         "adamw_multi_tensor": adamw,
-        "adamw_multi_tensor<bf16>": adamw if bf16_params else 0})
+        "adamw_multi_tensor<bf16>": adamw if bf16_params else 0,
+        "factored_adamw": factored})
     return per_step
 
 
@@ -2375,22 +2384,124 @@ def adamw_bf16_row(dev):
         library_ms=lib_ms)}
 
 
-def inloop_update_times(dev):
-    """What the optimizer-in-backward step's update of one XL block costs
-    on the card: the AdamW kernel on the block group's exact leaves (the
-    biases and λ; the weights keep factored ν) against its bound, and the
-    factored update (plain torch) of its weights; ms each, CUDA events."""
+def factored_bound(n: int):
+    """The factored-ν update's bound for n bf16 elements: g read for the
+    sums, then g, m and p read and m and p written (12 bytes an element;
+    the factors are a few kB), ~18 fp32 operations an element."""
+    return bound(12 * n, 0, 18 * n)
+
+
+def xl_factored_group(dev, gen):
+    """One XL block group's 8 factored weights on the card in the XL
+    configuration's dtypes (bf16 parameters, gradients and μ, fp32
+    factors), the muP-like lr and wd of each, bf16 gradients, and the
+    factored-ν kernel over them."""
+    from video_diffusion_speedrun_tpu_torch.ops import fused_adamw as fw
+    from video_diffusion_speedrun_tpu_torch.train.optim import FNu
+
+    bf = torch.bfloat16
+    shapes = [sh for sh in xl_block_leaves().values() if len(sh) == 2]
+    ps = [(torch.randn(sh, generator=gen, device=dev) * 0.02).to(bf)
+          for sh in shapes]
+    ms_ = [torch.zeros_like(p) for p in ps]
+    nus = [FNu(torch.zeros(sh[1], device=dev), torch.zeros(sh[0], device=dev))
+           for sh in shapes]
+    lrs = [T_LR * 32 / sh[-1] for sh in shapes]
+    wds = [0.1 * sh[-1] / 1024 for sh in shapes]
+    grads = [(torch.randn(sh, generator=gen, device=dev) * 1e-3).to(bf)
+             for sh in shapes]
+    kern = fw.FactoredAdamW(ps, ms_, [n.vr for n in nus], [n.vc for n in nus],
+                            shapes, lrs, wds, 0.95, 0.99, 1e-8)
+    return dict(shapes=shapes, ps=ps, ms=ms_, nus=nus, lrs=lrs, wds=wds,
+                grads=grads, kernel=kern, n=sum(p.numel() for p in ps))
+
+
+def factored_adamw_row(dev):
+    """The factored-ν kernel (`csrc/factored_adamw.cu`) against its twin
+    `factored_leaf_update` on one XL block group's 8 factored weights, 3
+    steps each from the kernel's state (m bit for bit; the factors within
+    rtol 1e-6, the sums of g² in another order; p within one bf16 ulp plus
+    one of the step), then the group's two launches timed beside their
+    bound and the twin. No library call computes this function."""
     from video_diffusion_speedrun_tpu_torch.ops import fused_adamw as fw
     from video_diffusion_speedrun_tpu_torch.train.optim import (
         FNu,
         factored_leaf_update,
     )
 
+    name = "factored_adamw"
+    gen = torch.Generator(device=dev).manual_seed(11)
+    b1, b2, eps = 0.95, 0.99, 1e-8
+    fac = xl_factored_group(dev, gen)
+    ps, ms_, nus, kern = fac["ps"], fac["ms"], fac["nus"], fac["kernel"]
+    shapes, lrs, wds, n = fac["shapes"], fac["lrs"], fac["wds"], fac["n"]
+    what = f"one XL block group's {len(shapes)} factored weights (bf16)"
+    err = 0.0
+    for step in range(3):
+        before = [p.clone() for p in ps]
+        twin, mt = [p.clone() for p in ps], [m.clone() for m in ms_]
+        nut = [FNu(nu.vr.clone(), nu.vc.clone()) for nu in nus]
+        grads = [(torch.randn(sh, generator=gen, device=dev) * 1e-3).to(
+            torch.bfloat16) for sh in shapes]
+        sc = fw.step_scalars(step, 1.0 - step / 8, b1, b2)
+        kern(grads, *sc)
+        for i, g in enumerate(grads):
+            factored_leaf_update(twin[i], mt[i], nut[i], g, lrs[i], wds[i],
+                                 *sc, b1, b2, eps, shapes[i])
+        torch.cuda.synchronize()
+        got, want = (torch.cat([p.flatten().float() for p in t])
+                     for t in (ps, twin))
+        step_atol = 2.0 ** -7 * (want - torch.cat(
+            [p.flatten().float() for p in before])).abs()
+        err = max(err, check_close(
+            name, f"{what}, step {step}, p", got, want, 2.0 ** -7, step_atol,
+            "one bf16 ulp, and one of the step: the twin divides by bc1 and "
+            "bc2 through a reciprocal"))
+        err = max(err, check_close(
+            name, f"{what}, step {step}, m",
+            torch.cat([m.flatten() for m in ms_]),
+            torch.cat([m.flatten() for m in mt]), 0.0, 0.0,
+            "no division: bit-equal"))
+        err = max(err, check_close(
+            name, f"{what}, step {step}, vr, vc",
+            torch.cat([t for nu in nus for t in nu]),
+            torch.cat([t for nu in nut for t in nu]), 1e-6, 0.0,
+            "the sums of g² in another order"))
+        del before, twin, mt, nut, grads
+    grads, sc = fac["grads"], fw.step_scalars(3, 1.0, b1, b2)
+    ms = cuda_ms(lambda: kern(grads, *sc), iters=20, warmup=2)
+
+    def twin_step():
+        for p, m, nu, g, sh, lr, wd in zip(ps, ms_, nus, grads, shapes, lrs,
+                                           wds):
+            factored_leaf_update(p, m, nu, g, lr, wd, *sc, b1, b2, eps, sh)
+
+    plain_ms = cuda_ms(twin_step, iters=3, warmup=1)
+    bms, by = factored_bound(n)
+    log(f"[kernels] {name}: {what}, {n / 1e6:.2f} M elements: kernel "
+        f"{ms:.4f} ms ({12 * n / ms / 1e6:.1f} GB/s of the 12 bytes an "
+        f"element), twin {plain_ms:.4f} ms, bound {bms:.4f} ms ({by}), "
+        f"kernel / bound {ms / bms:.2f}; no library call")
+    del fac, ps, ms_, nus, kern, grads
+    torch.cuda.empty_cache()
+    return {name: dict(
+        name=name, route="cuda",
+        source="video_diffusion_speedrun_tpu_torch/csrc/factored_adamw.cu",
+        replaces="video_diffusion_speedrun_tpu/train/inloop.py:88 (XLA work)",
+        max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
+        library_ms=None)}
+
+
+def inloop_update_times(dev):
+    """What the optimizer-in-backward step's update of one XL block costs
+    on the card: the AdamW kernel on the block group's exact leaves (the
+    biases and λ; the weights keep factored ν) and the factored-ν kernel on
+    its weights, each against its bound; ms each, CUDA events."""
+    from video_diffusion_speedrun_tpu_torch.ops import fused_adamw as fw
+
     gen = torch.Generator(device=dev).manual_seed(5)
     bf, b1, b2, eps = torch.bfloat16, 0.95, 0.99, 1e-8
-    leaves = xl_block_leaves()
-    exact = [sh for sh in leaves.values() if len(sh) < 2]
-    fac = [sh for sh in leaves.values() if len(sh) == 2]
+    exact = [sh for sh in xl_block_leaves().values() if len(sh) < 2]
 
     def make(sh):
         p = (torch.randn(sh, generator=gen, device=dev) * 0.02).to(bf)
@@ -2406,20 +2517,13 @@ def inloop_update_times(dev):
     kernel_ms = cuda_ms(lambda: kern(grads, *sc), iters=50, warmup=3)
     n_exact = sum(t[0].numel() for t in ex)
     kernel_bound, _ = bound(14 * n_exact, 0, 17 * n_exact)
-    fl = [make(sh) + (FNu(torch.zeros(sh[1], device=dev),
-                          torch.zeros(sh[0], device=dev)), sh)
-          for sh in fac]
-
-    def factored():
-        for p, m, g, nu, sh in fl:
-            factored_leaf_update(p, m, nu, g, 1e-3, 0.1, 1.0, *sc[1:], b1,
-                                 b2, eps, sh)
-
-    fac_ms = cuda_ms(factored, iters=5, warmup=1)
-    n_fac = sum(p.numel() for p, *_ in fl)
-    # p, m, g read and p, m written (bf16), the factors negligible
-    fac_bound, _ = bound(10 * n_fac, 0, 20 * n_fac)
-    del ex, fl, grads, kern
+    del ex, grads, kern
+    fac = xl_factored_group(dev, gen)
+    fac_ms = cuda_ms(lambda: fac["kernel"](fac["grads"], *sc), iters=20,
+                     warmup=2)
+    n_fac = fac["n"]
+    fac_bound, _ = factored_bound(n_fac)
+    del fac
     torch.cuda.empty_cache()
     return dict(kernel_ms=kernel_ms, kernel_bound=kernel_bound,
                 n_exact=n_exact, factored_ms=fac_ms, factored_bound=fac_bound,
@@ -2491,7 +2595,7 @@ def phase_train_inloop(dev):
         inloop = attr == "inloop_step"
         per_step = train_step_launches(
             XL_L, depth=DEPTH, adamw=DEPTH + 1 if inloop else 1,
-            bf16_params=inloop)
+            bf16_params=inloop, factored=2 * DEPTH if inloop else 0)
         want = {k: XL_STEPS * v for k, v in per_step.items()}
         steady = float(np.median(ms[1:XL_STEPS - 1]))
         busy = prof[0][1] if prof and prof[0] else None
@@ -2516,9 +2620,9 @@ def phase_train_inloop(dev):
     log(f"[train-inloop] one block group's AdamW launch over its "
         f"{upd['n_exact']} exact elements (biases, λ): "
         f"{upd['kernel_ms']:.4f} ms, bound {upd['kernel_bound']:.5f} ms "
-        f"(bytes); {DEPTH + 1} launches a step. The factored update of one "
-        f"block's {upd['n_factored'] / 1e6:.1f} M weight elements (plain "
-        f"torch): {upd['factored_ms']:.3f} ms (bound "
+        f"(bytes); {DEPTH + 1} launches a step. The factored-ν kernel on "
+        f"one block's {upd['n_factored'] / 1e6:.1f} M weight elements: "
+        f"{upd['factored_ms']:.3f} ms (bound "
         f"{upd['factored_bound']:.3f} ms), × {DEPTH} = {per_step_fac:.1f} "
         f"ms a step, {100 * per_step_fac / steady:.1f}% of the "
         f"{steady:.2f} ms step")
@@ -3273,7 +3377,7 @@ def phase_train_fsdp(dev):
     _, (ib_losses, ib_ms, ib_grads, ib_counts) = one_process(
         INLOOP_FLAGS, FSDP_INLOOP_STEPS)
     ib_want = {k: FSDP_INLOOP_STEPS * v for k, v in train_step_launches(
-        T_L, adamw=T_DEPTH + 1).items()}
+        T_L, adamw=T_DEPTH + 1, factored=2 * T_DEPTH).items()}
     if ib_counts != ib_want:
         raise AssertionError(f"one-process in-backward launch counts "
                              f"{ib_counts} != {ib_want}")

@@ -1027,3 +1027,227 @@ def test_forward_template_matches_twins(dev, kind, b, h, lq, lk, d, pad):
         assert (lse / plse - 1).abs().max().item() < 1e-6
     else:
         assert (lse - plse).abs().max().item() < 1e-3
+
+
+# the factored weights of an XL block, [out, in] (width 2048, MLP 8192,
+# context 4096): qkv; attn_proj, q_cross and cross_proj; adaLN_modulation.1;
+# context_kv; mlp.0; mlp.2 — and a ragged shape (rows not a multiple of 8)
+_XL_FACTORED = [(6144, 2048), (2048, 2048), (18432, 2048), (4096, 4096),
+                (8192, 2048), (2048, 8192)]
+_FACTORED_SHAPES = _XL_FACTORED + [(1000, 1030)]
+
+
+def _ulp(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """One ulp in `dtype` of each |x| (x as fp32)."""
+    bits = 7 if dtype == torch.bfloat16 else 23
+    _, e = torch.frexp(x.abs().clamp(min=2.0 ** -100))
+    return torch.exp2((e - 1 - bits).float())
+
+
+def _factored_state(dev, gen, shapes, pdt, mdt):
+    """Parameters, first moments and factors of `shapes`, the moments and
+    factors away from 0 so that their EMAs are checked too."""
+    from video_diffusion_speedrun_tpu_torch.train.optim import FNu
+
+    def randn(s, scale, dt):
+        return (torch.randn(s, generator=gen, device=dev) * scale).to(dt)
+
+    ps = [randn(s, 0.02, pdt) for s in shapes]
+    ms = [randn(s, 1e-3, mdt) for s in shapes]
+    nus = [FNu(torch.rand(s[1], generator=gen, device=dev) * 1e-6,
+               torch.rand(s[0], generator=gen, device=dev) * 1e-6)
+           for s in shapes]
+    return ps, ms, nus
+
+
+def _hold_factored(ps, ms, nus, tp, tm, tnu, before, pdt, what):
+    """The kernel's state against the twin's after one update from the same
+    state: m bit-equal (no division, the same roundings); vr and vc within
+    rtol 1e-6 (the sums of g² in another order); p within one ulp of p
+    plus the ulps of the step that the twin moves where it divides by
+    bc1 and bc2 through a reciprocal (one bf16 ulp of the delta, rounded to
+    bf16 before the add; 8 fp32 ulps)."""
+    for i in range(len(ps)):
+        assert torch.equal(ms[i], tm[i]), (what, i)
+        torch.testing.assert_close(nus[i].vr, tnu[i].vr, rtol=1e-6, atol=0)
+        torch.testing.assert_close(nus[i].vc, tnu[i].vc, rtol=1e-6, atol=0)
+        got, want = ps[i].float(), tp[i].float()
+        delta = (want - before[i].float()).abs()
+        tol = (_ulp(torch.maximum(got.abs(), want.abs()), pdt)
+               + (1 if pdt == torch.bfloat16 else 8) * _ulp(delta, pdt))
+        bad = (got - want).abs() > tol
+        assert not bad.any(), (what, i, int(bad.sum()))
+
+
+@pytest.mark.parametrize("pdt,mdt", [(torch.bfloat16, torch.bfloat16),
+                                     (torch.bfloat16, torch.float32),
+                                     (torch.float32, torch.float32),
+                                     (torch.float32, torch.bfloat16)])
+def test_factored_kernel_matches_twin(dev, pdt, mdt):
+    """One group of the XL block's factored shapes and a ragged one: the
+    kernel's two launches against `factored_leaf_update` leaf by leaf, 3
+    steps, each from the kernel's state (`_hold_factored`'s limits)."""
+    from video_diffusion_speedrun_tpu_torch.train.optim import (
+        FNu,
+        factored_leaf_update,
+    )
+
+    gen = torch.Generator(device=dev).manual_seed(41)
+    shapes = _FACTORED_SHAPES
+    b1, b2, eps = 0.95, 0.99, 1e-8
+    ps, ms, nus = _factored_state(dev, gen, shapes, pdt, mdt)
+    lrs = [2 ** -6 * 32 / s[1] for s in shapes]
+    wds = [0.1 * s[1] / 1024 for s in shapes]
+    kernel = tfw.FactoredAdamW(ps, ms, [n.vr for n in nus],
+                               [n.vc for n in nus], shapes, lrs, wds, b1, b2,
+                               eps)
+    for step in range(3):
+        before = [p.clone() for p in ps]
+        tp, tm = [p.clone() for p in ps], [m.clone() for m in ms]
+        tnu = [FNu(n.vr.clone(), n.vc.clone()) for n in nus]
+        grads = [(torch.randn(s, generator=gen, device=dev) * 1e-3).to(pdt)
+                 for s in shapes]
+        lr_t, bc1, bc2 = tfw.step_scalars(step, 0.5 + step / 8, b1, b2)
+        launches = tfw.FactoredAdamW.launches
+        kernel(grads, lr_t, bc1, bc2)
+        assert tfw.FactoredAdamW.launches == launches + 2
+        for i, g in enumerate(grads):
+            factored_leaf_update(tp[i], tm[i], tnu[i], g, lrs[i], wds[i],
+                                 lr_t, bc1, bc2, b1, b2, eps, shapes[i])
+        torch.cuda.synchronize()
+        _hold_factored(ps, ms, nus, tp, tm, tnu, before, pdt, f"step {step}")
+
+
+def test_factored_kernel_is_deterministic(dev):
+    """Two wrappers on two copies of one state, fed the same gradients for
+    2 steps, give the same bits in p, m and both factors: the sums finish
+    in a fixed order, with no float atomics."""
+    gen = torch.Generator(device=dev).manual_seed(42)
+    shapes = [(18432, 2048), (2048, 8192), (1000, 1030)]
+    bf = torch.bfloat16
+    states, kernels = [], []
+    ps, ms, nus = _factored_state(dev, gen, shapes, bf, bf)
+    for copy in range(2):
+        st = ([p.clone() for p in ps], [m.clone() for m in ms],
+              [n.vr.clone() for n in nus], [n.vc.clone() for n in nus])
+        states.append(st)
+        kernels.append(tfw.FactoredAdamW(*st, shapes, [1e-3] * 3, [0.1] * 3,
+                                         0.95, 0.99, 1e-8))
+    for step in range(2):
+        grads = [(torch.randn(s, generator=gen, device=dev) * 1e-3).to(bf)
+                 for s in shapes]
+        sc = tfw.step_scalars(step, 1.0, 0.95, 0.99)
+        for kernel in kernels:
+            kernel(grads, *sc)
+    torch.cuda.synchronize()
+    for a, b in zip(*states):
+        for x, y in zip(a, b):
+            assert torch.equal(x, y)
+
+
+def test_factored_kernel_refuses_what_it_does_not_take(dev):
+    """Non-contiguous parameters, mixed dtypes, moments or factors of the
+    wrong shape, fp16, a CPU leaf among CUDA ones, and gradients of another
+    dtype or shape raise before any launch."""
+    gen = torch.Generator(device=dev).manual_seed(43)
+    bf = torch.bfloat16
+    (p,), (m,), (nu,) = _factored_state(dev, gen, [(64, 128)], bf, bf)
+
+    def make(ps, ms, vrs, vcs):
+        return tfw.FactoredAdamW(ps, ms, vrs, vcs, [(64, 128)] * len(ps),
+                                 [1e-3] * len(ps), [0.0] * len(ps), 0.9, 0.99,
+                                 1e-8)
+
+    strided = torch.zeros(128, 64, dtype=bf, device=dev).t()
+    with pytest.raises(ValueError, match="contiguous"):
+        make([strided], [m], [nu.vr], [nu.vc])
+    with pytest.raises(TypeError, match="one dtype"):
+        make([p, p.float()], [m, m], [nu.vr] * 2, [nu.vc] * 2)
+    with pytest.raises(ValueError, match="moments"):
+        make([p], [m[:, :127].contiguous()], [nu.vr], [nu.vc])
+    with pytest.raises(ValueError, match="factors"):
+        make([p], [m], [nu.vc], [nu.vr])
+    with pytest.raises(TypeError, match="fp32 or bf16"):
+        make([p.half()], [m], [nu.vr], [nu.vc])
+    with pytest.raises(TypeError, match="one dtype"):
+        make([p, p.cpu()], [m, m], [nu.vr] * 2, [nu.vc] * 2)
+    kernel = make([p], [m], [nu.vr], [nu.vc])
+    launches = tfw.FactoredAdamW.launches
+    sc = tfw.step_scalars(0, 1.0, 0.9, 0.99)
+    for g in (torch.zeros_like(p, dtype=torch.float32),
+              torch.zeros(64, 64, dtype=bf, device=dev)):
+        with pytest.raises(ValueError, match="grads"):
+            kernel([g], *sc)
+    assert tfw.FactoredAdamW.launches == launches
+
+
+@pytest.mark.parametrize("shape", [(2048, 2048), (1000, 1030)])
+def test_factored_kernel_sums_over_row_shards(dev, shape):
+    """The route of a sharded weight on one card: two row shards, each its
+    own wrapper with a `sums` hook that adds the other shard's local sums
+    of g² (a 2-rank all-reduce: two threads, one stream), so that the
+    first launch stops at the local sums, the hooks add them,
+    `factor_moments` finishes them and the second launch applies them.
+    Against the whole weight's twin over 3 steps, each from the shards'
+    state: the shards hold the same vr, and the limits of
+    `_hold_factored` hold (factors within rtol 1e-6)."""
+    import threading
+
+    from video_diffusion_speedrun_tpu_torch.train.optim import (
+        FNu,
+        factored_leaf_update,
+    )
+
+    gen = torch.Generator(device=dev).manual_seed(44)
+    bf, (n_out, n_in) = torch.bfloat16, shape
+    b1, b2, eps, lr, wd = 0.95, 0.99, 1e-8, 1e-3, 0.1
+    (p,), (m,), (nu,) = _factored_state(dev, gen, [shape], bf, bf)
+    cut = [slice(0, n_out // 2), slice(n_out // 2, n_out)]
+    shards = [(p[c].clone(), m[c].clone(), nu.vr.clone(), nu.vc[c].clone())
+              for c in cut]
+    barrier = threading.Barrier(2, timeout=120)
+    box = [None, None]
+
+    def hook(rank):
+        def sums(t, dim):
+            if dim != 0:  # the columns are not split
+                return
+            box[rank] = t.clone()
+            barrier.wait()
+            t.add_(box[1 - rank])
+            barrier.wait()
+        return sums
+
+    kernels = [tfw.FactoredAdamW([s[0]], [s[1]], [s[2]], [s[3]], [shape],
+                                 [lr], [wd], b1, b2, eps, sums=[hook(r)])
+               for r, s in enumerate(shards)]
+    for step in range(3):
+        whole = [torch.cat([s[j] for s in shards]) for j in (0, 1, 3)]
+        tp, tm = whole[0].clone(), whole[1].clone()
+        tnu = FNu(shards[0][2].clone(), whole[2].clone())
+        g = (torch.randn(shape, generator=gen, device=dev) * 1e-3).to(bf)
+        sc = tfw.step_scalars(step, 1.0, b1, b2)
+        launches = tfw.FactoredAdamW.launches
+        errors = []
+
+        def run(r, _g=g, _sc=sc):
+            try:
+                kernels[r]([_g[cut[r]].contiguous()], *_sc)
+            except Exception as e:  # surfaced below
+                errors.append(e)
+                barrier.abort()
+
+        threads = [threading.Thread(target=run, args=(r,)) for r in (0, 1)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=300)
+        assert not any(t.is_alive() for t in threads) and not errors, errors
+        assert tfw.FactoredAdamW.launches == launches + 4
+        factored_leaf_update(tp, tm, tnu, g, lr, wd, *sc, b1, b2, eps, shape)
+        torch.cuda.synchronize()
+        assert torch.equal(shards[0][2], shards[1][2])
+        got = FNu(shards[0][2], torch.cat([s[3] for s in shards]))
+        _hold_factored([torch.cat([s[0] for s in shards])],
+                       [torch.cat([s[1] for s in shards])], [got], [tp],
+                       [tm], [tnu], [whole[0]], bf, f"step {step}")

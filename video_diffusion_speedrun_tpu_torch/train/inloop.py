@@ -15,7 +15,8 @@ stack of block inputs. The step, as JAX's (`inloop.py:114-496`):
    dv0]) for its leaves and inputs; d(t_emb) and (for i > 0) d(v0) added
    into fp32 accumulators; its gradients reduced over the ranks and its
    leaves updated at once (`MupAdamW.update_group`: one launch of the
-   AdamW kernel, the factored ν in plain torch);
+   AdamW kernel for its exact leaves, two of the factored-ν kernel for
+   its factored weights);
 4. the prefix's gradients from (dx₀, d(t_emb)), and the update of the
    prefix's and suffix's leaves. The count advances once.
 

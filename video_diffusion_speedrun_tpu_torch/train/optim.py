@@ -13,20 +13,26 @@ The optimizer-in-backward step (`train/inloop.py`) updates one group of
 leaves at a time — a block (`blocks.<i>`), or the layers before and
 after the blocks (`rest`) — with `update_group`, and advances the count
 once per step (`advance`); each group's update is one launch of the
-kernel over its leaves, its table built once. Parameters may then be
-bf16 (the kernel's bf16 mode), and with `nu_factored` the block weights
-of at least `nu_factored_min_size` elements over all blocks (JAX's
-stacked leaf, `inloop.py:159-168`) keep Adafactor's rank-1 ν (`FNu`,
-fp32 factors) instead of v: the update of those leaves is plain torch
-(`factored_leaf_update`; XLA work in JAX, not a Pallas kernel).
+kernel over its exact leaves, its table built once. Parameters may then
+be bf16 (the kernel's bf16 mode), and with `nu_factored` the block
+weights of at least `nu_factored_min_size` elements over all blocks
+(JAX's stacked leaf, `inloop.py:159-168`) keep Adafactor's rank-1 ν
+(`FNu`, fp32 factors) instead of v. A group's factored leaves take their
+own kernel on CUDA (`FactoredAdamW`: two launches, the sums of g² and then
+the update; XLA work in JAX, not a Pallas kernel), the plain twin
+`factored_leaf_update` on the CPU. Which leaves are factored is decided
+from their shapes and the configuration (`factored`); each group's split
+into exact and factored leaves, and its kernels, are kept (`parts`).
 
 Sharded parameters (DTensors of FSDP2 or the tensor axis,
 `parallel/fsdp.py`) keep their moments as DTensors of the same placement;
 the update runs on each rank's local shards, the muP table reads the
-global shapes. The kernel's table of leaf pointers is built at the first
-step (after FSDP2 has settled its sharded storage) and again after
-`refresh()`, which a checkpoint load calls. Under a profiler each `step`
-and `update_group` is a `vds/optim/update` span (`utils/profiling.py`).
+global shapes, and a factored leaf's sums of g² are summed over the ranks
+that split it before its factors update. The kernels' tables of leaf
+pointers are built at the first step (after FSDP2 has settled its sharded
+storage) and again after `refresh()`, which a checkpoint load calls.
+Under a profiler each `step` and `update_group` is a `vds/optim/update`
+span (`utils/profiling.py`).
 """
 
 from __future__ import annotations
@@ -38,9 +44,11 @@ from torch.distributed.tensor import DTensor
 
 from video_diffusion_speedrun_tpu_torch.core.config import OptimizerConfig
 from video_diffusion_speedrun_tpu_torch.ops.fused_adamw import (
+    FactoredAdamW,
     MultiTensorAdamW,
     adamw_leaf_update_plain,
     apply_direction,
+    factor_moments,
     step_scalars,
 )
 from video_diffusion_speedrun_tpu_torch.parallel.collectives import (
@@ -87,20 +95,12 @@ def factored_leaf_update(p: torch.Tensor, m: torch.Tensor, nu: FNu,
     rank's shard of a torch [out, in] weight of whole `shape`, in place.
     `sums(t, dim)` sums in place a partial sum over the ranks that split
     weight dim `dim` (None: no rank does)."""
-    n_out, n_in = shape
     gf = g.float()
     m2 = b1 * m.float() + (1.0 - b1) * gf
     g2 = gf.square()
-    row, col = g2.sum(0), g2.sum(1)  # over out → [in], over in → [out]
-    if sums is not None:
-        sums(row, 0)
-        sums(col, 1)
-    vr2 = b2 * nu.vr + (1.0 - b2) * (row / n_out)
-    vc2 = b2 * nu.vc + (1.0 - b2) * (col / n_in)
-    total = vr2.sum().reshape(1)
-    if sums is not None:
-        sums(total, 1)
-    denom = (total / n_in).clamp(min=1e-30)
+    # over out → [in], over in → [out]
+    vr2, vc2, denom = factor_moments(nu.vr, nu.vc, g2.sum(0), g2.sum(1), b2,
+                                     shape, sums)
     v2 = vc2[:, None] * vr2[None, :] / denom
     direction = (m2 / bc1) / ((v2 / bc2).sqrt() + eps)
     apply_direction(p, direction, lr, wd, lr_t)
@@ -129,10 +129,15 @@ class MupAdamW:
             cfg.in_backward and cfg.nu_factored and group_of(n) != "rest"
             and p.ndim == 2 and depth * p.numel() >= cfg.nu_factored_min_size
             for n, p in named]
-        # the update groups of the in-backward step: name → leaf indices
+        # the update groups of the in-backward step: name → leaf indices,
+        # and the positions in each group of its exact and factored leaves
         self.groups: Dict[str, List[int]] = {}
         for i, n in enumerate(self.names):
             self.groups.setdefault(group_of(n), []).append(i)
+        self.parts: Dict[str, Tuple[List[int], List[int]]] = {
+            g: tuple([k for k, i in enumerate(idx) if self.factored[i] == f]
+                     for f in (False, True))
+            for g, idx in self.groups.items()}
         with torch.no_grad():
             self.m = [_zeros_like(p, cfg.moments_dtype or p.dtype)
                       for p in self.params]
@@ -144,7 +149,10 @@ class MupAdamW:
         self.count = 0
         self._zero_grads = {}  # leaf index → zeros, for leaves with no grad
         self._kernel = None  # built at the next step on CUDA leaves
-        self._group_kernels = {}  # group → its kernel, built at first use
+        # group → the kernel of its exact / factored leaves, built at first
+        # use on CUDA leaves
+        self._group_kernels = {}
+        self._factored_kernels = {}
 
     def leaves(self):
         """The local shards (p, m, v) of every leaf, in order."""
@@ -163,6 +171,7 @@ class MupAdamW:
         (a checkpoint load)."""
         self._kernel = None
         self._group_kernels = {}
+        self._factored_kernels = {}
 
     def lr_scale(self) -> float:
         """λ at the current count: the multiplier of the next update."""
@@ -208,9 +217,9 @@ class MupAdamW:
     def update_group(self, group: str,
                      grads: Sequence[Optional[torch.Tensor]]) -> None:
         """Update the leaves of `group` (`self.groups[group]`, in order)
-        from their local `grads` (None: zero) at the current count; the
-        exact leaves in one launch, the factored ones in plain torch. The
-        count stays: `advance` after the step's last group."""
+        from their local `grads` (None: zero) at the current count; on CUDA
+        the exact leaves in one launch, the factored ones in two. The count
+        stays: `advance` after the step's last group."""
         cfg = self.cfg
         idx = self.groups[group]
         if len(grads) != len(idx):
@@ -220,30 +229,58 @@ class MupAdamW:
             grads = [self._grad(i, g) for i, g in zip(idx, grads)]
             lr_t, bc1, bc2 = step_scalars(self.count, self.lr_scale(),
                                           cfg.beta1, cfg.beta2)
-            params, ms, vs = self.leaves()
-            exact = [k for k, i in enumerate(idx) if not self.factored[i]]
-            kernel = self._group_kernels.get(group)
-            if kernel is None and exact:
-                make = self.kernel_for([params[idx[k]] for k in exact])
-                if make is not None:
-                    kernel = self._group_kernels[group] = make(
-                        *([t[idx[k]] for k in exact]
-                          for t in (params, ms, vs)),
-                        [self.lrs[idx[k]] for k in exact],
-                        [self.wds[idx[k]] for k in exact],
-                        cfg.beta1, cfg.beta2, cfg.eps)
+            exact, factored = self.parts[group]
+            kernel, fkernel = self._kernels_of(group)
             if kernel is not None:
                 kernel([grads[k] for k in exact], lr_t, bc1, bc2)
-            for k, i in enumerate(idx):
-                args = (self.lrs[i], self.wds[i], lr_t, bc1, bc2, cfg.beta1,
-                        cfg.beta2, cfg.eps)
+            if fkernel is not None:
+                fkernel([grads[k] for k in factored], lr_t, bc1, bc2)
+            plain = ((exact if kernel is None else [])
+                     + (factored if fkernel is None else []))
+            for k in plain:  # CPU leaves: the twins
+                i = idx[k]
+                args = (local(self.params[i]).detach(), local(self.m[i]),
+                        self.v[i] if self.factored[i] else local(self.v[i]),
+                        grads[k], self.lrs[i], self.wds[i], lr_t, bc1, bc2,
+                        cfg.beta1, cfg.beta2, cfg.eps)
                 if self.factored[i]:
-                    factored_leaf_update(params[i], ms[i], vs[i], grads[k],
-                                         *args, tuple(self.params[i].shape),
+                    factored_leaf_update(*args, tuple(self.params[i].shape),
                                          self._factor_sums(self.names[i]))
-                elif kernel is None:
-                    adamw_leaf_update_plain(params[i], ms[i], vs[i], grads[k],
-                                            *args)
+                else:
+                    adamw_leaf_update_plain(*args)
+
+    def _kernels_of(self, group: str):
+        """The kernels of `group`'s exact and factored leaves over their
+        local shards (None: none of that kind, or CPU leaves), each built at
+        its first use."""
+        cfg = self.cfg
+        idx = self.groups[group]
+        exact, factored = ([idx[k] for k in ks] for ks in self.parts[group])
+        kernel = self._group_kernels.get(group)
+        if kernel is None and exact:
+            params = [local(self.params[i]).detach() for i in exact]
+            make = self.kernel_for(params)
+            if make is not None:
+                kernel = self._group_kernels[group] = make(
+                    params, [local(self.m[i]) for i in exact],
+                    [local(self.v[i]) for i in exact],
+                    [self.lrs[i] for i in exact],
+                    [self.wds[i] for i in exact], cfg.beta1, cfg.beta2,
+                    cfg.eps)
+        fkernel = self._factored_kernels.get(group)
+        if fkernel is None and factored:
+            params = [local(self.params[i]).detach() for i in factored]
+            if params[0].is_cuda:  # CPU leaves: `factored_leaf_update`
+                fkernel = self._factored_kernels[group] = FactoredAdamW(
+                    params, [local(self.m[i]) for i in factored],
+                    [self.v[i].vr for i in factored],
+                    [self.v[i].vc for i in factored],
+                    [tuple(self.params[i].shape) for i in factored],
+                    [self.lrs[i] for i in factored],
+                    [self.wds[i] for i in factored], cfg.beta1, cfg.beta2,
+                    cfg.eps,
+                    [self._factor_sums(self.names[i]) for i in factored])
+        return kernel, fkernel
 
     def advance(self) -> None:
         """End the step of `update_group` calls: the count moves on."""
