@@ -4,6 +4,7 @@
     python3 chip_smoke.py
     python3 chip_smoke.py --ab TREE_A TREE_B [PAIRS [TRAIN [SERVE]]]
     python3 chip_smoke.py --adaln-configs
+    python3 chip_smoke.py --hyvideo
     torchrun --nproc_per_node N chip_smoke.py --train-mesh STEPS FLAGS...
 
 The second form times the attention backward and forward rows, the AdaLN
@@ -14,7 +15,10 @@ AdaLN backward under configurations other than its default
 (`adaln_configs`). The fourth times the train CLI's configuration of
 FLAGS on the mesh of its `--mesh_*` flags over the processes torchrun
 starts (`main_train_mesh`): ms per step, a profiled step's device busy ms,
-every card's peak memory.
+every card's peak memory. The fifth holds HunyuanVideo's kernels against
+their twins at its benchmark cell's shapes, times them, and counts their
+launches in one run of the sampling CLI at that size (`main_hyvideo`):
+the kernels line of those rows, as the first form prints it with the rest.
 Run from the root of a checkout. Phases, each of which raises on failure:
 
 1. build   — compile the CUDA kernels from `video_diffusion_speedrun_tpu_torch/
@@ -346,6 +350,15 @@ T5_TRAIN_STEPS = 3
 REAL_ROWS, REAL_STEPS, REAL_TAIL = 256, 16, 8
 # batches timed through the loader alone (read, join, collate, pin, copy)
 REAL_LOADER_BATCHES = 8
+# HunyuanVideo (`models/hunyuan_video.py`) at the benchmark cell's shape:
+# 544×960 at 33 frames → latents [16, 9, 68, 120] → a 9 × 34 × 60 token
+# grid (18,360 video rows), width 3072 in 24 heads of 128, MLP 12288, and
+# a text length of HYV_TXT valid rows of the cell's 64–256 (L = 18,520)
+HYV_GRID, HYV_TXT = (9, 34, 60), 160
+HYV_IMG = HYV_GRID[0] * HYV_GRID[1] * HYV_GRID[2]
+HYV_D, HYV_H, HYV_F = 3072, 24, 12288
+# its main-path run: the sampling CLI at that size, HYV_STEPS Euler steps
+HYV_STEPS = 2
 
 
 def log(msg: str) -> None:
@@ -1677,6 +1690,7 @@ def counters():
     from video_diffusion_speedrun_tpu_torch.ops import fused_adaln as fad
     from video_diffusion_speedrun_tpu_torch.ops import fused_attention as fa
     from video_diffusion_speedrun_tpu_torch.ops import fused_gelu as fg
+    from video_diffusion_speedrun_tpu_torch.ops import fused_mmdit as fm
 
     fns = {"short_attention_fwd<rope>": fa.qkv_rope_flash_forward,
            "short_attention_fwd<norope>": fa.cross_flash_forward,
@@ -1693,7 +1707,10 @@ def counters():
            "bias_gelu_fwd": fg.bias_gelu_forward,
            "bias_gelu_bwd": fg.bias_gelu_backward,
            "ring_attention_fwd": fa.ring_chunk_forward,
-           "ring_attention_bwd": fa.ring_chunk_backward}
+           "ring_attention_bwd": fa.ring_chunk_backward,
+           "qk_norm_rope": fm.qk_norm_rope,
+           "ln_modulate": fm.ln_modulate,
+           "gelu_tanh": fm.gelu_tanh}
     out = {name: (fn, "launches") for name, fn in fns.items()}
     out["long_attention_fwd<bias>"] = (fa.long_attention_forward,
                                        "bias_launches")
@@ -2490,6 +2507,196 @@ def factored_adamw_row(dev):
         replaces="video_diffusion_speedrun_tpu/train/inloop.py:88 (XLA work)",
         max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
         library_ms=None)}
+
+
+def hyvideo_rows(dev):
+    """HunyuanVideo's three kernels (`ops/fused_mmdit.py`) against their
+    twins at the benchmark cell's shapes, each within one bf16 ulp, then
+    timed beside its bound, its twin and the nearest library calls: the
+    q/k RMSNorm + RoPE in the double block's joint qkv (ld 3·D) and in the
+    single block's `linear1` output (ld 3·D + F), in place over L rows of
+    which the first HYV_IMG are rotated; the LayerNorm modulation over the
+    single block's L rows and the double block's video rows; GELU-tanh
+    over the double block's fc1 output (with its bias, in place) and from
+    `linear1`'s MLP columns into the concatenation `linear2` reads (strided
+    views). No library call computes the first; the yardsticks of the
+    other two are `F.layer_norm` + the modulation, and `F.gelu` (tanh)."""
+    import torch.nn.functional as F
+
+    from video_diffusion_speedrun_tpu_torch.models.rope import (
+        nd_rope_cos_sin,
+    )
+    from video_diffusion_speedrun_tpu_torch.ops import fused_mmdit as fm
+
+    gen = torch.Generator(device=dev).manual_seed(31)
+    d, h, f, n_img = HYV_D, HYV_H, HYV_F, HYV_IMG
+    l = n_img + HYV_TXT
+    source = "video_diffusion_speedrun_tpu_torch/ops/fused_mmdit.py"
+    rows = {}
+    ulp = "one bf16 ulp: the same fp32 math, rounded once"
+
+    name = "qk_norm_rope"
+    cos, sin = nd_rope_cos_sin(HYV_GRID, (16, 56, 56), 256.0, dev)
+    w = [(1 + 0.1 * torch.randn(d // h, generator=gen, device=dev)
+          ).bfloat16() for _ in range(4)]
+    nbytes = 2 * l * 2 * d * 2 + 2 * n_img * (d // h // 2) * 4 + 4 * d // h * 2
+    bms, by = bound(nbytes, 0, 8 * l * 2 * d)
+    err, times = 0.0, []
+    for ld, what in ((3 * d, "the double block's joint qkv"),
+                     (3 * d + f, "the single block's linear1 output")):
+        buf = (torch.randn(l, ld, generator=gen, device=dev) * 2).bfloat16()
+        want = fm.qk_norm_rope_plain(buf.clone(), n_img, h, *w, cos, sin)
+        got = fm.qk_norm_rope_cuda(buf.clone(), n_img, h, *w, cos, sin)
+        err = max(err, check_close(name, f"[{l}, ld {ld}] ({what})", got,
+                                   want, 2.0 ** -7, 1e-6, ulp))
+        if not torch.equal(got[:, 2 * d:], buf[:, 2 * d:]):
+            raise AssertionError(f"{name} wrote outside q and k ({what})")
+        del want, got
+        ms = cuda_ms(lambda: fm.qk_norm_rope_cuda(buf, n_img, h, *w, cos,
+                                                  sin))
+        plain_ms = cuda_ms(lambda: fm.qk_norm_rope_plain(
+            buf, n_img, h, *w, cos, sin), iters=5, warmup=1)
+        log(f"[kernels] {name} [{l}, ld {ld}] ({what}): kernel {ms:.4f} ms "
+            f"({nbytes / ms / 1e6:.1f} GB/s), twin {plain_ms:.4f} ms, bound "
+            f"{bms:.4f} ms ({by}), bound / kernel {100 * bms / ms:.1f}%; no "
+            f"library call")
+        times.append((ms, plain_ms))
+        del buf
+    rows[name] = dict(
+        name=name, route="cuda",
+        source="video_diffusion_speedrun_tpu_torch/csrc/qk_norm_rope.cu",
+        replaces=None, max_abs_err=err, ms=times[0][0],
+        plain_ms=times[0][1], bound_ms=bms, bound_by=by, library_ms=None)
+
+    name = "ln_modulate"
+    mod = torch.randn(1, 6 * d, generator=gen, device=dev).bfloat16()
+    shift, scale = mod[:, :d], mod[:, d:2 * d]
+    err, times = 0.0, []
+    for rows_n, what in ((l, "a single block's L rows"),
+                         (n_img, "a double block's video rows")):
+        x = (torch.randn(1, rows_n, d, generator=gen, device=dev) * 3 + 1
+             ).bfloat16()
+        err = max(err, check_close(
+            name, f"[1, {rows_n}, {d}] ({what})", fm.ln_modulate(x, shift,
+                                                                 scale),
+            fm.ln_modulate_plain(x, shift, scale), 2.0 ** -7, 1e-3, ulp))
+        ms = cuda_ms(lambda: fm.ln_modulate(x, shift, scale))
+        plain_ms = cuda_ms(lambda: fm.ln_modulate_plain(x, shift, scale),
+                           iters=5, warmup=1)
+        lib_ms = cuda_ms(lambda: F.layer_norm(x, (d,), eps=1e-6)
+                         * (1 + scale[:, None]) + shift[:, None])
+        n = rows_n * d
+        bms, by = bound(2 * n * 2 + 2 * d * 2, 0, 5 * n)
+        log(f"[kernels] {name} [1, {rows_n}, {d}] ({what}): kernel "
+            f"{ms:.4f} ms ({2 * n * 2 / ms / 1e6:.1f} GB/s), twin "
+            f"{plain_ms:.4f} ms, F.layer_norm + modulate {lib_ms:.4f} ms, "
+            f"bound {bms:.4f} ms ({by}), bound / kernel "
+            f"{100 * bms / ms:.1f}%")
+        times.append((ms, plain_ms, lib_ms, bms, by))
+        del x
+    ms, plain_ms, lib_ms, bms, by = times[0]
+    rows[name] = dict(name=name, route="triton", source=source,
+                      replaces=None, max_abs_err=err, ms=ms,
+                      plain_ms=plain_ms, bound_ms=bms, bound_by=by,
+                      library_ms=lib_ms)
+
+    name = "gelu_tanh"
+    err, times = 0.0, []
+    bias = (torch.randn(f, generator=gen, device=dev) * 0.5).bfloat16()
+    for rows_n, strided in ((n_img, False), (l, True)):
+        if strided:
+            what = "from linear1's MLP columns into the concatenation"
+            y1 = (torch.randn(rows_n, 3 * d + f, generator=gen, device=dev)
+                  * 3).bfloat16()
+            cat = torch.zeros(rows_n, d + f, device=dev, dtype=torch.bfloat16)
+            x, b, out = y1[:, 3 * d:], None, cat[:, d:]
+        else:
+            what = "a double block's fc1 output with its bias, in place"
+            x = (torch.randn(rows_n, f, generator=gen, device=dev) * 3
+                 ).bfloat16()
+            b, out = bias, x
+        want = fm.gelu_tanh_plain(x, b)
+        got = fm.gelu_tanh(x.clone(), b, out=None if not strided else out)
+        err = max(err, check_close(name, f"[{rows_n}, {f}] ({what})", got,
+                                   want, 2.0 ** -7, 1e-5, ulp))
+        if strided and not torch.equal(cat[:, :d], torch.zeros_like(
+                cat[:, :d])):
+            raise AssertionError(f"{name} wrote outside its view ({what})")
+        del want, got
+        ms = cuda_ms(lambda: fm.gelu_tanh(x, b, out=out))
+        plain_ms = cuda_ms(lambda: fm.gelu_tanh_plain(x, b, out=out),
+                           iters=5, warmup=1)
+        lib_ms = cuda_ms(lambda: F.gelu(x if b is None else x + b,
+                                        approximate="tanh"))
+        n = rows_n * f
+        bms, by = bound(2 * n * 2 + (0 if b is None else f * 2), 0, 20 * n)
+        log(f"[kernels] {name} [{rows_n}, {f}] ({what}): kernel {ms:.4f} ms "
+            f"({2 * n * 2 / ms / 1e6:.1f} GB/s), twin {plain_ms:.4f} ms, "
+            f"F.gelu (tanh) {lib_ms:.4f} ms, bound {bms:.4f} ms ({by}), "
+            f"bound / kernel {100 * bms / ms:.1f}%")
+        times.append((ms, plain_ms, lib_ms, bms, by))
+        del x, out
+        if strided:
+            del y1, cat
+    ms, plain_ms, lib_ms, bms, by = times[0]
+    rows[name] = dict(name=name, route="triton", source=source,
+                      replaces=None, max_abs_err=err, ms=ms,
+                      plain_ms=plain_ms, bound_ms=bms, bound_by=by,
+                      library_ms=lib_ms)
+    torch.cuda.empty_cache()
+    return rows
+
+
+def phase_hyvideo(dev):
+    """HunyuanVideo at its published widths and depth (20 + 40 blocks, bf16
+    weights, random) through the sampling CLI's `main` at the cell's size,
+    HYV_STEPS Euler steps, the launch counters set to 0 just before it:
+    returns the counts of this one run."""
+    import tempfile
+
+    from video_diffusion_speedrun_tpu_torch import sample
+
+    reset_counters()
+    report = {}
+    with tempfile.TemporaryDirectory() as out:
+        sample.main(["--model", "hunyuanvideo", "--random_weights",
+                     "--height", str(8 * 2 * HYV_GRID[1]),
+                     "--width", str(8 * 2 * HYV_GRID[2]),
+                     "--num_latent_frames", str(HYV_GRID[0]),
+                     "--inference_steps", str(HYV_STEPS), "--output", out],
+                    report=report)
+    latents = report.pop("latents")
+    if not bool(torch.isfinite(latents).all()):
+        raise AssertionError("hyvideo: the latents are not finite")
+    counts = read_counters()
+    log(f"[hyvideo] latents {tuple(latents.shape)}, {HYV_STEPS} steps in "
+        f"{report['sample_s']:.2f} s; launches: "
+        + ", ".join(f"{k} {counts[k]}" for k in
+                    ("qk_norm_rope", "ln_modulate", "gelu_tanh",
+                     "long_attention_fwd")))
+    del latents, report
+    torch.cuda.empty_cache()
+    return counts
+
+
+def main_hyvideo() -> int:
+    """HunyuanVideo's kernel rows and its main-path launches alone: the
+    `kernels` line of those three rows."""
+    dev = torch.device("cuda")
+    phase_build()
+    rows = hyvideo_rows(dev)
+    counts = phase_hyvideo(dev)
+    kernels = [dict(row, launches=counts[name]) for name, row in rows.items()]
+    unlaunched = [k["name"] for k in kernels if not k["launches"]]
+    if unlaunched:
+        raise AssertionError(f"kernels the main path never launched: "
+                             f"{unlaunched}")
+    print(json.dumps({"kernels": kernels}))
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True, check=True)
+    print(smi.stdout.strip().splitlines()[0])
+    return 0
 
 
 def inloop_update_times(dev):
@@ -4754,6 +4961,7 @@ def main() -> int:
     rows.update(timed("long kernels", long_attention_rows, dev))
     rows.update(timed("epilogue kernels", epilogue_rows, dev))
     rows.update(timed("ring kernels", ring_attention_rows, dev))
+    rows.update(timed("hyvideo kernels", hyvideo_rows, dev))
     runs = []  # the counts of each main-path run
     model, context = build_demo(dev)
     runs.append(timed("serve", phase_serve, dev, model, context, HEIGHT,
@@ -4770,6 +4978,7 @@ def main() -> int:
                       FRAMES, STEPS, SEEDS, "serve-fr")[0])
     del model
     torch.cuda.empty_cache()
+    runs.append(timed("hyvideo", phase_hyvideo, dev))
     runs.append(timed("t2v", phase_t2v, dev, serve_long))
     timed("t2v-parity", phase_t2v_parity, dev)
     timed("parity", phase_parity, dev, FRAMES, "parity")
@@ -4836,6 +5045,12 @@ if __name__ == "__main__":
         sys.path.insert(0, str(ROOT))
         phase_build()
         sys.exit(adaln_configs(torch.device("cuda")))
+    if sys.argv[1:2] == ["--hyvideo"]:
+        if not torch.cuda.is_available():
+            print("chip_smoke: no CUDA device is available", file=sys.stderr)
+            sys.exit(1)
+        sys.path.insert(0, str(ROOT))
+        sys.exit(main_hyvideo())
     if sys.argv[1:2] == ["--ab"]:
         sys.exit(main_ab(sys.argv[2:]))
     if sys.argv[1:2] == ["--train-mesh"]:

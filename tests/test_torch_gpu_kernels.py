@@ -15,7 +15,9 @@ import torch
 from video_diffusion_speedrun_tpu_torch.ops import fused_adamw as tfw
 from video_diffusion_speedrun_tpu_torch.ops import fused_adaln as tad
 from video_diffusion_speedrun_tpu_torch.ops import fused_attention as tfa
+from video_diffusion_speedrun_tpu_torch.models.rope import nd_rope_cos_sin
 from video_diffusion_speedrun_tpu_torch.ops import fused_gelu as tfg
+from video_diffusion_speedrun_tpu_torch.ops import fused_mmdit as fm
 
 pytestmark = pytest.mark.gpu
 
@@ -1251,3 +1253,111 @@ def test_factored_kernel_sums_over_row_shards(dev, shape):
         _hold_factored([torch.cat([s[0] for s in shards])],
                        [torch.cat([s[1] for s in shards])], [got], [tp],
                        [tm], [tnu], [whole[0]], bf, f"step {step}")
+
+
+# HunyuanVideo's MM-DiT kernels (`ops/fused_mmdit.py`)
+
+@pytest.mark.parametrize("rows,n_img,ld", [(300, 250, 3 * 3072),
+                                           (333, 333, 3 * 3072 + 12288),
+                                           (77, 0, 3 * 3072)])
+def test_qk_norm_rope_kernel_matches_twin(dev, rows, n_img, ld):
+    """In place over the q/k columns of a [rows, ld] buffer (the double
+    block's joint qkv, the single block's `linear1` output, text alone):
+    within one bf16 ulp of the twin's values; v and the MLP columns
+    untouched."""
+    gen = torch.Generator(device=dev).manual_seed(21)
+    buf = (torch.randn(rows, ld, generator=gen, device=dev) * 2).bfloat16()
+    w = [(1 + 0.1 * torch.randn(128, generator=gen, device=dev)).bfloat16()
+         for _ in range(4)]
+    cos, sin = nd_rope_cos_sin((1, 10, 40), (16, 56, 56), 256.0, dev)
+    want = fm.qk_norm_rope_plain(buf.clone(), n_img, 24, *w, cos, sin)
+    before = fm.qk_norm_rope.launches
+    got = fm.qk_norm_rope(buf.clone(), n_img, 24, *w, cos, sin)
+    torch.cuda.synchronize()
+    assert fm.qk_norm_rope.launches == before + 1
+    err = (got.float() - want.float()).abs()
+    assert torch.all(err <= 2.0 ** -7 * want.float().abs() + 1e-6)
+    assert torch.equal(got[:, 2 * 3072:], buf[:, 2 * 3072:])
+
+
+@pytest.mark.parametrize("l,strided", [(1000, False), (333, True)])
+def test_ln_modulate_kernel_matches_twin(dev, l, strided):
+    gen = torch.Generator(device=dev).manual_seed(22)
+    big = (torch.randn(1, l, 2 * 3072, generator=gen, device=dev) * 3 + 1
+           ).bfloat16()
+    x = big[..., :3072] if strided else big[..., :3072].contiguous()
+    mod = torch.randn(1, 6 * 3072, generator=gen, device=dev).bfloat16()
+    shift, scale = mod[:, :3072], mod[:, 3072:6144]
+    before = fm.ln_modulate.launches
+    got = fm.ln_modulate(x, shift, scale)
+    want = fm.ln_modulate_plain(x, shift, scale)
+    torch.cuda.synchronize()
+    assert fm.ln_modulate.launches == before + 1
+    err = (got.float() - want.float()).abs()
+    assert torch.all(err <= 2.0 ** -7 * want.float().abs() + 1e-3)
+
+
+@pytest.mark.parametrize("n,f,with_bias,strided", [
+    (1000, 12288, True, False), (333, 12288, False, True), (77, 100, True,
+                                                             False)])
+def test_gelu_tanh_kernel_matches_twin(dev, n, f, with_bias, strided):
+    """Out of place, in place, and between strided views (the single
+    block's MLP half of `linear1`'s output into the concatenation)."""
+    gen = torch.Generator(device=dev).manual_seed(23)
+    src = (torch.randn(n, f + 64, generator=gen, device=dev) * 3).bfloat16()
+    x = src[:, 64:] if strided else src[:, 64:].contiguous()
+    bias = ((torch.randn(f, generator=gen, device=dev) * 0.5).bfloat16()
+            if with_bias else None)
+    want = fm.gelu_tanh_plain(x, bias)
+    out = torch.zeros(n, f + 32, device=dev, dtype=torch.bfloat16)
+    before = fm.gelu_tanh.launches
+    got = fm.gelu_tanh(x, bias, out=out[:, 32:] if strided else None)
+    torch.cuda.synchronize()
+    assert fm.gelu_tanh.launches == before + 1
+    err = (got.float() - want.float()).abs()
+    assert torch.all(err <= 2.0 ** -7 * want.float().abs() + 1e-5)
+    if strided:
+        assert torch.equal(out[:, :32], torch.zeros_like(out[:, :32]))
+
+
+def test_hunyuan_video_on_the_card_meets_the_reference(dev):
+    """A tiny MM-DiT (2 heads of 128, 2 + 2 blocks) in bf16 through its
+    kernels against the float32 reference on the card: within bf16
+    rounding (2% relative L2) at 11 of 16 valid text slots."""
+    import os
+    import sys
+
+    from video_diffusion_speedrun_tpu_torch.core.config import (
+        HunyuanVideoConfig,
+    )
+    from video_diffusion_speedrun_tpu_torch.models.hunyuan_video import (
+        HunyuanVideo,
+    )
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    sys.path.insert(0, root)
+    from benchmark.reference import hunyuan_video as ref
+    from benchmark.reference.dit import Ops, fp32_matmuls
+
+    fp32_matmuls()
+    cfg = HunyuanVideoConfig(hidden_size=256, heads_num=2,
+                             mm_double_blocks_depth=2,
+                             mm_single_blocks_depth=2, text_states_dim=64,
+                             text_states_dim_2=32, text_len=16)
+    model = HunyuanVideo(cfg, device=dev, seed=5)
+    c = {f: getattr(cfg, f) for f in cfg.__dataclass_fields__}
+    sd = {k: v.float() for k, v in model.state_dict().items()}
+    gen = torch.Generator(device=dev).manual_seed(24)
+    x = torch.randn(1, 16, 3, 8, 8, generator=gen, device=dev).bfloat16()
+    text = torch.randn(1, 16, 64, generator=gen, device=dev).bfloat16()
+    vec2 = torch.randn(1, 32, generator=gen, device=dev).bfloat16()
+    mask = (torch.arange(16, device=dev) < 11)[None]
+    t, g = torch.tensor([870.0], device=dev), torch.tensor([6000.0],
+                                                           device=dev)
+    with torch.no_grad():
+        got = model(x, t, model.condition(text, vec2, g, mask))
+        want = ref.forward(Ops(), lambda grp: {
+            k: v for k, v in sd.items() if ref.group_of(k) == grp}, c,
+            x.float(), t, text.float(), mask, vec2.float(), g)
+    gap = float((got.float() - want).norm() / want.norm())
+    assert gap < 0.02, gap

@@ -109,6 +109,78 @@ class DiTConfig:
 
 
 @dataclass(frozen=True)
+class HunyuanVideoConfig:
+    """HunyuanVideo's MM-DiT (`HYVideo-T/2-cfgdistill` of Tencent's
+    `hyvideo/modules/models.py`, `HUNYUAN_VIDEO_CONFIG`): dual-stream
+    blocks (video and text each with their own weights, one joint
+    attention) followed by single-stream parallel blocks over [video; text],
+    a token refiner over the LLM text states, and a conditioning vector of
+    the timestep, the CLIP-pooled text and the embedded guidance scale.
+    Field names as in the published constructor."""
+
+    hidden_size: int = 3072
+    heads_num: int = 24
+    mlp_width_ratio: float = 4.0
+    mm_double_blocks_depth: int = 20
+    mm_single_blocks_depth: int = 40
+    # RoPE dims of the (t, h, w) axes; they sum to the head dim
+    rope_dim_list: tuple = (16, 56, 56)
+    rope_theta: float = 256.0
+    patch_size: tuple = (1, 2, 2)
+    in_channels: int = 16
+    out_channels: int = 16
+    qkv_bias: bool = True
+    # per-head RMSNorm of q and k (affine), eps 1e-6
+    qk_norm: bool = True
+    qk_norm_type: str = "rms"
+    mlp_act_type: str = "gelu_tanh"
+    # the LLM text states and the CLIP-pooled vector
+    text_states_dim: int = 4096
+    text_states_dim_2: int = 768
+    text_len: int = 256
+    # the token refiner: SiLU MLP, LayerNorm with affine, no qk-norm
+    refiner_depth: int = 2
+    guidance_embed: bool = True
+    # sinusoidal width of the timestep and guidance embedders
+    frequency_embedding_size: int = 256
+
+    param_dtype: torch.dtype = torch.bfloat16
+    compute_dtype: torch.dtype = torch.bfloat16
+
+    def __post_init__(self):
+        if self.hidden_size % self.heads_num != 0:
+            raise ValueError("hidden_size must be divisible by heads_num")
+        if sum(self.rope_dim_list) != self.head_dim:
+            raise ValueError(f"rope_dim_list {self.rope_dim_list} must sum "
+                             f"to the head dim {self.head_dim}")
+        if (self.qkv_bias, self.qk_norm, self.qk_norm_type,
+                self.mlp_act_type) != (True, True, "rms", "gelu_tanh"):
+            raise ValueError("the port runs the published qkv_bias, "
+                             "qk_norm 'rms' and mlp_act_type 'gelu_tanh'")
+
+    @property
+    def head_dim(self) -> int:
+        return self.hidden_size // self.heads_num
+
+    @property
+    def mlp_hidden(self) -> int:
+        return int(self.hidden_size * self.mlp_width_ratio)
+
+    @property
+    def patch_dim(self) -> int:
+        pt, ph, pw = self.patch_size
+        return self.in_channels * pt * ph * pw
+
+    @property
+    def out_patch_dim(self) -> int:
+        pt, ph, pw = self.patch_size
+        return self.out_channels * pt * ph * pw
+
+    def replace(self, **kw) -> "HunyuanVideoConfig":
+        return dataclasses.replace(self, **kw)
+
+
+@dataclass(frozen=True)
 class SamplingConfig:
     """Euler+CFG sampler config."""
 

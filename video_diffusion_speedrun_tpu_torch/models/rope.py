@@ -4,6 +4,12 @@ Rotary dim d = head_dim/2, split d/2 time + d/4 height + d/4 width, base
 100. Register tokens are prepended with the identity rotation (cos=1,
 sin=0). The rotation is the half-split one by −θ: y1 = x1·c + x2·s,
 y2 = −x1·s + x2·c, computed in fp32.
+
+HunyuanVideo's tables (`nd_rope_cos_sin`, `apply_rotary_pairs`; Tencent's
+`hyvideo/modules/posemb_layers.py`) differ in all three: the head dim is
+split by `rope_dim_list` ([16, 56, 56] over t, h, w) with θ 256, tokens
+are ordered (t, h, w), and the rotation is by +θ of interleaved pairs
+(x[2j], x[2j+1]).
 """
 
 from __future__ import annotations
@@ -94,3 +100,33 @@ def apply_rotary(x: torch.Tensor, cos: torch.Tensor,
     y1 = x1 * cos + x2 * sin
     y2 = -x1 * sin + x2 * cos
     return torch.cat([y1, y2], dim=-1).to(x.dtype)
+
+
+def nd_rope_cos_sin(grid: Tuple[int, int, int], rope_dim_list, theta: float,
+                    device=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """[T·H·W, head_dim/2] fp32 cos/sin of one frequency a pair, tokens
+    ordered (t, h, w): pair j of a token is its axis's position times that
+    axis's frequency θ^(−2i/dim), the axes' pairs concatenated t ‖ h ‖ w
+    (`get_nd_rotary_pos_embed` with `use_real`, before its
+    `repeat_interleave(2)`)."""
+    parts = []
+    for axis, (n, dim) in enumerate(zip(grid, rope_dim_list)):
+        inv = 1.0 / (theta ** (torch.arange(0, dim, 2, dtype=torch.float32,
+                                            device=device)[:dim // 2] / dim))
+        f = torch.arange(n, dtype=torch.float32, device=device)[:, None] * inv
+        shape = [1, 1, 1, dim // 2]
+        shape[axis] = n
+        parts.append(f.reshape(shape).expand(*grid, dim // 2))
+    freqs = torch.cat(parts, dim=-1).reshape(-1, sum(rope_dim_list) // 2)
+    return torch.cos(freqs), torch.sin(freqs)
+
+
+def apply_rotary_pairs(x: torch.Tensor, cos: torch.Tensor,
+                       sin: torch.Tensor) -> torch.Tensor:
+    """Rotate interleaved pairs by +θ in fp32 (`apply_rotary_emb`):
+    x [..., L, D], cos/sin [L, D/2]; y[2j] = x[2j]·c − x[2j+1]·s,
+    y[2j+1] = x[2j+1]·c + x[2j]·s, rounded back to x's dtype."""
+    xf = x.float().unflatten(-1, (-1, 2))
+    x0, x1 = xf[..., 0], xf[..., 1]
+    y = torch.stack([x0 * cos - x1 * sin, x1 * cos + x0 * sin], dim=-1)
+    return y.flatten(-2).to(x.dtype)

@@ -34,16 +34,34 @@ request; rank 0 alone prints, decodes and writes. `--mesh_context` must
 equal the number of processes (`WORLD_SIZE`): N > 1 without a launcher
 raises. `--steps_per_call`, with which JAX splits the trajectory into
 programs, is accepted and changes nothing.
+
+`--model hunyuanvideo` samples HunyuanVideo (`HYVideo-T/2-cfgdistill`,
+`models/hunyuan_video.py`) with its guidance-distilled Euler sampler
+(`euler_guidance_sample`: batch 1, `--guidance` embedded, `--flow_shift`)
+on one card, and writes the fp32 latents to `--output/--name_latents.pt`:
+
+    python -m video_diffusion_speedrun_tpu_torch.sample --model hunyuanvideo \
+        --height 544 --width 960 --num_latent_frames 9 --random_weights
+
+Its text comes from `--text_states`, a `.pt` dict of `text_states`
+[Lt, 4096], `text_mask` [Lt] (optional) and `text_states_2` [768] (the
+LLM's and CLIP's outputs); with `--random_weights` and no file the text is
+seeded noise (256 slots, all valid). `--checkpoint` takes a published
+checkpoint file (its state dict loads with `strict=True`); without one the
+weights are random. Its LLM and CLIP encoders and its VAE are not in the
+repository, so no prompt is encoded and no video decoded.
 """
 
 from __future__ import annotations
 
 import argparse
+import os
 import time
 from typing import Dict, List, Optional
 
 import torch
 
+from video_diffusion_speedrun_tpu_torch.core import config
 from video_diffusion_speedrun_tpu_torch.core.config import (
     DiTConfig,
     MeshConfig,
@@ -57,10 +75,18 @@ from video_diffusion_speedrun_tpu_torch.models.cosmos_vae import (
     load_decoder_params,
 )
 from video_diffusion_speedrun_tpu_torch.models.dit import DiT
+from video_diffusion_speedrun_tpu_torch.models.hunyuan_video import (
+    HunyuanVideo,
+    load_published,
+)
 from video_diffusion_speedrun_tpu_torch.parallel import mesh as pmesh
 from video_diffusion_speedrun_tpu_torch.parallel.ring import DistRing
 from video_diffusion_speedrun_tpu_torch.sampling.decode import save_video
-from video_diffusion_speedrun_tpu_torch.sampling.euler import generate_latents
+from video_diffusion_speedrun_tpu_torch.sampling.euler import (
+    euler_guidance_sample,
+    generate_latents,
+    initial_latents,
+)
 from video_diffusion_speedrun_tpu_torch.train.checkpoint import (
     is_port_checkpoint,
     is_torch_reference_checkpoint,
@@ -74,6 +100,16 @@ DECODE_CHUNK = 4
 
 def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    p.add_argument("--model", choices=["dit", "hunyuanvideo"],
+                   default="dit",
+                   help="the speedrun's demo DiT, or HunyuanVideo")
+    p.add_argument("--text_states", default=None,
+                   help="hunyuanvideo: a .pt dict of text_states [Lt, 4096], "
+                        "text_mask [Lt] and text_states_2 [768]")
+    p.add_argument("--guidance", type=float, default=6.0,
+                   help="hunyuanvideo: the embedded guidance scale")
+    p.add_argument("--flow_shift", type=float, default=7.0,
+                   help="hunyuanvideo: the schedule's shift")
     p.add_argument("--prompt", default=None,
                    help="the text to encode (needed whenever a T5 encodes)")
     p.add_argument("--checkpoint", default=None,
@@ -163,6 +199,61 @@ def load_decoder(decoder_weights: Optional[str], device,
     return decoder
 
 
+def sample_hunyuan(args: argparse.Namespace, device: torch.device,
+                   report: Dict) -> torch.Tensor:
+    """One HunyuanVideo request on one card: the latents, written to
+    `--output/--name_latents.pt`."""
+    if args.mesh_context != 1:
+        raise ValueError("--model hunyuanvideo samples on one card")
+    cfg = config.HunyuanVideoConfig()
+    model = HunyuanVideo(cfg, device=device, seed=0)
+    if args.checkpoint and not args.random_weights:
+        model.load_state_dict(load_published(args.checkpoint), strict=True)
+    else:
+        print("using RANDOM weights (smoke mode)")
+    if args.text_states is not None:
+        d = torch.load(args.text_states, map_location=device,
+                       weights_only=True)
+        text = d["text_states"].reshape(1, -1, cfg.text_states_dim)
+        mask = d.get("text_mask")
+        mask = None if mask is None else mask.reshape(1, -1).bool()
+        text_2 = d["text_states_2"].reshape(1, cfg.text_states_dim_2)
+    elif args.random_weights:
+        gen = torch.Generator(device=device).manual_seed(1)
+        text = torch.randn(1, cfg.text_len, cfg.text_states_dim,
+                           generator=gen, device=device)
+        text_2 = torch.randn(1, cfg.text_states_dim_2, generator=gen,
+                             device=device)
+        mask = None
+    else:
+        raise ValueError("--model hunyuanvideo needs --text_states (its "
+                         "text encoders are not in the repository), or "
+                         "--random_weights for seeded noise")
+    sampling = SamplingConfig(height=args.height, width=args.width,
+                              num_latent_frames=args.num_latent_frames,
+                              seed=args.seed)
+    gen = torch.Generator(device=device).manual_seed(args.seed)
+    noise = initial_latents(gen, sampling, channels=cfg.in_channels)
+    print(f"sampling {args.inference_steps} steps, guidance "
+          f"{args.guidance}, latents {tuple(noise.shape)} ...")
+    _sync(device)
+    t0 = time.perf_counter()
+    latents = euler_guidance_sample(
+        model, noise, text.to(cfg.compute_dtype), text_2.to(cfg.compute_dtype),
+        text_mask=mask, num_steps=args.inference_steps,
+        guidance=args.guidance, shift=args.flow_shift)
+    _sync(device)
+    report["sample_s"] = time.perf_counter() - t0
+    report["latents"] = latents
+    os.makedirs(args.output, exist_ok=True)
+    path = os.path.join(args.output, f"{args.name}_latents.pt")
+    torch.save(latents.cpu(), path)
+    report["path"] = path
+    print(f"latents {tuple(latents.shape)}, std {float(latents.std()):.3f} "
+          f"({report['sample_s']:.2f} s on {device}); wrote {path}")
+    return latents
+
+
 def _sync(device: torch.device) -> None:
     if device.type == "cuda":
         torch.cuda.synchronize(device)
@@ -175,6 +266,9 @@ def main(argv: Optional[List[str]] = None,
     context, latents, video (rank 0), path, and encode_s, sample_s,
     decode_s, write_s."""
     args = parse_args(argv)
+    report = {} if report is None else report
+    if args.model == "hunyuanvideo":
+        return sample_hunyuan(args, resolve_device(args.device), report)
     device = pmesh.init_distributed(resolve_device(args.device))
     mesh = pmesh.build_mesh(MeshConfig(fsdp=1, context=args.mesh_context),
                             device.type)
@@ -182,7 +276,6 @@ def main(argv: Optional[List[str]] = None,
     ring = None if group is None else DistRing(group)
     main_rank = pmesh.global_rank() == 0
     say = print if main_rank else (lambda *a, **k: None)
-    report = {} if report is None else report
 
     rope_order = args.rope_order
     if rope_order == "auto":

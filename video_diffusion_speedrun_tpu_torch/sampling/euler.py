@@ -16,6 +16,13 @@ Under context parallelism (`context_parallel`, a ring of
 of the ring runs the same trajectory on the same noise and context: each
 forward splits the tokens over the ring and gathers the output, so every
 rank holds the whole latents after every step.
+
+`euler_guidance_sample` is HunyuanVideo's guidance-distilled sampler
+(`models/hunyuan_video.py`; Tencent's `FlowMatchDiscreteScheduler` with
+the Euler solver): the same `schedule` with α the flow shift, one forward
+a step at batch 1 with the guidance scale as an embedding, the model's
+timestep 1000·σ, and the step x ← x + (σ_next − σ)·v into an fp32
+accumulator. Each step is a `vds/sample/step` span.
 """
 
 from __future__ import annotations
@@ -28,6 +35,7 @@ from video_diffusion_speedrun_tpu_torch.core.config import SamplingConfig
 from video_diffusion_speedrun_tpu_torch.models.dit import DiT
 from video_diffusion_speedrun_tpu_torch.models.rope import random_rope_offsets
 from video_diffusion_speedrun_tpu_torch.train.loss import time_shift
+from video_diffusion_speedrun_tpu_torch.utils.profiling import span
 
 
 def initial_latents(generator: torch.Generator, cfg: SamplingConfig,
@@ -116,3 +124,29 @@ def generate_latents(model: DiT, context: torch.Tensor,
                             cfg_scale=sampling.cfg_scale,
                             alpha=sampling.time_shift_alpha,
                             context_parallel=context_parallel, jitter=jitter)
+
+
+@torch.no_grad()
+def euler_guidance_sample(model, latents: torch.Tensor,
+                          text_states: torch.Tensor,
+                          text_states_2: torch.Tensor, *,
+                          text_mask: Optional[torch.Tensor] = None,
+                          num_steps: int = 50, guidance: float = 6.0,
+                          shift: float = 7.0) -> torch.Tensor:
+    """HunyuanVideo's Euler trajectory from `latents` [1, C, T, H, W]; returns
+    the fp32 accumulator. text_states [1, Lt, 4096] with text_mask [1, Lt]
+    (None: all valid), text_states_2 [1, 768]: the request's conditioning
+    runs once (`model.condition`), then `num_steps` forwards with the
+    embedded guidance `guidance`·1000."""
+    dev = latents.device
+    ts, dts = schedule(num_steps, shift)
+    cond = model.condition(text_states, text_states_2,
+                           torch.full((1,), guidance * 1000.0, device=dev),
+                           text_mask)
+    acc = latents.float()
+    for t, dt in zip(ts.tolist(), dts.tolist()):
+        with span("sample/step", dev):
+            v = model(acc.to(latents.dtype),
+                      torch.full((1,), 1000.0 * t, device=dev), cond)
+            acc = acc.add(v, alpha=-dt)  # x + (σ_next − σ)·v
+    return acc
