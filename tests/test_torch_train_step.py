@@ -17,6 +17,10 @@ numbers.
   whatever the size of its gradient, so a gradient component near zero
   may take another sign in the other framework's summation order — the
   relative L2 of each leaf is held at 1e-4 as well;
+- CUDA graphs: the rule that lets a step replay them, a pure predicate
+  held here on CPU objects (the replay itself is held against the eager
+  step on the card, tests/test_torch_gpu_step_graph.py); CPU steps never
+  capture; the launch counters a replay credits;
 - entry point: `python -m video_diffusion_speedrun_tpu_torch.train` takes
   3 steps on the CPU with a finite loss, also with the optimizer in the
   backward, factored ν and bf16 parameters; it refuses the card when none
@@ -56,6 +60,9 @@ from video_diffusion_speedrun_tpu_torch.models.dit import DiT
 from video_diffusion_speedrun_tpu_torch.train import __main__ as cli
 from video_diffusion_speedrun_tpu_torch.train.loss import rectified_flow_loss
 from video_diffusion_speedrun_tpu_torch.train.optim import MupAdamW
+from video_diffusion_speedrun_tpu_torch.ops import fused_attention as tfa
+from video_diffusion_speedrun_tpu_torch.parallel.ring import LocalRing
+from video_diffusion_speedrun_tpu_torch.train import step as tstep
 from video_diffusion_speedrun_tpu_torch.train.step import train_step
 
 TINY = dict(in_channels=4, patch_size=2, time_patch_size=2, hidden_size=64,
@@ -251,6 +258,115 @@ def test_grad_norm_metric_is_the_global_norm():
     m = train_step(model, opt, batch, None, cfg)
     torch.testing.assert_close(m["grad_norm"], want, rtol=1e-5, atol=0)
     assert all(p.grad is None for p in model.parameters())
+
+
+CUDA = torch.device("cuda", 0)  # a device object; no card is touched
+
+
+@pytest.mark.parametrize("case,engages", [
+    ("eligible", True), ("cpu", False), ("sharded", False),
+    ("context ring", False), ("data group", False), ("grad_accum 2", False)])
+def test_graph_engagement_rule(case, engages):
+    """A step replays CUDA graphs only on a card, for a model no process
+    shares, with no context ring, no data group and one microbatch."""
+    _, tcfg = configs("plain")
+    model = DiT(tcfg, device="cpu")
+    cfg = TrainConfig(model=tcfg, batch_size=B,
+                      grad_accum=2 if case == "grad_accum 2" else 1)
+    if case == "sharded":
+        model.sharding = object()
+    got = tstep.graph_engages(
+        torch.device("cpu") if case == "cpu" else CUDA, model, cfg,
+        LocalRing(2) if case == "context ring" else None,
+        object() if case == "data group" else None)
+    assert got is engages
+
+
+def test_graph_key_follows_shapes_and_draws():
+    """The key of a step: equal for batches that differ only in their
+    values, different for another shape, dtype, generator or dropout
+    rate, None for a batch entry off the latent's device."""
+    _, tcfg = configs("plain")
+    model = DiT(tcfg, device="cpu")
+    cfg = TrainConfig(model=tcfg, batch_size=B)
+    gen = torch.Generator().manual_seed(0)
+    a, b = ({k: torch.from_numpy(v) for k, v in bt.items()}
+            for bt in batches(2))
+    key = tstep.graph_key(model, a, gen, cfg)
+    assert key == tstep.graph_key(model, b, gen, cfg)
+    assert key != tstep.graph_key(model, dict(a, latent=a["latent"][:2]),
+                                  gen, cfg)
+    assert key != tstep.graph_key(
+        model, dict(a, context=a["context"].double()), gen, cfg)
+    assert key != tstep.graph_key(model, a, torch.Generator(), cfg)
+    assert key != tstep.graph_key(
+        model, a, gen, TrainConfig(model=tcfg, caption_dropout=0.5))
+    assert tstep.graph_key(model, dict(a, tag="x"), gen, cfg) is None
+
+
+def test_cpu_steps_never_capture():
+    """On the CPU every step is the eager one: no graph is kept and the
+    graph counters stay at 0."""
+    jcfg, tcfg = configs("fused")
+    model = port_model(tcfg, jax_params(jcfg))
+    cfg = TrainConfig(model=tcfg, batch_size=B, caption_dropout=0.0)
+    opt = MupAdamW(model.named_parameters(), LR, STEPS, cfg.optimizer)
+    for bt in batches(3):
+        m = train_step(model, opt, {k: torch.from_numpy(v)
+                                    for k, v in bt.items()}, None, cfg)
+        assert np.isfinite(float(m["loss"]))
+    assert opt.step_graphs is None
+    assert (train_step.captures, train_step.replays,
+            train_step.eager_steps) == (0, 0, 0)
+
+
+@pytest.mark.parametrize("pairing", sorted(PAIRINGS))
+def test_graph_gradients_equal_the_backward(pairing):
+    """`loss_and_grads` (the body of the step's captures) gives the loss and
+    every parameter's gradient bit for bit as `loss.backward()` leaves
+    them, remat's recompute included, writes no `.grad`, and leaves the
+    model's own parameters in place, also while an outside backward's
+    graph is still alive."""
+    jcfg, tcfg = configs(pairing)
+    model = port_model(tcfg, jax_params(jcfg))
+    cfg = TrainConfig(model=tcfg, batch_size=B, caption_dropout=0.0)
+    opt = MupAdamW(model.named_parameters(), LR, STEPS, cfg.optimizer)
+    a, b = ({k: torch.from_numpy(v) for k, v in bt.items()}
+            for bt in batches(2))
+    outside, _ = tstep._loss(model, a, None, cfg, None)
+    outside.backward()  # `outside` keeps its graph's nodes alive
+    model.zero_grad(set_to_none=True)
+    loss, aux, grads = tstep.loss_and_grads(model, opt, b, None, cfg)
+    assert all(p.grad is None for p in opt.params)
+    assert all(x is y for x, y in zip(model.parameters(), opt.params))
+    want, want_aux = tstep._loss(model, b, None, cfg, None)
+    want.backward()
+    assert torch.equal(loss, want.detach())
+    assert torch.equal(aux["bin_sums"], want_aux["bin_sums"])
+    for name, p, g in zip(opt.names, opt.params, grads):
+        if p.grad is None:
+            assert g is None, name
+        else:
+            assert g.is_contiguous() and torch.equal(g, p.grad), name
+
+
+def test_launch_counters_are_found_and_credited():
+    """`launch_counters` finds the fused ops' counters, the bias ones too;
+    `credit_launches` adds to exactly the counters it names."""
+    found = tstep.launch_counters()
+    for owner, attr in ((tfa.qkv_rope_flash_forward, "launches"),
+                        (tfa.long_attention_forward, "bias_launches"),
+                        (tfa.cross_flash_backward, "launches")):
+        assert found[(owner, attr)] == getattr(owner, attr)
+    before = dict(found)
+    tstep.credit_launches({(tfa.cross_flash_backward, "launches"): 3})
+    try:
+        after = tstep.launch_counters()
+        assert {k: after[k] - before[k] for k in before
+                if after[k] != before[k]} == {
+            (tfa.cross_flash_backward, "launches"): 3}
+    finally:
+        tfa.cross_flash_backward.launches -= 3
 
 
 ENTRY = [sys.executable, "-m", "video_diffusion_speedrun_tpu_torch.train"]

@@ -1,6 +1,8 @@
 """Training loop (port of `train/loop.py`).
 
-Each step is `train/step.py:train_step`, or with `optimizer.in_backward`
+Each step is `train/step.py:train_step` (on one card with no mesh and
+no accumulation its forward and backward replay as CUDA graphs from a
+batch shape's second step on), or with `optimizer.in_backward`
 the optimizer-in-backward step of `train/inloop.py` (JAX's
 `_build_inloop_branch`): same batches, draws and metrics; its factored
 second moment goes into the checkpoint under "vr"/"vc", whole.

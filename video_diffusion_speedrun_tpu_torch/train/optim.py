@@ -153,6 +153,8 @@ class MupAdamW:
         # use on CUDA leaves
         self._group_kernels = {}
         self._factored_kernels = {}
+        # the train step's CUDA graphs over these leaves (train/step.py)
+        self.step_graphs = None
 
     def leaves(self):
         """The local shards (p, m, v) of every leaf, in order."""
@@ -168,10 +170,12 @@ class MupAdamW:
     def refresh(self) -> None:
         """Rebuild the kernel's leaf tables at the next step: call after
         anything that may have moved the parameters' or moments' storage
-        (a checkpoint load)."""
+        (a checkpoint load); the train step's CUDA graphs, which hold the
+        old storage's addresses, are dropped with them."""
         self._kernel = None
         self._group_kernels = {}
         self._factored_kernels = {}
+        self.step_graphs = None
 
     def lr_scale(self) -> float:
         """λ at the current count: the multiplier of the next update."""

@@ -25,6 +25,15 @@ the norm of the global gradient: each shard counted once, a replicated
 leaf once. The loss is averaged and the decile bins summed over the data
 group. `LocalRing` (all ranks in one process) needs no reduction.
 
+On one card (`graph_engages`: a CUDA batch, an unsharded model, no
+context ring, no data group, no accumulation) the step's forward and
+backward are CUDA graphs, replayed on every call of the same `graph_key`
+(`StepGraph`): the first call of a key runs eagerly on the graphs' side
+stream (the warm-up), the second captures and replays, and later calls
+replay. The update stays eager. `train_step.captures`, `.replays` and
+`.eager_steps` count the steps on a card by kind (a capture's step also
+replays); every other step runs `eager_train_step`.
+
 `step_for(cfg)` picks the step of the config, as JAX's `build_train_step`
 branches on `optimizer.in_backward` (`step.py:218-317`): `train_step`,
 or the optimizer-in-backward step of `train/inloop.py`, which refuses the
@@ -33,7 +42,9 @@ context axis and `log_grad_norm` as JAX's branch does.
 
 from __future__ import annotations
 
-from typing import Dict, Optional
+import contextlib
+import sys
+from typing import Dict, Iterator, Optional, Sequence, Tuple
 
 import torch
 
@@ -82,11 +93,39 @@ def train_step(model: DiT, opt: MupAdamW, batch: Dict,
                context_parallel=None, data_group=None
                ) -> Dict[str, torch.Tensor]:
     """One optimizer step on this replica's `batch`. Returns {loss,
-    lr_scale, bin_sums, bin_counts, timesteps [, grad_norm]}; lr_scale is
-    λ of this update (the count before it), timesteps this replica's
-    draws [b]. `context_parallel`: the ring that splits
-    the tokens; `data_group`: the process group of the replicas (None:
-    one)."""
+    lr_scale, bin_sums, bin_counts, timesteps [, grad_norm]}, the tensors
+    each in storage of its own; lr_scale is λ of this update (the count
+    before it), timesteps this replica's draws [b]. `context_parallel`: the ring
+    that splits the tokens; `data_group`: the process group of the
+    replicas (None: one). On a card the step replays its CUDA graphs
+    where `graph_engages` and `graph_key` allow (`StepGraphs`)."""
+    dev = batch["latent"].device
+    if dev.type != "cuda":
+        return eager_train_step(model, opt, batch, generator, cfg,
+                                context_parallel, data_group)
+    key = (graph_key(model, batch, generator, cfg)
+           if graph_engages(dev, model, cfg, context_parallel, data_group)
+           else None)
+    if key is None:
+        train_step.eager_steps += 1
+        return eager_train_step(model, opt, batch, generator, cfg,
+                                context_parallel, data_group)
+    if opt.step_graphs is None:
+        opt.step_graphs = StepGraphs(dev)
+    return opt.step_graphs.step(key, model, opt, batch, generator, cfg)
+
+
+train_step.captures = 0  # StepGraph captures
+train_step.replays = 0  # steps that replayed a StepGraph, a capture's too
+train_step.eager_steps = 0  # steps on a card that ran eager_train_step
+
+
+def eager_train_step(model: DiT, opt: MupAdamW, batch: Dict,
+                     generator: Optional[torch.Generator], cfg: TrainConfig,
+                     context_parallel=None, data_group=None
+                     ) -> Dict[str, torch.Tensor]:
+    """`train_step` as every op's own launch, never captured: the path of
+    each step that replays no graph."""
     dev = batch["latent"].device
     with span("step", dev):
         accum = cfg.grad_accum
@@ -131,6 +170,198 @@ def train_step(model: DiT, opt: MupAdamW, batch: Dict,
         for p in opt.params:
             p.grad = None
         return metrics
+
+
+def graph_engages(device: torch.device, model: DiT, cfg: TrainConfig,
+                  context_parallel=None, data_group=None) -> bool:
+    """Whether a step on `device` may replay CUDA graphs: a card, a model
+    that no process shares (no FSDP2 or tensor sharding), no context ring,
+    no data group and one microbatch. Each of the others launches its
+    collectives or splits the batch on the host."""
+    return (device.type == "cuda" and getattr(model, "sharding", None) is None
+            and context_parallel is None and data_group is None
+            and cfg.grad_accum == 1)
+
+
+def graph_key(model: DiT, batch: Dict, generator: Optional[torch.Generator],
+              cfg: TrainConfig) -> Optional[Tuple]:
+    """What a captured step depends on beyond the batch's values: the
+    model and the generator (by identity), each batch tensor's name,
+    shape, dtype and device, and the fields of `cfg` that `_loss` reads.
+    None where a batch entry is no tensor on the latent's device."""
+    dev = batch["latent"].device
+    shapes = []
+    for k in sorted(batch):
+        v = batch[k]
+        if not isinstance(v, torch.Tensor) or v.device != dev:
+            return None
+        shapes.append((k, tuple(v.shape), v.dtype))
+    return (model, generator, dev, tuple(shapes), cfg.caption_dropout,
+            cfg.time_shift_alpha, cfg.data.caption_tokens,
+            cfg.data.context_dim)
+
+
+@contextlib.contextmanager
+def _parameters_as(model: DiT, names: Sequence[str],
+                   tensors: Sequence[torch.Tensor]) -> Iterator[None]:
+    """The model's parameters `names` replaced by `tensors` inside the
+    block."""
+    slots = []
+    for name, t in zip(names, tensors):
+        owner, _, attr = name.rpartition(".")
+        mod = model.get_submodule(owner)
+        slots.append((mod, attr, mod._parameters[attr]))
+        mod._parameters[attr] = t
+    try:
+        yield
+    finally:
+        for mod, attr, p in slots:
+            mod._parameters[attr] = p
+
+
+def loss_and_grads(model: DiT, opt: MupAdamW, batch: Dict,
+                   generator: Optional[torch.Generator], cfg: TrainConfig,
+                   forward=contextlib.nullcontext,
+                   backward=contextlib.nullcontext):
+    """(loss, aux, grads): `_loss` and the gradient of each of `opt`'s
+    parameters (None where it takes none), the values and layout that
+    `loss.backward()` leaves in `.grad`, but taken through fresh leaves
+    that alias the parameters: no `.grad` is written, and no autograd node
+    of a parameter is used, so a capture never meets a node that an
+    outside backward left alive on another stream. `forward()` and
+    `backward()` give the contexts the two halves run in (the step's two
+    graph captures)."""
+    leaves = [p.detach().requires_grad_() for p in opt.params]
+    with _parameters_as(model, opt.names, leaves):
+        with forward():
+            loss, aux = _loss(model, batch, generator, cfg, None)
+        with backward():
+            grads = [g if g is None else g.contiguous() for g in
+                     torch.autograd.grad(loss, leaves, allow_unused=True)]
+    return loss.detach(), aux, grads
+
+
+_OPS = "video_diffusion_speedrun_tpu_torch.ops."
+
+
+def launch_counters() -> Dict[Tuple[object, str], int]:
+    """Every launch counter of the fused ops loaded now: (owner, name) →
+    count, the owner a function or class of an `ops` module and the name
+    `launches` or one ending in `_launches`."""
+    out = {}
+    for name, mod in list(sys.modules.items()):
+        if not name.startswith(_OPS) or mod is None:
+            continue
+        for owner in vars(mod).values():
+            if getattr(owner, "__module__", None) != name:
+                continue
+            for attr, n in vars(owner).items():
+                if (attr == "launches" or attr.endswith("_launches")) \
+                        and type(n) is int:
+                    out[(owner, attr)] = n
+    return out
+
+
+def credit_launches(launches: Dict[Tuple[object, str], int]) -> None:
+    """Add `launches` to the launch counters they name."""
+    for (owner, attr), n in launches.items():
+        setattr(owner, attr, getattr(owner, attr) + n)
+
+
+class StepGraph:
+    """The forward and the backward of one `graph_key`'s step, captured as
+    two CUDA graphs over one private memory pool (as
+    `torch.cuda.make_graphed_callables` pairs them) on `stream`: `_loss`
+    with its draws from `generator` (registered, so that each replay
+    advances it as an eager step does), then its gradients
+    (`loss_and_grads`), into tensors the graph keeps. A replay copies the
+    batch into the static inputs, replays both graphs inside the step's
+    phase spans, and updates eagerly from the kept gradients. The capture
+    launches nothing; each replay adds to the ops' launch counters what
+    the capture's calls added."""
+
+    def __init__(self, key: Tuple, stream: torch.cuda.Stream, model: DiT,
+                 opt: MupAdamW, batch: Dict,
+                 generator: Optional[torch.Generator], cfg: TrainConfig):
+        dev = batch["latent"].device
+        self.key = key
+        self.inputs = {k: v.clone() for k, v in batch.items()}
+        self.fwd, self.bwd = torch.cuda.CUDAGraph(), torch.cuda.CUDAGraph()
+        if generator is not None \
+                and generator is not torch.cuda.default_generators[dev.index]:
+            self.fwd.register_generator_state(generator)
+        before = launch_counters()
+        loss, aux, self.grads = loss_and_grads(
+            model, opt, self.inputs, generator, cfg,
+            lambda: torch.cuda.graph(self.fwd, stream=stream),
+            lambda: torch.cuda.graph(self.bwd, pool=self.fwd.pool(),
+                                     stream=stream))
+        self.outputs = (loss, aux["bin_sums"], aux["bin_counts"],
+                        aux["timesteps"])
+        after = launch_counters()
+        self.launches = {k: n - before.get(k, 0) for k, n in after.items()
+                         if n != before.get(k, 0)}
+        credit_launches({k: -n for k, n in self.launches.items()})
+
+    def replay(self, opt: MupAdamW, batch: Dict,
+               cfg: TrainConfig) -> Dict[str, torch.Tensor]:
+        """`train_step` on `batch` (of this graph's key) by the graphs."""
+        dev = batch["latent"].device
+        with span("step", dev):
+            for k, v in batch.items():
+                self.inputs[k].copy_(v)
+            with span("step/forward", dev):
+                self.fwd.replay()
+            with span("step/backward", dev):
+                self.bwd.replay()
+            credit_launches(self.launches)
+            loss, bin_sums, bin_counts, timesteps = (
+                t.clone() for t in self.outputs)
+            metrics = {"loss": loss, "lr_scale": opt.lr_scale(),
+                       "bin_sums": bin_sums, "bin_counts": bin_counts,
+                       "timesteps": timesteps}
+            if cfg.log_grad_norm:
+                metrics["grad_norm"] = grad_norm(opt.names, self.grads)
+            opt.step(self.grads)
+            return metrics
+
+
+class StepGraphs:
+    """The train step's CUDA graphs on one card, kept on its optimizer
+    (`MupAdamW.step_graphs`, dropped by `refresh`): a side stream, the key
+    of the latest eager step and one `StepGraph`. A key's first step runs
+    eagerly on the side stream, as PyTorch's whole-network capture warms
+    up (the kernels' per-stream buffers, libraries, Triton's compiles); its
+    second captures there (a graph of another key goes first) and
+    replays; later ones replay."""
+
+    def __init__(self, device: torch.device):
+        self.stream = torch.cuda.Stream(device)
+        self.seen: Optional[Tuple] = None
+        self.graph: Optional[StepGraph] = None
+
+    def step(self, key: Tuple, model: DiT, opt: MupAdamW, batch: Dict,
+             generator: Optional[torch.Generator],
+             cfg: TrainConfig) -> Dict[str, torch.Tensor]:
+        if self.graph is None or self.graph.key != key:
+            if self.seen != key:
+                self.seen = key
+                train_step.eager_steps += 1
+                return self._warm_up(model, opt, batch, generator, cfg)
+            self.graph = None  # its pool goes before the next one fills
+            self.graph = StepGraph(key, self.stream, model, opt, batch,
+                                   generator, cfg)
+            train_step.captures += 1
+        train_step.replays += 1
+        return self.graph.replay(opt, batch, cfg)
+
+    def _warm_up(self, model, opt, batch, generator, cfg):
+        cur = torch.cuda.current_stream(self.stream.device)
+        self.stream.wait_stream(cur)
+        with torch.cuda.stream(self.stream):
+            out = eager_train_step(model, opt, batch, generator, cfg)
+        cur.wait_stream(self.stream)
+        return out
 
 
 def step_for(cfg: TrainConfig):
